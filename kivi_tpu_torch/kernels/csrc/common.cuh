@@ -1,0 +1,49 @@
+// Shared helpers for the port's CUDA kernels: the packed word layout of
+// kivi_tpu_torch/core/quant.py and scalar loads of the storage types.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math_constants.h>
+#include <stdint.h>
+
+// Finite "minus infinity" of the attention masks (never -inf: exp of a
+// difference of two -inf is NaN).
+#define KIVI_NEG_INF (-1e30f)
+
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
+    return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_f(float x) { return x; }
+
+// Slot k of a packed word, k in [0, 32/bits): the channel it holds and
+// the bit position of its code.
+//   crumbs (2/4-bit): slot k = j*2 + h  ->  channel j*(2*Dw) + 2*w + h,
+//                     bits [16*h + bits*j, +bits)
+//   planes (8-bit):   slot k = j        ->  channel j*Dw + w, bits [8*j, +8)
+__device__ __forceinline__ int slot_channel(int w, int k, int Dw, int bits) {
+    if (bits == 8) return k * Dw + w;
+    const int j = k >> 1, h = k & 1;
+    return j * (2 * Dw) + 2 * w + h;
+}
+__device__ __forceinline__ int slot_shift(int k, int bits) {
+    if (bits == 8) return 8 * k;
+    return 16 * (k & 1) + bits * (k >> 1);
+}
+
+// Inverse map: word and bit position of channel d.
+__device__ __forceinline__ void channel_slot(int d, int Dw, int bits,
+                                             int* w, int* shift) {
+    if (bits == 8) {
+        *w = d % Dw;
+        *shift = 8 * (d / Dw);
+    } else {
+        const int j = d / (2 * Dw), rem = d % (2 * Dw);
+        *w = rem >> 1;
+        *shift = 16 * (rem & 1) + bits * j;
+    }
+}
+
+__device__ __forceinline__ float code_at(uint32_t word, int shift, int bits) {
+    return (float)((word >> shift) & ((1u << bits) - 1u));
+}

@@ -1,0 +1,246 @@
+"""Decoder-only transformer (Llama-2/3, LongChat, Mistral) over the KIVI
+cache: port of the main-path subset of `kivi_tpu/models/modeling.py`.
+
+Plain functions over a parameter dict.  Weights keep the JAX package's
+(in, out) layout, so every projection is `x @ W`; layers are a list of
+per-layer dicts (see models/convert.py for the JAX pytree).  Caches are a
+list of per-layer `KiviLayerCache`s, updated in place.  Weights and
+activations are bf16 on the main path; norms and attention softmax run
+in f32.
+
+This slice ports the KIVI cache in `extend` (chunked prefill) and
+`decode` modes.  `mode="prefill"` (one-shot prefill through
+flash_attention) and the fp16 cache come with the next slice.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import List, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from kivi_tpu_torch.cache import kivi_cache as KC
+from kivi_tpu_torch.config import ModelConfig, QuantConfig
+from kivi_tpu_torch.core.attention import decode_attention, extend_attention
+
+_NEXT_SLICE = ("the next slice of the port (one-shot prefill and the "
+               "fp16-cache baseline: flash_attention, fp_decode_attention_"
+               "kernel, fp_cache.py)")
+
+
+def resolve_device(device=None) -> torch.device:
+    """The port's entry points run on CUDA unless the caller asks for the
+    CPU.  Without CUDA, a caller that did not ask for the CPU gets an
+    error, never a silent run on the host."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("CUDA is not available; pass device='cpu' "
+                               "to run the plain versions on the host")
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+# ---------------------------------------------------------------------------
+# building blocks
+# ---------------------------------------------------------------------------
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)).to(x.dtype) * w
+
+
+def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float,
+                 linear_scale: Optional[float] = None, *,
+                 cfg: Optional[ModelConfig] = None):
+    """positions (...,) int -> cos/sin (..., head_dim//2) f32 (HF
+    half-split convention).  `linear_scale` divides positions (HF
+    "linear"); a `cfg` with rope_scaling_kind == "llama3" applies the
+    frequency-dependent Llama-3.1 scheme instead."""
+    half = head_dim // 2
+    dev = positions.device
+    inv_freq = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                       device=dev) / half)
+    pos = positions.float()
+    if cfg is not None and cfg.rope_scaling is not None \
+            and cfg.rope_scaling_kind == "llama3":
+        factor = cfg.rope_scaling
+        lo_f, hi_f = cfg.rope_low_freq_factor, cfg.rope_high_freq_factor
+        orig = float(cfg.rope_original_max_position)
+        wavelen = 2.0 * math.pi / inv_freq
+        scaled = torch.where(wavelen > orig / lo_f, inv_freq / factor,
+                             inv_freq)
+        smooth = (orig / wavelen - lo_f) / (hi_f - lo_f)
+        smoothed = (1.0 - smooth) * inv_freq / factor + smooth * inv_freq
+        medium = (wavelen >= orig / hi_f) & (wavelen <= orig / lo_f)
+        inv_freq = torch.where(medium, smoothed, scaled)
+    elif linear_scale is not None:
+        pos = pos / linear_scale
+    ang = pos[..., None] * inv_freq
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor) -> torch.Tensor:
+    """HF rotate-half rope on halves: x1*cos - x2*sin || x2*cos + x1*sin,
+    computed in f32 and cast back to x's dtype."""
+    half = x.shape[-1] // 2
+    x1 = x[..., :half].float()
+    x2 = x[..., half:].float()
+    o1 = (x1 * cos - x2 * sin).to(x.dtype)
+    o2 = (x2 * cos + x1 * sin).to(x.dtype)
+    return torch.cat([o1, o2], dim=-1)
+
+
+def swiglu_mlp(x: torch.Tensor, wg, wu, wd) -> torch.Tensor:
+    return (F.silu(x @ wg) * (x @ wu)) @ wd
+
+
+# ---------------------------------------------------------------------------
+# one decoder layer
+# ---------------------------------------------------------------------------
+
+def _attention_block(x, lp, cache, cfg: ModelConfig, qcfg: QuantConfig,
+                     positions, *, mode: str, flush: bool = True,
+                     pad_len=None, prev_len: int = 0):
+    """mode: 'extend' (T suffix tokens onto a cache holding prev_len
+    tokens: chunked prefill) or 'decode' (T == 1)."""
+    if mode == "prefill":
+        raise NotImplementedError(
+            f"mode='prefill' (one-shot prefill) comes with {_NEXT_SLICE}")
+    if not isinstance(cache, KC.KiviLayerCache):
+        raise NotImplementedError(f"the fp16 cache comes with {_NEXT_SLICE}")
+    B, T, _ = x.shape
+    Hq, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+
+    q = (x @ lp["wq"]).reshape(B, T, Hq, D).transpose(1, 2)
+    k = (x @ lp["wk"]).reshape(B, T, Hkv, D).transpose(1, 2)
+    v = (x @ lp["wv"]).reshape(B, T, Hkv, D).transpose(1, 2)
+
+    cos, sin = rope_cos_sin(positions, D, cfg.rope_theta, cfg.rope_scaling,
+                            cfg=cfg)
+    cos, sin = cos[:, None], sin[:, None]
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+
+    if mode == "extend":
+        # attention reads the PRE-extension cache.  Pad slots' K/V are
+        # zeroed so the K quantization groups straddling the pad boundary
+        # see 0s (the chunk's token i sits at cache position prev_len + i)
+        if pad_len is not None:
+            cpos = prev_len + torch.arange(T, device=x.device)
+            live = cpos[None, None, :, None] >= pad_len.reshape(B, 1, 1, 1)
+            k = torch.where(live, k, torch.zeros_like(k))
+            v = torch.where(live, v, torch.zeros_like(v))
+        out = extend_attention(q, k, v, cache, qcfg,
+                               sliding_window=cfg.sliding_window,
+                               pad_len=pad_len)
+        KC.prefill_extend(cache, k, v, qcfg, prev_len)
+    elif mode == "decode":
+        KC.decode_append(cache, k, v, qcfg, do_flush=flush)
+        out = decode_attention(q, cache, qcfg,
+                               sliding_window=cfg.sliding_window,
+                               pad_len=pad_len)
+    else:
+        raise ValueError(f"unknown mode {mode!r}")
+
+    out = out.transpose(1, 2).reshape(B, T, Hq * D).to(x.dtype)
+    return out @ lp["wo"]
+
+
+def _decoder_layer(x, lp, cache, cfg, qcfg, positions, *, mode, flush=True,
+                   pad_len=None, prev_len=0):
+    h = _attention_block(rms_norm(x, lp["ln_attn"], cfg.rms_norm_eps), lp,
+                         cache, cfg, qcfg, positions, mode=mode,
+                         flush=flush, pad_len=pad_len, prev_len=prev_len)
+    x = x + h
+    return x + swiglu_mlp(rms_norm(x, lp["ln_mlp"], cfg.rms_norm_eps),
+                          lp["wg"], lp["wu"], lp["wd"])
+
+
+# ---------------------------------------------------------------------------
+# full model forward
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def forward(params: dict, tokens: torch.Tensor, caches: List, cfg:
+            ModelConfig, qcfg: QuantConfig, positions: torch.Tensor, *,
+            mode: str, last_only: bool = False, flush: bool = True,
+            pad_len: Optional[torch.Tensor] = None,
+            prev_len: int = 0) -> Tuple[torch.Tensor, List]:
+    """tokens (B, T) int; positions (B, T) int RoPE positions (for
+    left-padded rows: cache index minus pad_len, clamped at 0).  The
+    caches are updated in place.
+
+    Returns (logits (B, T, vocab) f32, caches); with last_only the logits
+    are (B, 1, vocab) for the final position."""
+    x = params["embed"][tokens]
+    for lp, cache in zip(params["layers"], caches):
+        x = _decoder_layer(x, lp, cache, cfg, qcfg, positions, mode=mode,
+                           flush=flush, pad_len=pad_len, prev_len=prev_len)
+    if last_only:
+        x = x[:, -1:]
+    x = rms_norm(x, params["ln_f"], cfg.rms_norm_eps)
+    return (x @ params["lm_head"]).float(), caches
+
+
+def init_caches(cfg: ModelConfig, qcfg: QuantConfig, batch: int,
+                max_seq_len: int, dtype=torch.bfloat16,
+                device=None) -> List[KC.KiviLayerCache]:
+    """List of per-layer caches, each preallocated at max_seq_len."""
+    device = resolve_device(device)
+    if not qcfg.quantize_kv:
+        raise NotImplementedError(f"the fp16 cache comes with {_NEXT_SLICE}")
+    return [KC.init_layer_cache(batch, cfg.num_kv_heads, cfg.head_dim,
+                                max_seq_len, qcfg, dtype, device)
+            for _ in range(cfg.num_layers)]
+
+
+def flush_caches(caches, qcfg: QuantConfig, k: bool = False,
+                 v: bool = False):
+    """Unconditional window flushes across all layers (the engine's
+    statically scheduled decode path; see KC.flush_k_now/flush_v_now)."""
+    for c in caches:
+        if k:
+            KC.flush_k_now(c, qcfg)
+        if v:
+            KC.flush_v_now(c, qcfg)
+    return caches
+
+
+# ---------------------------------------------------------------------------
+# random init (tests / benchmarks with realistic shapes)
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.bfloat16,
+                device=None) -> dict:
+    """Random weights drawn from a torch.Generator on the target device
+    (the same scales as the JAX package's init_params, not its bits)."""
+    device = resolve_device(device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    Hq, Hkv, D, Hd = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+                      cfg.hidden_size)
+    I, V = cfg.intermediate_size, cfg.vocab_size
+
+    def nrm(shape, scale):
+        w = torch.randn(shape, generator=gen, device=device,
+                        dtype=torch.float32)
+        return (w * scale).to(dtype)
+
+    def ones(n):
+        return torch.ones(n, dtype=dtype, device=device)
+
+    s = Hd ** -0.5
+    layers = [{
+        "ln_attn": ones(Hd), "ln_mlp": ones(Hd),
+        "wq": nrm((Hd, Hq * D), s), "wk": nrm((Hd, Hkv * D), s),
+        "wv": nrm((Hd, Hkv * D), s), "wo": nrm((Hq * D, Hd), s),
+        "wg": nrm((Hd, I), s), "wu": nrm((Hd, I), s),
+        "wd": nrm((I, Hd), I ** -0.5),
+    } for _ in range(cfg.num_layers)]
+    return {"embed": nrm((V, Hd), 1.0), "layers": layers,
+            "ln_f": ones(Hd), "lm_head": nrm((Hd, V), s)}

@@ -1,0 +1,153 @@
+"""Where the time of the PyTorch/CUDA port's main path goes, on one GPU.
+
+    python3 -m kivi_tpu_torch.profile_main_path [--layers N] [--steps S]
+
+Builds kivi_tpu_torch's Engine at Llama-2-7B width with random bf16
+weights (KIVI-2, group 32, residual 128, v_flush 128, batch 8, 4096-token
+cache), the configuration chip_smoke.py drives.  Two windows, each run
+once without and once under torch.profiler:
+
+  * prefill: 8 prompts of 1024 tokens in chunks of 128 (extend path);
+  * decode: S greedy steps after it (step 0 carries a V-window flush).
+
+For each window it prints the host wall time without the profiler, the
+device busy time (union of all kernel and copy intervals, profiled),
+the idle share 1 - busy/wall, the profiled span (first device start to
+last end) with its own idle share, and the device time by category and
+by kernel name with launch counts.  Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import dataclasses
+import re
+import subprocess
+import time
+
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+from kivi_tpu_torch.config import PRESETS, QuantConfig
+from kivi_tpu_torch.models import modeling
+from kivi_tpu_torch.serving.engine import Engine
+
+B, PROMPT, CHUNK, TMAX = 8, 1024, 128, 4096
+OURS = {"quantize_pack_kernel": "quantize_pack_k/v",
+        "fused_decode_kernel": "fused_decode_attention_wide",
+        "flash_extend_kernel": "flash_extend_attention"}
+GEMM = re.compile(r"gemm|nvjet|cutlass|xmma|cublas", re.I)
+
+
+def category(name: str) -> str:
+    for prefix, label in OURS.items():
+        if prefix in name:
+            return label
+    return "matmul (cuBLAS)" if GEMM.search(name) else "other torch ops"
+
+
+def report(what: str, prof, wall_s: float) -> None:
+    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not ev:
+        raise RuntimeError(f"{what}: the profiler recorded no device "
+                           "activity")
+    iv = sorted((e.time_range.start, e.time_range.end) for e in ev)
+    busy, (cur_s, cur_e) = 0.0, iv[0]
+    for s, e in iv[1:]:
+        if s > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy += cur_e - cur_s
+    span = max(e for _, e in iv) - iv[0][0]
+    # the profiler slows the host, which stretches the span; the idle
+    # share against the unprofiled wall is the one a user sees
+    print(f"[{what}] host wall {wall_s * 1e3:.3f} ms without the profiler | "
+          f"device busy {busy / 1e3:.3f} ms | idle share "
+          f"{1 - busy / 1e3 / (wall_s * 1e3):.4f} of that wall | profiled "
+          f"span {span / 1e3:.3f} ms, idle share {1 - busy / span:.4f}")
+    by_cat = collections.Counter()
+    by_name = collections.defaultdict(lambda: [0.0, 0])
+    for e in ev:
+        dt = e.time_range.end - e.time_range.start
+        by_cat[category(e.name)] += dt
+        by_name[e.name][0] += dt
+        by_name[e.name][1] += 1
+    for cat, t in by_cat.most_common():
+        print(f"[{what}]   {cat:30s} {t / 1e3:10.3f} ms "
+              f"({t / busy:.4f} of busy)")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    for name, (t, n) in top:
+        print(f"[{what}]     {t / 1e3:10.3f} ms {n:6d}x  {name[:110]}")
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--layers", type=int, default=32)
+    ap.add_argument("--steps", type=int, default=32)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_main_path: CUDA is not available")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(f"[card] {smi} | torch {torch.__version__} cuda "
+          f"{torch.version.cuda}")
+
+    cfg = dataclasses.replace(PRESETS["llama2-7b"], num_layers=args.layers)
+    qcfg = QuantConfig(2, 2, 32, 128, v_flush=128)
+    eng = Engine(cfg=cfg, qcfg=qcfg,
+                 params=modeling.init_params(cfg, seed=0, device="cuda"),
+                 max_seq_len=TMAX, batch_size=B)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (B, PROMPT), generator=gen,
+                           device="cuda")
+    pos = torch.full((B, 1), PROMPT, device="cuda")
+
+    def prefill():
+        return eng.prefill_chunked(tokens, CHUNK)
+
+    def decode(logits, caches):
+        first = logits.argmax(-1).to(torch.int32)[:, None]
+        return eng.decode(first, pos, caches, steps=args.steps,
+                          prompt_len=PROMPT)
+
+    walls = {}
+    for rep in range(2):               # the first pass builds and warms
+        # drop the last pass's caches first, so the caching allocator
+        # reuses their memory as a server's next batch would
+        logits = caches = None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = prefill()
+        torch.cuda.synchronize()
+        walls["prefill"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        decode(logits, caches)
+        torch.cuda.synchronize()
+        walls["decode"] = time.perf_counter() - t0
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    logits = caches = None
+    with profile(activities=acts) as p_pre:
+        logits, caches = prefill()
+        torch.cuda.synchronize()
+    with profile(activities=acts) as p_dec:
+        decode(logits, caches)
+        torch.cuda.synchronize()
+    print(f"[config] llama2-7b width, {args.layers} layers, KIVI-2, batch "
+          f"{B}, prompt {PROMPT} in chunks of {CHUNK}, {args.steps} decode "
+          f"steps | card {smi}")
+    report("prefill", p_pre, walls["prefill"])
+    report("decode", p_dec, walls["decode"])
+    print(f"[decode] {B * args.steps / walls['decode']:.1f} tokens/s, "
+          f"{walls['decode'] / args.steps * 1e3:.3f} ms per step")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,98 @@
+"""Sampling transforms with HuggingFace `generate()` semantics: port of
+`kivi_tpu/serving/sampling.py` (the static-control subset the engine
+uses).
+
+  * repetition penalty (CTRL): for every token id already in the
+    sequence, logit > 0 -> logit / p, logit <= 0 -> logit * p.
+  * temperature: logits / t.
+  * top-k: keep the k largest logits, others -> -inf.
+  * top-p: sort descending, keep the smallest prefix whose softmax mass
+    reaches top_p (always >= 1 token), others -> -inf.
+
+Order as in HF: penalty before the warpers, warpers in temperature ->
+top_k -> top_p order.  Draws come from an explicit torch.Generator, so
+sampled tokens differ from the JAX package's (jax.random) draws; the
+distributions are the same.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+FILTER_VALUE = -float("inf")
+
+
+def apply_repetition_penalty(logits: torch.Tensor, seen: torch.Tensor,
+                             penalty: float) -> torch.Tensor:
+    """logits (B, V) f32; seen (B, V) bool mask of token ids present in
+    the sequence so far."""
+    if penalty == 1.0:
+        return logits
+    penalized = torch.where(logits > 0, logits / penalty, logits * penalty)
+    return torch.where(seen, penalized, logits)
+
+
+def apply_top_k(logits: torch.Tensor, top_k: int) -> torch.Tensor:
+    """Keep the top_k largest logits per row."""
+    if top_k <= 0 or top_k >= logits.shape[-1]:
+        return logits
+    kth = torch.topk(logits, top_k, dim=-1).values[..., -1:]
+    return logits.masked_fill(logits < kth, FILTER_VALUE)
+
+
+def apply_top_p(logits: torch.Tensor, top_p: float) -> torch.Tensor:
+    """Nucleus filtering (min_tokens_to_keep=1): keep tokens while the
+    softmax mass of STRICTLY higher-ranked tokens is < top_p."""
+    if top_p >= 1.0:
+        return logits
+    sorted_logits = torch.sort(logits, dim=-1, descending=True).values
+    probs = torch.softmax(sorted_logits, dim=-1)
+    prev = torch.cumsum(probs, dim=-1) - probs
+    n_keep = (prev < top_p).sum(dim=-1, keepdim=True)         # >= 1
+    thr = torch.gather(sorted_logits, -1, n_keep - 1)
+    return logits.masked_fill(logits < thr, FILTER_VALUE)
+
+
+def warp_logits(logits: torch.Tensor, *, temperature: float,
+                top_k: int = 0, top_p: float = 1.0) -> torch.Tensor:
+    """HF warper chain on raw logits (..., V); temperature > 0."""
+    logits = logits / temperature
+    logits = apply_top_k(logits, top_k)
+    return apply_top_p(logits, top_p)
+
+
+def sample_step(logits: torch.Tensor,
+                generator: Optional[torch.Generator] = None, *,
+                temperature: float = 0.0, top_k: int = 0,
+                top_p: float = 1.0) -> torch.Tensor:
+    """One sampling decision from raw logits (B, V) -> token ids (B,)
+    int32.  temperature == 0 is greedy (argmax)."""
+    if temperature == 0.0:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    probs = torch.softmax(warp_logits(logits.float(),
+                                      temperature=temperature,
+                                      top_k=top_k, top_p=top_p), dim=-1)
+    return torch.multinomial(probs, 1, generator=generator)[:, 0].to(
+        torch.int32)
+
+
+def seen_mask_from_prompt(tokens: torch.Tensor, vocab_size: int,
+                          pad_len: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """(B, T) prompt ids -> (B, V) bool mask for the repetition penalty.
+    Left-pad slots (index < pad_len[b]) are excluded."""
+    B, T = tokens.shape
+    live = torch.ones((B, T), dtype=torch.bool, device=tokens.device)
+    if pad_len is not None:
+        idx = torch.arange(T, device=tokens.device)[None, :]
+        live = idx >= pad_len.reshape(B, 1)
+    seen = torch.zeros((B, vocab_size), dtype=torch.bool,
+                       device=tokens.device)
+    return seen.scatter_reduce(1, tokens.long(), live, reduce="amax")
+
+
+def update_seen(seen: torch.Tensor, token: torch.Tensor) -> torch.Tensor:
+    """Mark newly generated token ids (B,) in the (B, V) mask."""
+    return seen.scatter(1, token.long().reshape(-1, 1), True)
