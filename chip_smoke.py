@@ -9,11 +9,17 @@ Phases (any failure raises; the exit code is then non-zero):
   3. kernels vs their plain PyTorch versions on the card, at the main
      path's shapes and edge cases, timed with CUDA events beside their
      bound and a one-call PyTorch yardstick;
-  4. main path at Llama-2-7B width: Engine.generate of 8 prompts of 1024
-     tokens, chunked prefill of 128, 128 greedy tokens, KIVI-2 cache;
-     every kernel's launch count must grow during this run;
-  5. main path against the plain path: 2 layers at full width on the
-     card (kernels) and on the host CPU (plain versions), same weights.
+  4. three paths at Llama-2-7B width, sharing one set of weights:
+     Engine.generate of 8 prompts of 1024 tokens, 128 greedy tokens,
+       * KIVI-2, chunked prefill of 128 (extend + KIVI decode),
+       * KIVI-2, one-shot prefill (flash_attention + ingest + decode),
+       * the fp16 cache, one-shot prefill (flash_attention + fp decode);
+     each path's kernels must launch during its run (counts zeroed just
+     before it), and a split prefill + decode must give generate()'s
+     tokens;
+  5. the paths against the plain path: 2 layers at full width on the
+     card (kernels) and on the host CPU (plain versions), same weights:
+     chunked and one-shot prefill logits of both caches.
 
 Prints the kernels' JSON line, the card's name and power limit, and as
 the last line {"ok": true, "device": {...}}.  Exits non-zero without a
@@ -323,6 +329,120 @@ def check_extend(gen, results):
         f"KIVI-2, B={B}")
 
 
+def check_flash(gen, results):
+    import torch.nn.functional as F
+
+    from kivi_tpu_torch.kernels import flash as FL
+    name = "flash_attention"
+    T = 1024
+    worst = 0.0
+    # (T, KV heads, sliding window, pad); the main path runs the first
+    cases = [(T, H, None, None), (1000, H, None, None), (T, 8, None, None),
+             (T, H, 256, None), (T, H, None, "arange"),
+             (T, H, None, "last")]
+    timed = None
+    for t, heads, sw, pad in cases:
+        q = _randn(gen, (B, H, t, D))
+        k, v = _randn(gen, (B, heads, t, D)), _randn(gen, (B, heads, t, D))
+        pad_len = None
+        if pad == "arange":
+            pad_len = torch.arange(B, device="cuda", dtype=torch.int32) * 37
+        elif pad == "last":                 # row 0 padded to t - 1
+            pad_len = torch.zeros(B, device="cuda", dtype=torch.int32)
+            pad_len[0] = t - 1
+        kw = dict(sliding_window=sw, pad_len=pad_len)
+        got = FL.flash_attention(q, k, v, **kw)
+        want = FL.flash_attention_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        if got.dtype != torch.bfloat16:
+            raise AssertionError(f"{name}: output {got.dtype}, not bf16")
+        what = f"{name} T={t} Hkv={heads} window={sw} pad={pad}"
+        # the kernel rounds its f32 result to bf16 once: one bf16 ulp
+        # (2^-8 relative) of the largest output, plus summation order
+        err = (got.float() - want).abs().max().item()
+        scale = want.abs().max().item()
+        if not (torch.isfinite(got).all() and err <= 2.0 ** -8 * scale
+                + 1e-5):
+            raise AssertionError(f"{what}: max|kernel - plain| = "
+                                 f"{err:.3e} > 2^-8 * {scale:.3e} + 1e-5")
+        log(f"[kernel] {what}: max|kernel - plain| = {err:.3e} "
+            f"(max|plain| {scale:.3e})")
+        worst = max(worst, err)
+        if pad_len is not None:
+            # padded query rows (t < pad) come out exactly 0
+            rows = torch.arange(t, device="cuda")[None, :] < pad_len[:, None]
+            if got.float().abs().amax(dim=(1, 3))[rows].max() != 0:
+                raise AssertionError(f"{what}: padded rows are not 0")
+            log(f"[kernel] {what}: {int(rows.sum())} padded query rows "
+                f"x {H} heads exactly 0")
+        if pad == "last":
+            # the one live row of row 0 attends itself alone
+            err_v = (got[0, :, -1].float() - v[0, :, -1].float()).abs().max()
+            if err_v > 2.0 ** -8 * v.abs().max():
+                raise AssertionError(f"{what}: last row != its own V")
+        if (t, heads, sw, pad) == (T, H, None, None):
+            timed = (q, k, v)
+    q, k, v = timed
+    nbytes = 4 * q.numel() * 2                       # q, k, v, out bf16
+    bms, by = bound(nbytes, 4 * B * H * D * T * (T + 1) // 2)
+    results[name] = dict(
+        max_abs_err=worst, ms=cuda_ms(lambda: FL.flash_attention(q, k, v)),
+        plain_ms=cuda_ms(lambda: FL.flash_attention_plain(q, k, v)),
+        bound_ms=bms, bound_by=by,
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True)))
+    log(f"[kernel] {name} timed at B={B}, H={H}, T={T}, D={D}, causal")
+
+
+def check_fp_decode(gen, results):
+    import torch.nn.functional as F
+
+    from kivi_tpu_torch.cache import fp_cache as FC
+    from kivi_tpu_torch.kernels import fp_decode as FD
+    name = "fp_decode_attention_kernel"
+    worst = 0.0
+    # (fill, KV heads, query rows per KV head, mask)
+    cases = [(1, H, 1, None), (1081, H, 1, None), (TMAX, H, 1, None),
+             (1081, 8, 4, None), (1081, H, 1, "pad"), (1081, H, 1, "swa")]
+    timed = None
+    for fill, heads, r, mask in cases:
+        c = FC.init_fp_cache(B, heads, D, TMAX, device="cuda")
+        # the whole buffer random: positions past `length` must not count
+        c.k.copy_(_randn(gen, c.k.shape))
+        c.v.copy_(_randn(gen, c.v.shape))
+        c.length = fill
+        q = _randn(gen, (B, heads, r, D))
+        kw = {}
+        if mask == "pad":
+            kw["pad_len"] = torch.arange(B, device="cuda",
+                                         dtype=torch.int32) * 37
+        elif mask == "swa":
+            kw["sliding_window"] = 1000
+        got = FD.fp_decode_attention_kernel(q, c.k, c.v, fill, **kw)
+        want = FD.fp_decode_attention_plain(q, c.k, c.v, fill, **kw)
+        torch.cuda.synchronize()
+        worst = max(worst, _att_err(
+            got, want, f"{name} fill={fill} Hkv={heads} r={r} "
+                       f"mask={mask}"))
+        if (fill, r, mask) == (1081, 1, None):
+            timed = (c, q)
+    c, q = timed
+    fill = c.length
+    k = c.k[..., :fill].transpose(-1, -2).contiguous()   # (B, H, T, D)
+    v = c.v[:, :, :fill].contiguous()
+    nbytes = 2 * B * H * fill * D * 2 + q.numel() * 2 + q.numel() * 4
+    bms, by = bound(nbytes, 4 * B * H * fill * D)
+    results[name] = dict(
+        max_abs_err=worst,
+        ms=cuda_ms(lambda: FD.fp_decode_attention_kernel(q, c.k, c.v,
+                                                         fill)),
+        plain_ms=cuda_ms(lambda: FD.fp_decode_attention_plain(q, c.k, c.v,
+                                                              fill)),
+        bound_ms=bms, bound_by=by,
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v)))
+    log(f"[kernel] {name} timed at fill {fill}, B={B}, H={H}, r=1")
+
+
 def phase_kernels():
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
@@ -330,62 +450,67 @@ def phase_kernels():
     check_quant(gen, results)
     check_decode(gen, results)
     check_extend(gen, results)
+    check_flash(gen, results)
+    check_fp_decode(gen, results)
     return results
 
 
 # ---------------------------------------------------------------------------
-# phase 4: main path at full width
+# phase 4: the paths at full width
 # ---------------------------------------------------------------------------
 
-def phase_main(layers: int, smi: str):
-    import dataclasses
+KIVI_KERNELS = ("quantize_pack_k", "quantize_pack_v", "flash_extend_attention",
+                "fused_decode_attention_wide")
+# path -> (kernels that must launch, kernels that must not)
+PATHS = {
+    "chunked": (KIVI_KERNELS, ()),
+    "oneshot": (("flash_attention", "quantize_pack_k", "quantize_pack_v",
+                 "fused_decode_attention_wide"), ()),
+    "fp16": (("flash_attention", "fp_decode_attention_kernel"),
+             KIVI_KERNELS),
+}
 
-    from kivi_tpu_torch.config import PRESETS, QuantConfig
+
+def run_path(path: str, eng, tokens, new: int, smi: str) -> dict:
+    """generate() with the launch counts zeroed just before and read just
+    after; then the same path split into prefill and decode, timed, whose
+    tokens must equal generate()'s: two greedy runs of the same kernels
+    on the same weights, prompt and card."""
     from kivi_tpu_torch.kernels import _build
-    from kivi_tpu_torch.models import modeling
-    from kivi_tpu_torch.serving.engine import Engine
-
-    cfg = dataclasses.replace(PRESETS["llama2-7b"], num_layers=layers)
-    qcfg = QuantConfig(2, 2, 32, 128, v_flush=128)
-    t0 = time.perf_counter()
-    params = modeling.init_params(cfg, seed=0, device="cuda")
-    torch.cuda.synchronize()
-    log(f"[main] llama2-7b width, {layers} layers: random bf16 weights in "
-        f"{time.perf_counter() - t0:.1f} s")
-    eng = Engine(cfg=cfg, qcfg=qcfg, params=params, max_seq_len=TMAX,
-                 batch_size=B)
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(1)
-    prompt, new = 1024, 128
-    tokens = torch.randint(0, cfg.vocab_size, (B, prompt), generator=gen,
-                           device="cuda")
-
+    chunk = 128 if path == "chunked" else None
+    Bn, prompt = tokens.shape
     _build.LAUNCHES.clear()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out = eng.generate(tokens, new, prefill_chunk_size=128)
+    out = eng.generate(tokens, new, prefill_chunk_size=chunk)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(_build.LAUNCHES)
-    log(f"[main] generate({B}x{prompt}, {new} new): {wall:.2f} s, "
+    log(f"[main:{path}] generate({Bn}x{prompt}, {new} new): {wall:.2f} s, "
         f"launches {launches}")
-    for k in ("quantize_pack_k", "quantize_pack_v", "flash_extend_attention",
-              "fused_decode_attention_wide"):
+    must, must_not = PATHS[path]
+    for k in must:
         if launches.get(k, 0) <= 0:
-            raise AssertionError(f"main path never launched {k}")
-    if out.shape != (B, new) or out.min() < 0 or out.max() >= cfg.vocab_size:
+            raise AssertionError(f"{path} path never launched {k}")
+    for k in must_not:
+        if launches.get(k, 0):
+            raise AssertionError(f"{path} path launched {k}")
+    if out.shape != (Bn, new) or out.min() < 0 or \
+            out.max() >= eng.cfg.vocab_size:
         raise AssertionError(f"bad tokens: shape {tuple(out.shape)}")
 
-    # the same path split, timed by parts, logits checked
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    logits, caches = eng.prefill_chunked(tokens, 128)
+    if chunk is None:
+        first, caches = eng.prefill(tokens)
+    else:
+        logits, caches = eng.prefill_chunked(tokens, chunk)
+        if not torch.isfinite(logits).all():
+            raise AssertionError("non-finite prefill logits")
+        first = logits.argmax(-1).to(torch.int32)[:, None]
     torch.cuda.synchronize()
     t_pre = time.perf_counter() - t0
-    if not torch.isfinite(logits).all():
-        raise AssertionError("non-finite prefill logits")
-    first = logits.argmax(-1).to(torch.int32)[:, None]
-    pos = torch.full((B, 1), prompt, device="cuda")
+    pos = torch.full((Bn, 1), prompt, device="cuda")
     t0 = time.perf_counter()
     rest, caches = eng.decode(first, pos, caches, steps=new - 1,
                               prompt_len=prompt)
@@ -395,13 +520,50 @@ def phase_main(layers: int, smi: str):
                               flush=True)
     if not torch.isfinite(last).all():
         raise AssertionError("non-finite decode logits")
-    if not torch.equal(torch.cat([first, rest], 1), out):
-        log("[main] note: split run tokens differ from generate()")
-    tps = B * (new - 1) / t_dec
-    log(f"[main] prefill {B}x{prompt} (chunks of 128): {t_pre:.3f} s | "
+    split = torch.cat([first, rest], 1)
+    if not torch.equal(split, out):
+        bad = (split != out).any(dim=0).nonzero()
+        raise AssertionError(
+            f"{path}: split prefill + decode tokens differ from generate() "
+            f"from step {int(bad[0])} on")
+    tps = Bn * (new - 1) / t_dec
+    log(f"[main:{path}] prefill {Bn}x{prompt}"
+        f"{' (chunks of 128)' if chunk else ' (one-shot)'}: {t_pre:.3f} s | "
         f"decode {new - 1} steps: {t_dec:.3f} s = {tps:.1f} tokens/s | "
-        f"{layers} layers | card {smi}")
-    del params, eng, caches
+        f"{eng.cfg.num_layers} layers | card {smi}")
+    return launches
+
+
+def phase_main(layers: int, smi: str) -> dict:
+    """Returns {path: {kernel: launches}}."""
+    import dataclasses
+
+    from kivi_tpu_torch.config import PRESETS, QuantConfig
+    from kivi_tpu_torch.models import modeling
+    from kivi_tpu_torch.serving.engine import Engine
+
+    cfg = dataclasses.replace(PRESETS["llama2-7b"], num_layers=layers)
+    t0 = time.perf_counter()
+    params = modeling.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    log(f"[main] llama2-7b width, {layers} layers: random bf16 weights in "
+        f"{time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    prompt, new = 1024, 128
+    tokens = torch.randint(0, cfg.vocab_size, (B, prompt), generator=gen,
+                           device="cuda")
+    kivi = QuantConfig(2, 2, 32, 128, v_flush=128)
+    fp16 = QuantConfig(16, 16, 32, 128)
+    launches = {}
+    for path, qcfg in (("chunked", kivi), ("oneshot", kivi),
+                       ("fp16", fp16)):
+        eng = Engine(cfg=cfg, qcfg=qcfg, params=params, max_seq_len=TMAX,
+                     batch_size=B)
+        launches[path] = run_path(path, eng, tokens, new, smi)
+        del eng
+        torch.cuda.empty_cache()
+    del params
     torch.cuda.empty_cache()
     return launches
 
@@ -419,6 +581,7 @@ def phase_vs_plain():
 
     cfg = dataclasses.replace(PRESETS["llama2-7b"], num_layers=2)
     qcfg = QuantConfig(2, 2, 32, 128, v_flush=128)
+    fp16 = QuantConfig(16, 16, 32, 128)
     Bp, prompt, new, tmax = 2, 256, 32, 512
     params = modeling.init_params(cfg, seed=2, device="cuda")
     cpu_params = {k: ([{n: t.cpu() for n, t in lp.items()} for lp in v]
@@ -432,22 +595,32 @@ def phase_vs_plain():
         eng = Engine(cfg=cfg, qcfg=qcfg, params=p, max_seq_len=tmax,
                      batch_size=Bp, device=dev)
         lg, _ = eng.prefill_chunked(tokens.to(dev), 128)
-        logits[dev] = lg.float().cpu()
+        logits["chunked", dev] = lg.float().cpu()
+        lg, _ = eng._prefill(tokens.to(dev))
+        logits["oneshot", dev] = lg.float().cpu()
         outs[dev] = eng.generate(tokens.to(dev), new,
                                  prefill_chunk_size=128).cpu()
-    err = (logits["cuda"] - logits["cpu"]).abs().max().item()
-    scale = logits["cpu"].abs().max().item()
-    # bf16 activations: the card's and the host's matmuls round their
-    # bf16 outputs after differently ordered f32 sums; over two layers
-    # that moves logits by a few bf16 ulps of their scale
-    tol = 5e-2 * scale
+        eng = Engine(cfg=cfg, qcfg=fp16, params=p, max_seq_len=tmax,
+                     batch_size=Bp, device=dev)
+        lg, _ = eng._prefill(tokens.to(dev))
+        logits["fp16 oneshot", dev] = lg.float().cpu()
     agree = (outs["cuda"] == outs["cpu"]).float().mean().item()
-    log(f"[plain] 2 layers full width, B={Bp}, prompt {prompt}: prefill "
-        f"logits max|card - host| = {err:.3e} (max|host| {scale:.3e}, "
-        f"tolerance {tol:.3e}); greedy token agreement over {new} tokens: "
-        f"{agree:.3f}")
-    if not err <= tol:
-        raise AssertionError("card and host prefill logits disagree")
+    log(f"[plain] greedy token agreement (chunked, KIVI-2) over {new} "
+        f"tokens: {agree:.3f}")
+    for path in ("chunked", "oneshot", "fp16 oneshot"):
+        card, host = logits[path, "cuda"], logits[path, "cpu"]
+        err = (card - host).abs().max().item()
+        scale = host.abs().max().item()
+        # bf16 activations: the card's and the host's matmuls round their
+        # bf16 outputs after differently ordered f32 sums; over two layers
+        # that moves logits by a few bf16 ulps of their scale
+        tol = 5e-2 * scale
+        log(f"[plain] {path}: 2 layers full width, B={Bp}, prompt "
+            f"{prompt}: prefill logits max|card - host| = {err:.3e} "
+            f"(max|host| {scale:.3e}, tolerance {tol:.3e})")
+        if not err <= tol:
+            raise AssertionError(f"{path}: card and host prefill logits "
+                                 "disagree")
 
 
 def main():
@@ -472,20 +645,29 @@ def main():
         "fused_decode_attention_wide": (
             "kivi_tpu_torch/kernels/csrc/fused_decode.cu",
             "kivi_tpu/kernels/fused_decode_wide.py:544"),
+        "flash_attention": ("kivi_tpu_torch/kernels/csrc/flash.cu",
+                            "kivi_tpu/kernels/flash.py:118"),
+        "fp_decode_attention_kernel": (
+            "kivi_tpu_torch/kernels/csrc/fp_decode.cu",
+            "kivi_tpu/kernels/fp_decode.py:84"),
     }
+    yardstick = {"flash_attention": "SDPA, causal",
+                 "fp_decode_attention_kernel": "SDPA over the live K/V"}
     kernels = []
     for k, (src, rep) in sources.items():
         r = results[k]
         lib = r["library_ms"]
+        what = yardstick.get(k, "SDPA over the cache dequantized to bf16")
         yard = ("no library call" if lib is None else
-                f"library (SDPA over the cache dequantized to bf16) "
-                f"{lib:.4f} ms")
+                f"library ({what}) {lib:.4f} ms")
+        by_path = {p: n[k] for p, n in launches.items() if n.get(k)}
+        total = sum(by_path.values())
         log(f"[time] {k}: {r['ms']:.4f} ms | plain {r['plain_ms']:.4f} ms "
             f"| bound {r['bound_ms']:.4f} ms ({r['bound_by']}) | {yard} | "
-            f"{launches.get(k, 0)} launches on the main path | card {smi}")
+            f"launches {by_path} | card {smi}")
         kernels.append({"name": k, "route": "cuda", "source": src,
-                        "replaces": rep, "launches": launches.get(k, 0),
-                        **r})
+                        "replaces": rep, "launches": total,
+                        "launches_by_path": by_path, **r})
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -9,8 +9,9 @@ numpy, never JAX or the JAX package.
 Entry points run on CUDA unless the caller passes device="cpu", where
 every kernel wrapper takes its plain PyTorch version.
 
-This slice holds the KIVI serving main path: chunked prefill through the
-extend attention and greedy/sampled decode.
+It holds the KIVI serving main path (chunked prefill through the extend
+attention, or one-shot prefill through flash attention, then
+greedy/sampled decode) and the fp16-cache baseline engine beside it.
 """
 
 from kivi_tpu_torch.config import (PRESETS, ModelConfig, QuantConfig,

@@ -1,0 +1,134 @@
+"""Full-precision KV cache, the fp16-cache baseline: port of
+`kivi_tpu/cache/fp_cache.py` (all but `fp_append_masked`, which belongs
+to the continuous batcher).
+
+The same static preallocation as the KIVI cache, so the two engines are
+compared like for like: K is stored TRANSPOSED, (B, H, D, Tmax), the
+token axis last as in the KIVI stores; V is (B, H, Tmax, D).  Appends
+`copy_` into slices of the preallocated tensors in place; `length` is a
+host int, uniform over the batch.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import torch
+
+from kivi_tpu_torch.kernels.fp_decode import (NEG_INF,
+                                               fp_decode_attention_kernel)
+from kivi_tpu_torch.utils.device import resolve_device
+
+
+@dataclasses.dataclass
+class FpLayerCache:
+    """k: (B, H, D, Tmax) transposed keys; v: (B, H, Tmax, D); length:
+    host int count of valid tokens."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    length: int = 0
+
+    @property
+    def seq_len(self) -> int:
+        return self.length
+
+    @property
+    def max_seq_len(self) -> int:
+        return self.k.shape[-1]
+
+
+def init_fp_cache(batch: int, num_kv_heads: int, head_dim: int,
+                  max_seq_len: int, dtype=torch.bfloat16,
+                  device=None) -> FpLayerCache:
+    """An empty cache preallocated at max_seq_len, on CUDA unless `device`
+    says otherwise (utils.device.resolve_device)."""
+    device = resolve_device(device)
+    B, H, D, T = batch, num_kv_heads, head_dim, max_seq_len
+    return FpLayerCache(
+        k=torch.zeros((B, H, D, T), dtype=dtype, device=device),
+        v=torch.zeros((B, H, T, D), dtype=dtype, device=device))
+
+
+def fp_append(cache: FpLayerCache, k_new, v_new) -> FpLayerCache:
+    """Append T tokens of (B, H, T, D) in place at `length`."""
+    t = k_new.shape[-2]
+    off = cache.length
+    assert off + t <= cache.max_seq_len, "cache too small"
+    cache.k[..., off:off + t].copy_(k_new.transpose(-1, -2))
+    cache.v[:, :, off:off + t].copy_(v_new)
+    cache.length = off + t
+    return cache
+
+
+def fp_extend_attention(q, k_new, v_new, cache: FpLayerCache,
+                        sliding_window: Optional[int] = None,
+                        pad_len: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """Multi-token continuation attention over the fp cache: T1 suffix
+    queries attend the cached history [0, length) plus themselves
+    causally (the twin of core.attention.extend_attention).
+
+    q: (B, Hq, T1, D); k_new/v_new: (B, Hkv, T1, D), NOT yet appended.
+    Returns (B, Hq, T1, D) f32.  pad_len masks history positions below
+    each row's left pad; the causal diagonal is exempt inside the
+    predicate, so a fully padded row keeps a finite softmax.
+
+    The JAX package computes this with plain einsums and no Pallas
+    kernel; so does the port, on the CPU and the card alike.  It reads
+    only the live history [0, length): the masked positions past it
+    contribute exact zeros in the JAX version."""
+    B, Hq, T1, D = q.shape
+    Hkv = cache.k.shape[1]
+    r = Hq // Hkv
+    T0 = cache.length
+    dev = q.device
+    qg = q.reshape(B, Hkv, r, T1, D).float()
+
+    att_h = torch.einsum("bhrqd,bhdt->bhrqt", qg, cache.k[..., :T0].float())
+    pos = torch.arange(T0, device=dev)
+    att_s = torch.einsum("bhrqd,bhjd->bhrqj", qg, k_new.float())
+    qi = torch.arange(T1, device=dev)[:, None]
+    kj = torch.arange(T1, device=dev)[None, :]
+    att_s = att_s.masked_fill(kj > qi, NEG_INF)
+
+    if sliding_window:
+        lo = (T0 + torch.arange(T1, device=dev)
+              - (sliding_window - 1)).reshape(1, 1, 1, T1, 1)
+        att_h = att_h.masked_fill(pos < lo, NEG_INF)
+        att_s = att_s.masked_fill(kj + T0 < lo, NEG_INF)
+
+    if pad_len is not None:
+        pad = pad_len.to(device=dev, dtype=torch.int64).reshape(B, 1, 1, 1,
+                                                                1)
+        att_h = att_h.masked_fill(pos < pad, NEG_INF)
+        keep = (kj + T0 >= pad) | (kj == qi)
+        att_s = att_s.masked_fill(~keep, NEG_INF)
+
+    att = torch.cat([att_h, att_s], dim=-1) / math.sqrt(D)
+    p = torch.softmax(att, dim=-1)
+    out = torch.einsum("bhrqt,bhtd->bhrqd", p[..., :T0],
+                       cache.v[:, :, :T0].float())
+    out = out + torch.einsum("bhrqj,bhjd->bhrqd", p[..., T0:],
+                             v_new.float())
+    return out.reshape(B, Hq, T1, D)
+
+
+def fp_decode_attention(q, cache: FpLayerCache,
+                        sliding_window: Optional[int] = None,
+                        pad_len: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """Exact single-token decode attention over the fp cache.
+
+    q: (B, Hq, 1, D) -> (B, Hq, 1, D) f32.  CUDA tensors go to the
+    flash-decode kernel (kernels/fp_decode.py), CPU tensors to its plain
+    version.  pad_len: optional (B,) int left pad per row."""
+    B, Hq, M, D = q.shape
+    Hkv = cache.k.shape[1]
+    r = Hq // Hkv
+    out = fp_decode_attention_kernel(
+        q.reshape(B, Hkv, r, D).contiguous(), cache.k, cache.v,
+        cache.length, sliding_window=sliding_window, pad_len=pad_len)
+    return out.reshape(B, Hq, M, D)

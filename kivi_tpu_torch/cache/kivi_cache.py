@@ -29,6 +29,7 @@ import torch
 from kivi_tpu_torch.config import QuantConfig
 from kivi_tpu_torch.core import quant as Q
 from kivi_tpu_torch.kernels.quant_pack import quantize_pack_k, quantize_pack_v
+from kivi_tpu_torch.utils.device import resolve_device
 
 
 @dataclasses.dataclass
@@ -75,7 +76,10 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
 
 def init_layer_cache(batch: int, num_kv_heads: int, head_dim: int,
                      max_seq_len: int, qcfg: QuantConfig,
-                     dtype=torch.bfloat16, device="cpu") -> KiviLayerCache:
+                     dtype=torch.bfloat16, device=None) -> KiviLayerCache:
+    """An empty cache preallocated at max_seq_len, on CUDA unless
+    `device` says otherwise (utils.device.resolve_device)."""
+    device = resolve_device(device)
     gs, W = qcfg.group_size, qcfg.residual_length
     assert max_seq_len % gs == 0
     assert head_dim % gs == 0, (

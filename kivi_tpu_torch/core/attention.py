@@ -1,6 +1,6 @@
-"""KIVI attention over the static split cache: port of the main-path
-subset of `kivi_tpu/core/attention.py` (`decode_attention`,
-`extend_attention`).
+"""KIVI attention over the static split cache, and exact prefill
+attention: port of the main-path subset of `kivi_tpu/core/attention.py`
+(`decode_attention`, `extend_attention`, `prefill_attention`).
 
 Decode attention is the KIVI reference's two-half softmax (its
 `models/llama_kivi.py:115-129, 167-172, 323-399`):
@@ -31,6 +31,7 @@ import torch
 
 from kivi_tpu_torch.cache.kivi_cache import KiviLayerCache
 from kivi_tpu_torch.config import QuantConfig
+from kivi_tpu_torch.kernels.flash import flash_attention
 from kivi_tpu_torch.kernels.flash_extend import flash_extend_attention
 from kivi_tpu_torch.kernels.fused_decode_wide import \
     fused_decode_attention_wide
@@ -99,3 +100,22 @@ def extend_attention(q: torch.Tensor, k_new: torch.Tensor,
         v_bits=qcfg.v_bits, t1=T1, sliding_window=sliding_window or 0,
         pad_len=pad_len)
     return out.reshape(B, Hq, T1, D)
+
+
+def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      *, sliding_window: Optional[int] = None,
+                      pad_len: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
+    """Exact causal attention for one-shot prefill (full precision, no
+    quantization): the reference's exact-prefill design, attention first
+    and the prompt's K/V quantized afterwards.
+
+    q: (B, Hq, T, D); k, v: (B, Hkv, T, D).  Returns (B, Hq, T, D): f32
+    from the plain version (CPU), bf16 from the kernel (CUDA), rounded
+    once from its f32 accumulator.
+
+    pad_len: optional (B,) int left pad per row; key positions
+    < pad_len[b] are masked.  Query rows at padded positions softmax
+    over an empty set and emit exactly 0."""
+    return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                           sliding_window=sliding_window, pad_len=pad_len)

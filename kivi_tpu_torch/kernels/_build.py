@@ -60,6 +60,16 @@ SIGNATURES = {
         # scale_is_f32, sm_scale, stream
         "kivi_flash_extend": [_P] * 13 + [_I] * 15 + [_F, _P],
     },
+    "flash": {
+        # q, k, v, pad, out, B, Hq, Hkv, T, D, sliding_window, sm_scale,
+        # stream
+        "kivi_flash_prefill": [_P] * 5 + [_I] * 6 + [_F, _P],
+    },
+    "fp_decode": {
+        # q, k, v, pad, out, B, H, r, D, Tmax, length, sliding_window,
+        # sm_scale, stream
+        "kivi_fp_decode": [_P] * 5 + [_I] * 7 + [_F, _P],
+    },
 }
 
 _LIBS: dict = {}

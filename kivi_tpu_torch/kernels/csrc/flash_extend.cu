@@ -28,20 +28,21 @@
 // of K is dequantized (code*scale + min in f32) or copied from the
 // window / new keys into shared memory, transposed; V likewise, natural
 // layout.  Each thread owns a 4x4 patch of the 64x64 logit tile and a
-// 4x8 patch of the 64x128 output.  Chunks wholly below every row's lower
-// bound or past the tile's last causal position are never visited.
+// 4x8 patch of the 64x128 output (the `tile` helpers of common.cuh,
+// shared with the prefill kernel flash.cu).  Chunks wholly below every
+// row's lower bound or past the tile's last causal position are never
+// visited.
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int NT = 256;   // threads: ty = tid / 16, tx = tid % 16
-constexpr int QT = 64;    // query rows per block
-constexpr int CK = 64;    // key positions per chunk
-constexpr int DMAX = 128;
-constexpr int RA = QT / 16;    // rows per thread
-constexpr int CA = CK / 16;    // logit columns per thread
-constexpr int DA = DMAX / 16;  // output columns per thread
+using tile::CA;
+using tile::CK;
+using tile::DA;
+using tile::NT;
+using tile::QT;
+using tile::RA;
 
 template <typename ST>
 __global__ void __launch_bounds__(NT)
@@ -61,10 +62,10 @@ flash_extend_kernel(const __nv_bfloat16* __restrict__ q,
                     int Tmax, int W, int gs, int k_bits, int v_bits,
                     int nkq, int nkw, int nvq, int sw, float sm_scale) {
     extern __shared__ float sm[];
-    float* Qs = sm;                        // (D, QT+1)  transposed queries
-    float* Ks = Qs + D * (QT + 1);         // (D, CK+1)  transposed keys
-    float* Vs = Ks + D * (CK + 1);         // (CK, D+1)
-    float* Ps = Vs + CK * (D + 1);         // (QT, CK+1) probabilities
+    const tile::Smem sh = tile::carve(sm, D);
+    float* const Qs = sh.Qs;
+    float* const Ks = sh.Ks;
+    float* const Vs = sh.Vs;
     __shared__ int range_lo, range_hi;
 
     const int bh = blockIdx.y, b = bh / H;
@@ -107,13 +108,7 @@ flash_extend_kernel(const __nv_bfloat16* __restrict__ q,
     const int p_begin = (range_lo / CK) * CK, p_end = range_hi;
 
     float m[RA], l[RA], acc[RA][DA];
-#pragma unroll
-    for (int a = 0; a < RA; ++a) {
-        m[a] = KIVI_NEG_INF;
-        l[a] = 0.f;
-#pragma unroll
-        for (int e = 0; e < DA; ++e) acc[a][e] = 0.f;
-    }
+    tile::init(m, l, acc);
 
     for (int c0 = p_begin; c0 < p_end; c0 += CK) {
         __syncthreads();   // previous chunk's readers are done
@@ -167,73 +162,22 @@ flash_extend_kernel(const __nv_bfloat16* __restrict__ q,
         }
         __syncthreads();
 
-        // ---- logits S = Q K^T on this thread's 4x4 patch ----
         float s[RA][CA];
+        tile::qk(sh, D, ty, tx, s);
+        // history + causal self block above the row's lower bound; the
+        // causal diagonal is exempt from the bound inside the predicate
+        bool ok[RA][CA];
 #pragma unroll
         for (int a = 0; a < RA; ++a)
 #pragma unroll
-            for (int c = 0; c < CA; ++c) s[a][c] = 0.f;
-        for (int d = 0; d < D; ++d) {
-            float qv[RA], kv[CA];
-#pragma unroll
-            for (int a = 0; a < RA; ++a) qv[a] = Qs[d * (QT + 1) + ty + 16 * a];
-#pragma unroll
-            for (int c = 0; c < CA; ++c) kv[c] = Ks[d * (CK + 1) + tx + 16 * c];
-#pragma unroll
-            for (int a = 0; a < RA; ++a)
-#pragma unroll
-                for (int c = 0; c < CA; ++c) s[a][c] += qv[a] * kv[c];
-        }
-
-        // ---- online softmax per row (16 lanes share a row) ----
-#pragma unroll
-        for (int a = 0; a < RA; ++a) {
-            bool ok[CA];
-            float rmax = KIVI_NEG_INF;
-#pragma unroll
             for (int c = 0; c < CA; ++c) {
                 const int pos = c0 + tx + 16 * c;
-                bool v = live[a] && pos < T0 + qi[a] + 1;   // history + causal
-                v = v && (pos >= rlo[a] || pos == T0 + qi[a]);
-                ok[c] = v;
-                s[a][c] *= sm_scale;
-                if (v) rmax = fmaxf(rmax, s[a][c]);
+                ok[a][c] = live[a] && pos < T0 + qi[a] + 1
+                           && (pos >= rlo[a] || pos == T0 + qi[a]);
             }
-            for (int o = 8; o > 0; o >>= 1)
-                rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, o));
-            const float m_new = fmaxf(m[a], rmax);
-            const float alpha = expf(m[a] - m_new);
-            float rsum = 0.f;
-#pragma unroll
-            for (int c = 0; c < CA; ++c) {
-                const float p = ok[c] ? expf(s[a][c] - m_new) : 0.f;
-                Ps[(ty + 16 * a) * (CK + 1) + tx + 16 * c] = p;
-                rsum += p;
-            }
-            for (int o = 8; o > 0; o >>= 1)
-                rsum += __shfl_xor_sync(0xffffffffu, rsum, o);
-            l[a] = l[a] * alpha + rsum;
-            m[a] = m_new;
-#pragma unroll
-            for (int e = 0; e < DA; ++e) acc[a][e] *= alpha;
-        }
+        tile::softmax_step(sh, s, ok, sm_scale, m, l, acc, ty, tx);
         __syncthreads();
-
-        // ---- O += P V on this thread's 4x8 patch ----
-        for (int kj = 0; kj < CK; ++kj) {
-            float pv[RA], vv[DA];
-#pragma unroll
-            for (int a = 0; a < RA; ++a) pv[a] = Ps[(ty + 16 * a) * (CK + 1) + kj];
-#pragma unroll
-            for (int e = 0; e < DA; ++e) {
-                const int d = tx + 16 * e;
-                vv[e] = d < D ? Vs[kj * (D + 1) + d] : 0.f;
-            }
-#pragma unroll
-            for (int a = 0; a < RA; ++a)
-#pragma unroll
-                for (int e = 0; e < DA; ++e) acc[a][e] += pv[a] * vv[e];
-        }
+        tile::pv(sh, D, ty, tx, acc);
     }
 
 #pragma unroll
@@ -256,8 +200,7 @@ int launch(const void* q, const void* kc, const void* ks, const void* km,
            void* out, int B, int H, int R, int T1, int D, int Tmax, int W,
            int gs, int kb, int vb, int nkq, int nkw, int nvq, int sw,
            float sm_scale, cudaStream_t stream) {
-    const size_t smem = sizeof(float) * (size_t)(
-        D * (QT + 1) + D * (CK + 1) + CK * (D + 1) + QT * (CK + 1));
+    const size_t smem = tile::smem_bytes(D);
     auto kern = flash_extend_kernel<ST>;
     if (smem > 48 * 1024) {
         cudaError_t e = cudaFuncSetAttribute(

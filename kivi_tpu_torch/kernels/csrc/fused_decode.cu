@@ -35,30 +35,6 @@ namespace {
 constexpr int NT = 128;      // threads per block == positions per chunk
 constexpr int NW = NT / 32;
 
-template <int R>
-__device__ __forceinline__ void block_reduce(float (&v)[R], float* red,
-                                             bool is_max) {
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-    for (int rr = 0; rr < R; ++rr) {
-        float x = v[rr];
-        for (int o = 16; o > 0; o >>= 1) {
-            const float y = __shfl_xor_sync(0xffffffffu, x, o);
-            x = is_max ? fmaxf(x, y) : x + y;
-        }
-        if (lane == 0) red[rr * NW + warp] = x;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int rr = 0; rr < R; ++rr) {
-        float x = red[rr * NW];
-        for (int w = 1; w < NW; ++w)
-            x = is_max ? fmaxf(x, red[rr * NW + w]) : x + red[rr * NW + w];
-        v[rr] = x;
-    }
-    __syncthreads();
-}
-
 template <int R, typename ST>
 __global__ void __launch_bounds__(NT)
 fused_decode_kernel(const __nv_bfloat16* __restrict__ q,
@@ -167,7 +143,7 @@ fused_decode_kernel(const __nv_bfloat16* __restrict__ q,
             s[rr] *= sm_scale;
             cmax[rr] = valid ? s[rr] : KIVI_NEG_INF;
         }
-        block_reduce<R>(cmax, red, true);
+        block_reduce<R, NT>(cmax, red, true);
         float alpha[R], psum[R];
 #pragma unroll
         for (int rr = 0; rr < R; ++rr) {
@@ -178,7 +154,7 @@ fused_decode_kernel(const __nv_bfloat16* __restrict__ q,
             psum[rr] = p;
             m[rr] = m_new;
         }
-        block_reduce<R>(psum, red, false);   // also orders the p_s writes
+        block_reduce<R, NT>(psum, red, false);  // also orders p_s writes
 #pragma unroll
         for (int rr = 0; rr < R; ++rr) {
             l[rr] = l[rr] * alpha[rr] + psum[rr];

@@ -1,0 +1,100 @@
+"""Single-token decode attention over the full-precision cache (the
+fp16-cache baseline): wrapper of `csrc/fp_decode.cu` (port of
+`fp_decode_attention_kernel` in `kivi_tpu/kernels/fp_decode.py`) and its
+plain version.
+
+The r query rows of each KV head attend cache positions p < length with
+p >= pad_b (left pad) and, with a sliding window, p >= length - window.
+K is stored transposed, (B, H, D, Tmax); V is (B, H, Tmax, D).
+
+The plain version is the Pallas body's function in f32: logits in f32
+from the bf16 query and keys, probabilities kept in f32, and 0 for a row
+with no admitted position (the `l > 0` guard).  It reads only the live
+positions [0, length).  The JAX package's `impl="jnp"` oracle
+(`kivi_tpu/cache/fp_cache.py:183-195`) rounds the query and the
+probabilities (and, over a bf16 cache, the logits and the output) to
+bf16 along the way, and the Pallas kernel rounds the probabilities to
+bf16 before PV; the port rounds neither.
+
+A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+or raises.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from kivi_tpu_torch.kernels import _build
+
+NEG_INF = -1e30
+_ROWS = (1, 2, 4, 8)  # query rows per KV head the kernel is built for
+
+
+def fp_decode_attention_plain(qg, k, v, length: int, *,
+                              sliding_window: Optional[int] = None,
+                              pad_len: Optional[torch.Tensor] = None
+                              ) -> torch.Tensor:
+    """qg (B, H, r, D); k (B, H, D, Tmax); v (B, H, Tmax, D); length: host
+    int count of valid positions.  Returns (B, H, r, D) f32."""
+    B, H, r, D = qg.shape
+    dev = qg.device
+    kk = k[..., :length].float()
+    vv = v[:, :, :length].float()
+    att = torch.einsum("bhrd,bhdt->bhrt", qg.float(), kk) * (
+        1.0 / math.sqrt(D))
+    # first admitted position of each row: the left pad, raised by the
+    # sliding window
+    lo = torch.zeros((B, 1), dtype=torch.int64, device=dev)
+    if pad_len is not None:
+        lo = torch.clamp(pad_len.to(device=dev, dtype=torch.int64)
+                         .reshape(B, 1), min=0)
+    if sliding_window:
+        lo = torch.clamp(lo, min=length - sliding_window)
+    valid = (torch.arange(length, device=dev) >= lo).reshape(B, 1, 1,
+                                                             length)
+    att = att.masked_fill(~valid, NEG_INF)
+    m = att.amax(dim=-1, keepdim=True)
+    p = torch.where(valid, torch.exp(att - m), 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bhrt,bhtd->bhrd", p, vv)
+    return out / torch.where(l > 0, l, 1.0)
+
+
+def fp_decode_attention_kernel(qg, k, v, length: int, *,
+                               sliding_window: Optional[int] = None,
+                               pad_len: Optional[torch.Tensor] = None
+                               ) -> torch.Tensor:
+    """Flash-decode over the fp cache; see fp_decode_attention_plain for
+    the contract.  On CUDA: qg, k and v contiguous bf16, r in
+    (1, 2, 4, 8), D <= 128, 1 <= length <= Tmax."""
+    if not qg.is_cuda:
+        return fp_decode_attention_plain(qg, k, v, length,
+                                         sliding_window=sliding_window,
+                                         pad_len=pad_len)
+    name = "fp_decode_attention_kernel"
+    B, H, r, D = qg.shape
+    Tmax = k.shape[-1]
+    length = int(length)
+    if r not in _ROWS or D > 128 or not 1 <= length <= Tmax:
+        raise ValueError(f"{name}: unsupported r={r} D={D} "
+                         f"length={length} Tmax={Tmax}")
+    _build.check_tensors(name, qg.device, {
+        "qg": (qg, (B, H, r, D), torch.bfloat16),
+        "k": (k, (B, H, D, Tmax), torch.bfloat16),
+        "v": (v, (B, H, Tmax, D), torch.bfloat16),
+    })
+    if pad_len is not None:
+        pad_len = pad_len.to(device=qg.device, dtype=torch.int32)
+        pad_len = pad_len.reshape(B).contiguous()
+    out = torch.empty((B, H, r, D), dtype=torch.float32, device=qg.device)
+    lib = _build.library("fp_decode")
+    err = lib.kivi_fp_decode(
+        qg.data_ptr(), k.data_ptr(), v.data_ptr(), _build.ptr(pad_len),
+        out.data_ptr(), B, H, r, D, Tmax, length, int(sliding_window or 0),
+        1.0 / math.sqrt(D), _build.stream_handle(qg.device))
+    _build.check(err, name)
+    _build.LAUNCHES[name] += 1
+    return out

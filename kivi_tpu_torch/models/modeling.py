@@ -1,16 +1,16 @@
 """Decoder-only transformer (Llama-2/3, LongChat, Mistral) over the KIVI
-cache: port of the main-path subset of `kivi_tpu/models/modeling.py`.
+or the fp16 cache: port of the main-path subset of
+`kivi_tpu/models/modeling.py`.
 
 Plain functions over a parameter dict.  Weights keep the JAX package's
 (in, out) layout, so every projection is `x @ W`; layers are a list of
 per-layer dicts (see models/convert.py for the JAX pytree).  Caches are a
-list of per-layer `KiviLayerCache`s, updated in place.  Weights and
-activations are bf16 on the main path; norms and attention softmax run
-in f32.
+list of per-layer `KiviLayerCache`s or `FpLayerCache`s, updated in
+place.  Weights and activations are bf16 on the main path; norms and
+attention softmax run in f32.
 
-This slice ports the KIVI cache in `extend` (chunked prefill) and
-`decode` modes.  `mode="prefill"` (one-shot prefill through
-flash_attention) and the fp16 cache come with the next slice.
+Modes: `prefill` (one-shot, through flash_attention), `extend` (chunked
+prefill) and `decode`, over either cache.
 """
 
 from __future__ import annotations
@@ -22,24 +22,16 @@ import torch
 import torch.nn.functional as F
 
 from kivi_tpu_torch.cache import kivi_cache as KC
+from kivi_tpu_torch.cache.fp_cache import (FpLayerCache, fp_append,
+                                           fp_decode_attention,
+                                           fp_extend_attention,
+                                           init_fp_cache)
 from kivi_tpu_torch.config import ModelConfig, QuantConfig
-from kivi_tpu_torch.core.attention import decode_attention, extend_attention
-
-_NEXT_SLICE = ("the next slice of the port (one-shot prefill and the "
-               "fp16-cache baseline: flash_attention, fp_decode_attention_"
-               "kernel, fp_cache.py)")
-
-
-def resolve_device(device=None) -> torch.device:
-    """The port's entry points run on CUDA unless the caller asks for the
-    CPU.  Without CUDA, a caller that did not ask for the CPU gets an
-    error, never a silent run on the host."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("CUDA is not available; pass device='cpu' "
-                               "to run the plain versions on the host")
-        return torch.device("cuda")
-    return torch.device(device)
+from kivi_tpu_torch.core.attention import (decode_attention,
+                                           extend_attention,
+                                           prefill_attention)
+# re-exported: entry points resolve their device here
+from kivi_tpu_torch.utils.device import resolve_device  # noqa: F401
 
 
 # ---------------------------------------------------------------------------
@@ -105,15 +97,13 @@ def swiglu_mlp(x: torch.Tensor, wg, wu, wd) -> torch.Tensor:
 def _attention_block(x, lp, cache, cfg: ModelConfig, qcfg: QuantConfig,
                      positions, *, mode: str, flush: bool = True,
                      pad_len=None, prev_len: int = 0):
-    """mode: 'extend' (T suffix tokens onto a cache holding prev_len
-    tokens: chunked prefill) or 'decode' (T == 1)."""
-    if mode == "prefill":
-        raise NotImplementedError(
-            f"mode='prefill' (one-shot prefill) comes with {_NEXT_SLICE}")
-    if not isinstance(cache, KC.KiviLayerCache):
-        raise NotImplementedError(f"the fp16 cache comes with {_NEXT_SLICE}")
+    """mode: 'prefill' (T tokens into an empty cache), 'extend' (T suffix
+    tokens onto a cache holding prev_len tokens: chunked prefill) or
+    'decode' (T == 1).  The cache is a KiviLayerCache or an
+    FpLayerCache."""
     B, T, _ = x.shape
     Hq, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    fp = isinstance(cache, FpLayerCache)
 
     q = (x @ lp["wq"]).reshape(B, T, Hq, D).transpose(1, 2)
     k = (x @ lp["wk"]).reshape(B, T, Hkv, D).transpose(1, 2)
@@ -125,24 +115,47 @@ def _attention_block(x, lp, cache, cfg: ModelConfig, qcfg: QuantConfig,
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
 
-    if mode == "extend":
-        # attention reads the PRE-extension cache.  Pad slots' K/V are
-        # zeroed so the K quantization groups straddling the pad boundary
-        # see 0s (the chunk's token i sits at cache position prev_len + i)
-        if pad_len is not None:
-            cpos = prev_len + torch.arange(T, device=x.device)
-            live = cpos[None, None, :, None] >= pad_len.reshape(B, 1, 1, 1)
-            k = torch.where(live, k, torch.zeros_like(k))
-            v = torch.where(live, v, torch.zeros_like(v))
-        out = extend_attention(q, k, v, cache, qcfg,
-                               sliding_window=cfg.sliding_window,
-                               pad_len=pad_len)
-        KC.prefill_extend(cache, k, v, qcfg, prev_len)
+    if mode in ("prefill", "extend") and pad_len is not None:
+        # Pad slots occupy real cache positions but must never leak:
+        # attention masks them, and their stored K/V are zeroed so the K
+        # quantization groups straddling the pad boundary see 0s (token i
+        # sits at cache position prev_len + i; prev_len is 0 in prefill)
+        cpos = prev_len + torch.arange(T, device=x.device)
+        live = cpos[None, None, :, None] >= pad_len.reshape(B, 1, 1, 1)
+        k = torch.where(live, k, torch.zeros_like(k))
+        v = torch.where(live, v, torch.zeros_like(v))
+
+    if mode == "prefill":
+        assert cache.seq_len == 0, "prefill needs an empty cache"
+        out = prefill_attention(q, k, v, sliding_window=cfg.sliding_window,
+                                pad_len=pad_len)
+        if fp:
+            fp_append(cache, k, v)
+        else:
+            KC.prefill_ingest(cache, k, v, qcfg)
+    elif mode == "extend":
+        # attention reads the PRE-extension cache
+        if fp:
+            out = fp_extend_attention(q, k, v, cache,
+                                      sliding_window=cfg.sliding_window,
+                                      pad_len=pad_len)
+            fp_append(cache, k, v)
+        else:
+            out = extend_attention(q, k, v, cache, qcfg,
+                                   sliding_window=cfg.sliding_window,
+                                   pad_len=pad_len)
+            KC.prefill_extend(cache, k, v, qcfg, prev_len)
     elif mode == "decode":
-        KC.decode_append(cache, k, v, qcfg, do_flush=flush)
-        out = decode_attention(q, cache, qcfg,
-                               sliding_window=cfg.sliding_window,
-                               pad_len=pad_len)
+        if fp:
+            fp_append(cache, k, v)
+            out = fp_decode_attention(q, cache,
+                                      sliding_window=cfg.sliding_window,
+                                      pad_len=pad_len)
+        else:
+            KC.decode_append(cache, k, v, qcfg, do_flush=flush)
+            out = decode_attention(q, cache, qcfg,
+                                   sliding_window=cfg.sliding_window,
+                                   pad_len=pad_len)
     else:
         raise ValueError(f"unknown mode {mode!r}")
 
@@ -188,11 +201,14 @@ def forward(params: dict, tokens: torch.Tensor, caches: List, cfg:
 
 def init_caches(cfg: ModelConfig, qcfg: QuantConfig, batch: int,
                 max_seq_len: int, dtype=torch.bfloat16,
-                device=None) -> List[KC.KiviLayerCache]:
-    """List of per-layer caches, each preallocated at max_seq_len."""
+                device=None) -> List:
+    """List of per-layer caches, each preallocated at max_seq_len: KIVI
+    caches when qcfg.quantize_kv, else fp caches (the baseline)."""
     device = resolve_device(device)
     if not qcfg.quantize_kv:
-        raise NotImplementedError(f"the fp16 cache comes with {_NEXT_SLICE}")
+        return [init_fp_cache(batch, cfg.num_kv_heads, cfg.head_dim,
+                              max_seq_len, dtype, device)
+                for _ in range(cfg.num_layers)]
     return [KC.init_layer_cache(batch, cfg.num_kv_heads, cfg.head_dim,
                                 max_seq_len, qcfg, dtype, device)
             for _ in range(cfg.num_layers)]

@@ -1,14 +1,22 @@
 """Where the time of the PyTorch/CUDA port's main path goes, on one GPU.
 
-    python3 -m kivi_tpu_torch.profile_main_path [--layers N] [--steps S]
+    python3 -m kivi_tpu_torch.profile_main_path [--path P] [--layers N]
+                                                 [--steps S]
 
 Builds kivi_tpu_torch's Engine at Llama-2-7B width with random bf16
-weights (KIVI-2, group 32, residual 128, v_flush 128, batch 8, 4096-token
-cache), the configuration chip_smoke.py drives.  Two windows, each run
-once without and once under torch.profiler:
+weights (batch 8, 4096-token cache), a configuration chip_smoke.py
+drives.  --path picks the cache and the prefill:
 
-  * prefill: 8 prompts of 1024 tokens in chunks of 128 (extend path);
-  * decode: S greedy steps after it (step 0 carries a V-window flush).
+  * chunked (default): KIVI-2 (group 32, residual 128, v_flush 128),
+    prompts prefilled in chunks of 128 through the extend path;
+  * oneshot: KIVI-2, one-shot prefill (flash_attention, then ingest);
+  * fp16: the fp16-cache baseline, one-shot prefill.
+
+Two windows, each run once without and once under torch.profiler:
+
+  * prefill: 8 prompts of 1024 tokens;
+  * decode: S greedy steps after it (with KIVI-2, step 0 carries a
+    V-window flush).
 
 For each window it prints the host wall time without the profiler, the
 device busy time (union of all kernel and copy intervals, profiled),
@@ -37,7 +45,12 @@ from kivi_tpu_torch.serving.engine import Engine
 B, PROMPT, CHUNK, TMAX = 8, 1024, 128, 4096
 OURS = {"quantize_pack_kernel": "quantize_pack_k/v",
         "fused_decode_kernel": "fused_decode_attention_wide",
-        "flash_extend_kernel": "flash_extend_attention"}
+        "flash_extend_kernel": "flash_extend_attention",
+        "flash_prefill_kernel": "flash_attention",
+        "fp_decode_kernel": "fp_decode_attention_kernel"}
+QCFG = {"chunked": QuantConfig(2, 2, 32, 128, v_flush=128),
+        "oneshot": QuantConfig(2, 2, 32, 128, v_flush=128),
+        "fp16": QuantConfig(16, 16, 32, 128)}
 GEMM = re.compile(r"gemm|nvjet|cutlass|xmma|cublas", re.I)
 
 
@@ -86,6 +99,7 @@ def report(what: str, prof, wall_s: float) -> None:
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--path", choices=sorted(QCFG), default="chunked")
     ap.add_argument("--layers", type=int, default=32)
     ap.add_argument("--steps", type=int, default=32)
     args = ap.parse_args()
@@ -99,8 +113,7 @@ def main():
           f"{torch.version.cuda}")
 
     cfg = dataclasses.replace(PRESETS["llama2-7b"], num_layers=args.layers)
-    qcfg = QuantConfig(2, 2, 32, 128, v_flush=128)
-    eng = Engine(cfg=cfg, qcfg=qcfg,
+    eng = Engine(cfg=cfg, qcfg=QCFG[args.path],
                  params=modeling.init_params(cfg, seed=0, device="cuda"),
                  max_seq_len=TMAX, batch_size=B)
     gen = torch.Generator(device="cuda")
@@ -110,7 +123,9 @@ def main():
     pos = torch.full((B, 1), PROMPT, device="cuda")
 
     def prefill():
-        return eng.prefill_chunked(tokens, CHUNK)
+        if args.path == "chunked":
+            return eng.prefill_chunked(tokens, CHUNK)
+        return eng._prefill(tokens)
 
     def decode(logits, caches):
         first = logits.argmax(-1).to(torch.int32)[:, None]
@@ -140,9 +155,11 @@ def main():
     with profile(activities=acts) as p_dec:
         decode(logits, caches)
         torch.cuda.synchronize()
-    print(f"[config] llama2-7b width, {args.layers} layers, KIVI-2, batch "
-          f"{B}, prompt {PROMPT} in chunks of {CHUNK}, {args.steps} decode "
-          f"steps | card {smi}")
+    how = {"chunked": f"KIVI-2, prompt {PROMPT} in chunks of {CHUNK}",
+           "oneshot": f"KIVI-2, prompt {PROMPT} one-shot",
+           "fp16": f"fp16 cache, prompt {PROMPT} one-shot"}[args.path]
+    print(f"[config] llama2-7b width, {args.layers} layers, {how}, batch "
+          f"{B}, {args.steps} decode steps | card {smi}")
     report("prefill", p_pre, walls["prefill"])
     report("decode", p_dec, walls["decode"])
     print(f"[decode] {B * args.steps / walls['decode']:.1f} tokens/s, "

@@ -1,12 +1,14 @@
-"""Generation engine over the KIVI cache: port of the main-path subset of
-`kivi_tpu/serving/engine.py` — chunked prefill through the extend path,
-then decode with the static flush schedule.
+"""Generation engine over the KIVI cache or the fp16 cache (the
+baseline): port of the main-path subset of `kivi_tpu/serving/engine.py`
+— one-shot prefill (`prefill`) or chunked prefill through the extend
+path (`prefill_chunked`), then decode.
 
 PyTorch runs eagerly, so the decode "scan" is a Python loop.  As in the
-JAX engine, window flushes run unconditionally at the steps the flush
-schedule fixes for the known prompt length, and the per-step body does no
-flush checks (`decode_append(do_flush=False)`).  The cache counters are
-host ints, so no step waits on the device to read them.
+JAX engine, a KIVI cache's window flushes run unconditionally at the
+steps the flush schedule fixes for the known prompt length, and the
+per-step body does no flush checks (`decode_append(do_flush=False)`);
+the fp cache has no flushes.  The cache counters are host ints, so no
+step waits on the device to read them.
 """
 
 from __future__ import annotations
@@ -66,8 +68,10 @@ def flush_schedule(qcfg: QuantConfig, prompt_len: int, steps: int) -> dict:
 
 
 class Engine:
-    """KIVI generation engine.  Runs on CUDA (the kernels) unless built
-    with device="cpu" (the plain versions).
+    """Generation engine over the KIVI cache, or over the fp16 cache when
+    qcfg.quantize_kv is False (QuantConfig(16, 16, ...): the baseline).
+    Runs on CUDA (the kernels) unless built with device="cpu" (the plain
+    versions).
 
     params: the port's parameter dict (modeling.init_params or
     convert.params_from_jax), already on `device`."""
@@ -75,9 +79,6 @@ class Engine:
     def __init__(self, cfg: ModelConfig, qcfg: QuantConfig, params: dict,
                  max_seq_len: int, batch_size: int, device=None,
                  cache_dtype=torch.bfloat16):
-        if not qcfg.quantize_kv:
-            raise NotImplementedError(
-                f"the fp16 cache comes with {modeling._NEXT_SLICE}")
         self.cfg, self.qcfg, self.params = cfg, qcfg, params
         self.max_seq_len, self.batch_size = max_seq_len, batch_size
         self.device = modeling.resolve_device(device)
@@ -94,16 +95,44 @@ class Engine:
         return torch.as_tensor(pad_lens, dtype=torch.int64,
                                device=self.device).reshape(B)
 
+    def _prefill(self, tokens: torch.Tensor, caches=None, pad_lens=None):
+        """One-shot prefill of a prompt (B, T), LEFT-padded by pad_lens
+        (B,) slots per row: exact attention over the whole prompt, then
+        the cache ingest.  RoPE positions are the true token indices,
+        max(i - pad, 0).  Returns (last-token logits (B, V) f32,
+        caches)."""
+        tokens = tokens.to(self.device)
+        B, T = tokens.shape
+        pad = self._pad(pad_lens, B)
+        if caches is None:
+            caches = self.init_caches()
+        positions = torch.arange(T, device=self.device).expand(B, T)
+        if pad is not None:
+            positions = torch.clamp(positions - pad[:, None], min=0)
+        logits, caches = modeling.forward(
+            self.params, tokens, caches, self.cfg, self.qcfg, positions,
+            mode="prefill", last_only=True, pad_len=pad)
+        return logits[:, -1], caches
+
+    def prefill(self, tokens: torch.Tensor, caches=None, pad_lens=None):
+        """One-shot prefill of tokens (B, T), LEFT-padded by pad_lens (B,)
+        slots per row (None = no padding).  Returns (greedy next token
+        (B, 1) int32, caches)."""
+        logits, caches = self._prefill(tokens, caches, pad_lens)
+        return torch.argmax(logits, dim=-1).to(torch.int32)[:, None], caches
+
     def prefill_chunked(self, tokens: torch.Tensor, chunk_size: int = 512,
                         caches=None, pad_lens=None):
         """Prefill a prompt (B, T), LEFT-padded by pad_lens (B,) slots per
-        row, in fixed-size chunks through the extend path.  The chunk is
-        rounded up to a multiple of phase_period so every interior chunk
-        sits on one quantization phase.  Returns (last-token logits
-        (B, V) f32, caches)."""
-        L = phase_period(self.qcfg)
-        if chunk_size % L:
-            chunk_size += L - chunk_size % L
+        row, in fixed-size chunks through the extend path.  Over a KIVI
+        cache the chunk is rounded up to a multiple of phase_period so
+        every interior chunk sits on one quantization phase; the fp cache
+        takes the chunk as given.  Returns (last-token logits (B, V) f32,
+        caches)."""
+        if self.qcfg.quantize_kv:
+            L = phase_period(self.qcfg)
+            if chunk_size % L:
+                chunk_size += L - chunk_size % L
         tokens = tokens.to(self.device)
         B, T = tokens.shape
         pad = self._pad(pad_lens, B)
@@ -142,11 +171,13 @@ class Engine:
                generator: Optional[torch.Generator] = None):
         """Generate `steps` tokens after `first` (B, 1), whose RoPE
         position is pos (B, 1); the cache holds prompt_len tokens.
-        Window flushes run on the static schedule between steps.
-        Returns (tokens (B, steps) int32, caches)."""
-        events = flush_schedule(self.qcfg,
-                                canonical_phase(self.qcfg, prompt_len),
-                                steps)
+        A KIVI cache's window flushes run on the static schedule between
+        steps; the fp cache has none.  Returns (tokens (B, steps) int32,
+        caches)."""
+        events = (flush_schedule(self.qcfg,
+                                 canonical_phase(self.qcfg, prompt_len),
+                                 steps)
+                  if self.qcfg.quantize_kv else {})
         use_pen = repetition_penalty != 1.0 and seen is not None
         token, out = first, []
         for i in range(steps):
@@ -180,13 +211,11 @@ class Engine:
         and the extras are dropped.  Rows past their EOS emit
         eos_token_id.
 
-        This slice prefills through `prefill_chunked` only: one-shot
-        prefill (no prefill_chunk_size), prefix=, suffix_lens=, beam
-        search and streaming come with later slices."""
-        if prefill_chunk_size is None:
-            raise NotImplementedError(
-                f"one-shot prefill comes with {modeling._NEXT_SLICE}; "
-                "pass prefill_chunk_size")
+        Without prefill_chunk_size the prompt is prefilled one-shot
+        (exact attention over the whole prompt); with it, in chunks
+        through the extend path (earlier chunks seen quantized).
+        prefix=, suffix_lens=, beam search and streaming come with later
+        slices of the port."""
         if prefix is not None or suffix_lens is not None:
             raise NotImplementedError(
                 "prefix snapshots and ragged suffixes come with a later "
@@ -206,8 +235,11 @@ class Engine:
         assert B == self.batch_size
         assert T + max_new_tokens <= self.max_seq_len, "cache too small"
 
-        logits, caches = self.prefill_chunked(tokens, prefill_chunk_size,
-                                              pad_lens=pad_lens)
+        if prefill_chunk_size is None:
+            logits, caches = self._prefill(tokens, pad_lens=pad_lens)
+        else:
+            logits, caches = self.prefill_chunked(
+                tokens, prefill_chunk_size, pad_lens=pad_lens)
         seen = None
         if repetition_penalty != 1.0:
             seen = sampling.seen_mask_from_prompt(

@@ -1,6 +1,6 @@
-"""The port's decode_attention / extend_attention (CPU: the plain versions
-beside the CUDA kernels) against the JAX package's impl="jnp" functions
-on identical cache states.
+"""The port's decode_attention / extend_attention / prefill_attention
+(CPU: the plain versions beside the CUDA kernels) against the JAX
+package's impl="jnp" functions on identical cache states and inputs.
 
 The cache is built by the JAX package and copied into the port's
 layout (uint32 words reinterpreted as int32), so both sides read the
@@ -20,9 +20,12 @@ from kivi_tpu.cache import kivi_cache as JC
 from kivi_tpu.config import QuantConfig as JQuantConfig
 from kivi_tpu.core.attention import decode_attention as j_decode
 from kivi_tpu.core.attention import extend_attention as j_extend
+from kivi_tpu.core.attention import prefill_attention as j_prefill
 from kivi_tpu_torch.cache.kivi_cache import KiviLayerCache
 from kivi_tpu_torch.config import QuantConfig
-from kivi_tpu_torch.core.attention import decode_attention, extend_attention
+from kivi_tpu_torch.core.attention import (decode_attention,
+                                           extend_attention,
+                                           prefill_attention)
 
 torch.set_num_threads(2)
 
@@ -146,3 +149,28 @@ def test_extend_fully_padded_first_chunk(r):
                            pad_len=torch.tensor(pad))
     assert torch.isfinite(got).all()
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("T", [64, 100])          # 100: not a tile multiple
+@pytest.mark.parametrize("r", [1, 2])             # MHA, GQA r = 2
+@pytest.mark.parametrize("masks", ["none", "swa", "pad", "pad+swa"])
+def test_prefill_attention_matches_jax(T, r, masks):
+    """Exact causal prefill attention; with a left pad, the fully padded
+    query rows come out exactly 0 (not a uniform average)."""
+    q = _np((B, H * r, T, D), 12)
+    k, v = _np((B, H, T, D), 13), _np((B, H, T, D), 14)
+    kw_j, kw_t = {}, {}
+    pad = np.array([0, 37], np.int32)
+    if "pad" in masks:
+        kw_j["pad_len"], kw_t["pad_len"] = jnp.asarray(pad), torch.tensor(pad)
+    if "swa" in masks:
+        kw_j["sliding_window"] = kw_t["sliding_window"] = 24
+    want = j_prefill(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                     impl="jnp", **kw_j)
+    got = prefill_attention(torch.from_numpy(q), torch.from_numpy(k),
+                            torch.from_numpy(v), **kw_t)
+    assert got.dtype == torch.float32 and got.shape == (B, H * r, T, D)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    if "pad" in masks:
+        assert (got[1, :, :pad[1]] == 0).all()
+        assert (got[1, :, pad[1]:].abs().amax(-1) > 0).all()

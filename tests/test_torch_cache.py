@@ -70,14 +70,14 @@ def test_cache_stages_match_jax(vf, prompt, chunk, steps):
     tk, tv, jk, jv = _both(k, v)
 
     # one-shot ingest
-    tcache = TC.prefill_ingest(TC.init_layer_cache(B, H, D, TMAX, tq),
-                               tk, tv, tq)
+    tcache = TC.prefill_ingest(
+        TC.init_layer_cache(B, H, D, TMAX, tq, device="cpu"), tk, tv, tq)
     jcache = JC.prefill_ingest(JC.init_layer_cache(B, H, D, TMAX, jq),
                                jk, jv, jq)
     assert_cache_equal(tcache, jcache, "ingest")
 
     # chunked extend, compared after every chunk
-    tcache = TC.init_layer_cache(B, H, D, TMAX, tq)
+    tcache = TC.init_layer_cache(B, H, D, TMAX, tq, device="cpu")
     jcache = JC.init_layer_cache(B, H, D, TMAX, jq)
     for t0 in range(0, prompt, chunk):
         sl = slice(t0, t0 + chunk)
@@ -110,6 +110,17 @@ def test_cache_stages_match_jax(vf, prompt, chunk, steps):
     assert any(fv for _, fv in events.values())
 
 
+def test_init_layer_cache_defaults_to_cuda():
+    """Without `device` the cache goes to CUDA; without CUDA that is an
+    error, never a silent cache on the host."""
+    tq, _ = _qcfgs(128)
+    if torch.cuda.is_available():
+        assert TC.init_layer_cache(B, H, D, TMAX, tq).k_codes.is_cuda
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            TC.init_layer_cache(B, H, D, TMAX, tq)
+
+
 @pytest.mark.parametrize("vf", [32, 128])
 def test_decode_append_own_flushes_match_jax(vf):
     """decode_append(do_flush=True) checks the windows itself."""
@@ -117,8 +128,8 @@ def test_decode_append_own_flushes_match_jax(vf):
     rng = np.random.default_rng(vf)
     k, v = _kv(rng, 100)
     tk, tv, jk, jv = _both(k, v)
-    tcache = TC.prefill_ingest(TC.init_layer_cache(B, H, D, TMAX, tq),
-                               tk, tv, tq)
+    tcache = TC.prefill_ingest(
+        TC.init_layer_cache(B, H, D, TMAX, tq, device="cpu"), tk, tv, tq)
     jcache = JC.prefill_ingest(JC.init_layer_cache(B, H, D, TMAX, jq),
                                jk, jv, jq)
     kd, vd = _kv(rng, 170)
@@ -144,9 +155,9 @@ def test_prefill_extend_equals_ingest(vf, chunks):
     # bf16 inputs: the window round-trips bf16 -> bf16 losslessly
     tk = torch.from_numpy(k).to(torch.bfloat16)
     tv = torch.from_numpy(v).to(torch.bfloat16)
-    one = TC.prefill_ingest(TC.init_layer_cache(B, H, D, TMAX, tq), tk, tv,
-                            tq)
-    ext = TC.init_layer_cache(B, H, D, TMAX, tq)
+    one = TC.prefill_ingest(
+        TC.init_layer_cache(B, H, D, TMAX, tq, device="cpu"), tk, tv, tq)
+    ext = TC.init_layer_cache(B, H, D, TMAX, tq, device="cpu")
     t0 = 0
     for n in chunks:
         TC.prefill_extend(ext, tk[:, :, t0:t0 + n], tv[:, :, t0:t0 + n],

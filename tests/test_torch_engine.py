@@ -1,12 +1,16 @@
 """The port's Engine (kivi_tpu_torch.serving.engine, CPU) against the JAX
-package's Engine(impl="jnp"): chunked prefill, then greedy decode across
-K and V window flushes on the static schedule; and the port's sampling
+package's Engine(impl="jnp"): chunked and one-shot prefill, then greedy
+decode across K and V window flushes on the static schedule; the
+fp16-cache baseline engine, teacher-forced; and the port's sampling
 processors against kivi_tpu.serving.sampling on the same logits.
 
 Tolerance: greedy tokens equal.  Both engines run the same f32 weights
 over f32 caches (f32 windows and scales), so the two libraries' logits
-differ by float32 rounding only and no argmax flips.  Sampling
-transforms: exactly equal outputs (same f32 operations).
+differ by float32 rounding only and no argmax flips.  The fp16-cache
+engine's logits: 2e-2, the JAX package's tolerance for its bf16-rounding
+decode oracle (tests/test_kernels.py:170) — JAX's `impl="jnp"` fp
+decode rounds the query and the probabilities to bf16, the port's does
+not.  Sampling transforms: exactly equal outputs (same f32 operations).
 """
 
 import jax
@@ -32,6 +36,7 @@ B, TMAX, PROMPT, NEW = 2, 384, 200, 80
 
 
 def _engines(bits, vf):
+    """bits 16: the fp16-cache baseline (QuantConfig(16, 16, ...))."""
     kw = dict(k_bits=bits, v_bits=bits, group_size=32, residual_length=128,
               v_flush=vf, scale_dtype="float32")
     jcfg, tcfg = j_tiny_config(), tiny_config()
@@ -68,6 +73,56 @@ def test_generate_greedy_matches_jax(bits, vf, pad):
     assert any(v for _, v in events.values())
 
 
+@pytest.mark.parametrize("bits,vf,pad", [(2, 128, None), (4, 32, (0, 37))])
+def test_generate_oneshot_greedy_matches_jax(bits, vf, pad):
+    """generate() without prefill_chunk_size: one-shot prefill (exact
+    attention over the whole prompt, then prefill_ingest), then decode
+    across K and V flushes."""
+    jeng, teng = _engines(bits, vf)
+    toks = np.random.default_rng(10 + bits).integers(0, 256, (B, PROMPT))
+    want = np.asarray(jeng.generate(jnp.asarray(toks, jnp.int32), NEW,
+                                    pad_lens=pad))
+    got = teng.generate(torch.from_numpy(toks), NEW, pad_lens=pad)
+    assert got.dtype == torch.int32 and got.shape == (B, NEW)
+    np.testing.assert_array_equal(got.numpy(), want)
+    # Engine.prefill: the greedy first token of the same one-shot prefill
+    first, caches = teng.prefill(torch.from_numpy(toks), pad_lens=pad)
+    assert first.dtype == torch.int32 and first.shape == (B, 1)
+    np.testing.assert_array_equal(first[:, 0].numpy(), want[:, 0])
+    assert caches[0].seq_len == PROMPT
+
+
+@pytest.mark.parametrize("pad", [None, (0, 37)])
+def test_fp16_engine_teacher_forced_matches_jax(pad):
+    """The fp16-cache engine: one-shot prefill, then decode fed the JAX
+    engine's greedy tokens step by step (so a near tie cannot fork the
+    two streams); every step's logits compared."""
+    jeng, teng = _engines(16, 32)
+    assert not teng.qcfg.quantize_kv
+    toks = np.random.default_rng(16).integers(0, 256, (B, PROMPT))
+    jtoks = jnp.asarray(toks, jnp.int32)
+    stream = np.asarray(jeng.generate(jtoks, NEW // 4, pad_lens=pad))
+    jpad = None if pad is None else jnp.asarray(pad, jnp.int32)
+    want, jc = jeng._prefill(jeng.params, jtoks, jeng.init_caches(), jpad)
+    got, tc = teng._prefill(torch.from_numpy(toks), pad_lens=pad)
+    # prefill attention is exact f32 on both sides
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4,
+                               rtol=0)
+    np.testing.assert_array_equal(got.argmax(-1).numpy(), stream[:, 0])
+    pos = np.full((B, 1), PROMPT) - (0 if pad is None else
+                                     np.array(pad)[:, None])
+    for i in range(stream.shape[1] - 1):
+        tok = stream[:, i:i + 1].copy()
+        want, jc = jeng._decode(jeng.params, jnp.asarray(tok, jnp.int32),
+                                jnp.asarray(pos + i, jnp.int32), jc, jpad)
+        got, tc = teng.decode_step(torch.from_numpy(tok),
+                                   torch.from_numpy(pos + i), tc,
+                                   pad_lens=pad)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   atol=2e-2, rtol=0, err_msg=f"step {i}")
+    assert tc[0].length == PROMPT + stream.shape[1] - 1
+
+
 def test_schedule_helpers_match_jax():
     from kivi_tpu.serving import engine as JE
     for vf in (32, 64, 128):
@@ -95,8 +150,18 @@ def test_generate_options_and_unported_paths():
     first = int((out[0] == eos).nonzero()[0])
     assert cut[0, :first + 1].tolist() == out[0, :first + 1].tolist()
     assert (cut[0, first:] == eos).all()
+    # one-shot prefill (no prefill_chunk_size) now runs: the same
+    # options on it
+    one = teng.generate(toks, 6)
+    assert one.shape == (1, 6)
+    eos = int(one[0, 2])
+    cut = teng.generate(toks, 6, eos_token_id=eos)
+    first = int((one[0] == eos).nonzero()[0])
+    assert cut[0, :first + 1].tolist() == one[0, :first + 1].tolist()
+    assert (cut[0, first:] == eos).all()
+    # prefix snapshots and ragged suffixes come with a later slice
     with pytest.raises(NotImplementedError):
-        teng.generate(toks, 4)                       # one-shot prefill
+        teng.generate(toks, 4, prefix=object())
     with pytest.raises(NotImplementedError):
         teng.generate(toks, 4, prefill_chunk_size=128, prefix=object())
     if not torch.cuda.is_available():

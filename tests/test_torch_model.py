@@ -1,6 +1,7 @@
 """The port's model (kivi_tpu_torch.models, CPU) against the JAX package's
 kivi_tpu.models.modeling: the same f32 weights (params_from_jax), one
-chunked-prefill extend step and decode steps across window flushes.
+chunked-prefill extend step and decode steps across window flushes, and
+one-shot prefill into the KIVI and the fp16 cache.
 
 Tolerance: logits atol 1e-4 in f32.  The caches keep f32 windows and
 scales here: with bf16 windows, an activation that the two libraries sum
@@ -22,7 +23,9 @@ import torch
 from kivi_tpu.config import QuantConfig as JQuantConfig
 from kivi_tpu.config import tiny_config as j_tiny_config
 from kivi_tpu.models import modeling as JM
+from kivi_tpu_torch.cache.fp_cache import FpLayerCache
 from kivi_tpu_torch.config import QuantConfig, tiny_config
+from kivi_tpu_torch.core import quant as TQ
 from kivi_tpu_torch.models import modeling as TM
 from kivi_tpu_torch.models.convert import params_from_jax
 
@@ -158,14 +161,89 @@ def test_rms_norm_and_mlp_match_jax(dtype):
             atol=1e-4, rtol=1e-5)
 
 
+def _cache_fields_equal(tc, jc, qcfg, where):
+    """Counters equal; float fields within 1e-5 (f32 activations summed
+    in a different order by two libraries differ by a few ulps).  Packed
+    codes: equal in at least 99.9% of the words; where such an ulp
+    difference straddles a rounding boundary a code moves by one step,
+    so the dequantized stores agree within one step (at most the largest
+    scale) + 1e-5."""
+    for c in ("n_k_quant", "n_k_win", "n_v_quant", "n_v_win", "length"):
+        if hasattr(tc, c):
+            assert getattr(tc, c) == int(getattr(jc, c)), (where, c)
+    for f in ("k_scale", "k_mn", "v_scale", "v_mn", "k_win", "v_win", "k",
+              "v"):
+        if hasattr(tc, f):
+            np.testing.assert_allclose(getattr(tc, f).numpy(),
+                                       np.asarray(getattr(jc, f)),
+                                       atol=1e-5, rtol=0,
+                                       err_msg=f"{where} {f}")
+    if not hasattr(tc, "k_codes"):
+        return
+    gs = qcfg.group_size
+    for kind, bits in (("k", qcfg.k_bits), ("v", qcfg.v_bits)):
+        t = getattr(tc, f"{kind}_codes")
+        j = torch.from_numpy(
+            np.asarray(getattr(jc, f"{kind}_codes")).view(np.int32))
+        assert (t == j).float().mean() >= 0.999, (where, kind)
+        deq = TQ.dequantize_k if kind == "k" else TQ.dequantize_v
+        sc, mn = getattr(tc, f"{kind}_scale"), getattr(tc, f"{kind}_mn")
+        err = (deq(t, sc, mn, gs, bits) - deq(j, sc, mn, gs, bits)).abs()
+        assert err.max() <= sc.abs().max() + 1e-5, (where, kind)
+
+
+@pytest.mark.parametrize("bits,vf", [((2, 2), 128), ((4, 8), 32),
+                                     ((16, 16), 32)])
+@pytest.mark.parametrize("pad", [None, (0, 37)])
+def test_forward_prefill_matches_jax(bits, vf, pad):
+    """mode="prefill" over the KIVI cache (prefill_ingest after exact
+    attention) and the fp16 cache (16 bits: fp_append): logits, and every
+    cache field and counter after ingest.  With pad, row 1's first 37
+    slots are zeroed before ingest and masked in attention."""
+    kw = dict(k_bits=bits[0], v_bits=bits[1], group_size=32,
+              residual_length=128, v_flush=vf, scale_dtype="float32")
+    tq, jq = QuantConfig(**kw), JQuantConfig(**kw)
+    jcfg, tcfg = j_tiny_config(), tiny_config()
+    jp, tp = _params(jcfg)
+    T = 250
+    toks = np.random.default_rng(T).integers(0, jcfg.vocab_size, (B, T))
+    pos = np.broadcast_to(np.arange(T), (B, T)).copy()
+    jpad = tpad = None
+    if pad is not None:
+        pos = np.maximum(pos - np.array(pad)[:, None], 0)
+        jpad = jnp.asarray(pad, jnp.int32)
+        tpad = torch.tensor(pad)
+    jc = JM.init_caches(jcfg, jq, B, TMAX, dtype=jnp.float32)
+    tc = TM.init_caches(tcfg, tq, B, TMAX, dtype=torch.float32,
+                        device="cpu")
+    with jax.disable_jit():
+        want, jc = JM.forward(jp, jnp.asarray(toks), jc, jcfg, jq,
+                              jnp.asarray(pos), mode="prefill",
+                              pad_len=jpad)
+    got, tc = TM.forward(tp, torch.from_numpy(toks), tc, tcfg, tq,
+                         torch.from_numpy(pos), mode="prefill",
+                         pad_len=tpad)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4,
+                               rtol=0)
+    for i, (t, j) in enumerate(zip(tc, jc)):
+        _cache_fields_equal(t, j, tq, f"layer {i}")
+    assert tc[0].seq_len == T
+
+
 def test_unported_modes_raise():
+    """What the model still refuses: an unknown mode, and one-shot
+    prefill onto a cache that already holds tokens.  (The fp16 cache and
+    mode="prefill", refused before, are held to JAX above.)"""
     cfg = tiny_config()
     q = QuantConfig()
-    with pytest.raises(NotImplementedError):
-        TM.init_caches(cfg, dataclasses.replace(q, k_bits=16, v_bits=16), 1,
-                       128, device="cpu")
+    fp = TM.init_caches(cfg, dataclasses.replace(q, k_bits=16, v_bits=16),
+                        1, 128, device="cpu")
+    assert all(isinstance(c, FpLayerCache) for c in fp)
     tp = TM.init_params(cfg, device="cpu", dtype=torch.float32)
     caches = TM.init_caches(cfg, q, 1, 128, device="cpu")
-    with pytest.raises(NotImplementedError):
-        TM.forward(tp, torch.zeros(1, 4, dtype=torch.long), caches, cfg, q,
-                   torch.zeros(1, 4, dtype=torch.long), mode="prefill")
+    toks = torch.zeros(1, 4, dtype=torch.long)
+    with pytest.raises(ValueError):
+        TM.forward(tp, toks, caches, cfg, q, toks, mode="verify")
+    TM.forward(tp, toks, caches, cfg, q, toks, mode="prefill")
+    with pytest.raises(AssertionError):
+        TM.forward(tp, toks, caches, cfg, q, toks, mode="prefill")
