@@ -9,7 +9,7 @@ Phases (any failure raises; the exit code is then non-zero):
   3. kernels vs their plain PyTorch versions on the card, at the main
      path's shapes and edge cases, timed with CUDA events beside their
      bound and a one-call PyTorch yardstick;
-  4. three paths at Llama-2-7B width, sharing one set of weights:
+  4. the paths at Llama-2-7B width, sharing one set of weights:
      Engine.generate of 8 prompts of 1024 tokens, 128 greedy tokens,
        * KIVI-2, chunked prefill of 128 (extend + KIVI decode),
        * KIVI-2, one-shot prefill (flash_attention + ingest + decode),
@@ -17,9 +17,23 @@ Phases (any failure raises; the exit code is then non-zero):
      each path's kernels must launch during its run (counts zeroed just
      before it), and a split prefill + decode must give generate()'s
      tokens;
+     then the continuous batcher at the same width on the same weights
+     (8 slots, 12 requests of 100-1000 prompt tokens and 16-128 new
+     tokens, half greedy, half sampled), three ways:
+       * KIVI-2, bucketed one-shot admission (per-row KIVI decode),
+       * KIVI-2, chunked admission (prefill_chunk=128),
+       * the fp16 cache, bucketed admission (fp decode, per-row lengths);
+     each path's kernels must launch and the engine's decode kernel must
+     not;
   5. the paths against the plain path: 2 layers at full width on the
      card (kernels) and on the host CPU (plain versions), same weights:
-     chunked and one-shot prefill logits of both caches.
+     chunked and one-shot prefill logits of both caches;
+  6. the batcher against the engine on the card (2 layers, full width):
+     first tokens equal and one decode step's logits per slot within the
+     phase-5 tolerance of batch-1 Engine runs of the same left-padded
+     prompts, on both caches;
+  7. ServingAPI on 127.0.0.1 (2 layers): three concurrent requests, one
+     streaming, and /v1/health.
 
 Prints the kernels' JSON line, the card's name and power limit, and as
 the last line {"ok": true, "device": {...}}.  Exits non-zero without a
@@ -46,6 +60,8 @@ BF16_FLOP_PER_S = 989e12         # H100 SXM dense bf16 tensor-core rate
 # summation order and fused multiply-adds, about 1e-7 relative.
 ATT_RTOL, ATT_ATOL = 1e-5, 1e-5
 B, H, D, TMAX, T1 = 8, 32, 128, 4096, 128
+# per-slot fills of the per-row decode checks: divergent, 0 = empty slot
+FILLS = (1, 137, 640, 1081, 2048, 3000, 4000, 0)
 
 
 def log(*a):
@@ -188,14 +204,18 @@ def _deq_kv(c, qcfg, upto: int):
             v[:, :, :upto].to(torch.bfloat16).contiguous())
 
 
-def _cache_bytes(c, qcfg):
-    """Bytes of the live part of a cache: codes, bf16 stats, windows."""
+def _live_bytes(qcfg, sb, nkq, nkw, nvq, nvw):
+    """Bytes of one (row, KV head)'s live cache: codes, stats, windows."""
     kdw, vdw = D // (32 // qcfg.k_bits), D // (32 // qcfg.v_bits)
-    gs, sb = qcfg.group_size, c.k_scale.element_size()
-    per_bh = (c.n_k_quant * kdw * 4 + 2 * (c.n_k_quant // gs) * D * sb
-              + c.n_v_quant * vdw * 4 + 2 * (D // gs) * c.n_v_quant * sb
-              + (c.n_k_win + c.n_v_win) * D * 2)
-    return B * H * per_bh
+    gs = qcfg.group_size
+    return (nkq * kdw * 4 + 2 * (nkq // gs) * D * sb + nvq * vdw * 4
+            + 2 * (D // gs) * nvq * sb + (nkw + nvw) * D * 2)
+
+
+def _cache_bytes(c, qcfg):
+    """Bytes of the live part of a (B, H) cache with host-int counters."""
+    return B * H * _live_bytes(qcfg, c.k_scale.element_size(), c.n_k_quant,
+                               c.n_k_win, c.n_v_quant, c.n_v_win)
 
 
 def _att_err(got, want, what):
@@ -261,6 +281,129 @@ def check_decode(gen, results):
         library_ms=cuda_ms(
             lambda: F.scaled_dot_product_attention(q, k, v)))
     log(f"[kernel] {name} timed at fill {c.seq_len}, KIVI-2, B={B}")
+
+
+def _slot_cache(gen, qcfg, heads, fills=FILLS):
+    """A slot cache (per-row device counters) whose row s holds fills[s]
+    tokens, the last one appended by decode_append (0: an empty slot)."""
+    from kivi_tpu_torch.cache import kivi_cache as KC
+    slots = KC.init_slot_cache(len(fills), heads, D, TMAX, qcfg,
+                               device="cuda")
+    for s, fill in enumerate(fills):
+        one = KC.init_layer_cache(1, heads, D, TMAX, qcfg, device="cuda")
+        if fill > 1:
+            KC.prefill_ingest(one, _randn(gen, (1, heads, fill - 1, D)),
+                              _randn(gen, (1, heads, fill - 1, D)), qcfg)
+        if fill:
+            KC.decode_append(one, _randn(gen, (1, heads, 1, D)),
+                             _randn(gen, (1, heads, 1, D)), qcfg)
+        KC.write_slot(slots, s, one)
+    return slots
+
+
+def _row_counts(c):
+    """The per-row counters of a slot cache, read to the host."""
+    return list(zip(*(getattr(c, n).tolist() for n in (
+        "n_k_quant", "n_k_win", "n_v_quant", "n_v_win"))))
+
+
+def check_fused_decode_rows(gen, results):
+    import torch.nn.functional as F
+
+    from kivi_tpu_torch.config import QuantConfig
+    from kivi_tpu_torch.core import quant as Q
+    from kivi_tpu_torch.kernels import fused_decode as FR
+    from kivi_tpu_torch.kernels import fused_decode_wide as FD
+    name = "fused_decode_attention"
+    worst = 0.0
+    S = len(FILLS)
+    pad = torch.tensor([0, 0, 37, 300, 1000, 5, 3999, 0], device="cuda",
+                       dtype=torch.int32)
+    # (bits, v_flush, KV heads, query rows per KV head, lower bound); the
+    # batcher's main path runs the first
+    cases = [(2, 128, H, 1, None)]
+    cases += [(bits, 32, heads, r, "pad") for bits in (2, 4, 8)
+              for heads, r in ((H, 1), (8, 4))]
+    cases += [(4, 32, H, 1, "swa"), (8, 128, 8, 4, "swa")]
+    timed = None
+    for bits, vf, heads, r, mask in cases:
+        qcfg = QuantConfig(bits, bits, 32, 128, v_flush=vf)
+        c = _slot_cache(gen, qcfg, heads)
+        rows = _row_counts(c)
+        if vf < 128 and not any(nkq > nvq for nkq, _, nvq, _ in rows):
+            raise AssertionError(f"{name}: no row with n_k_quant > "
+                                 "n_v_quant")
+        q = _randn(gen, (S, heads, r, D))
+        lo = None
+        if mask == "pad":
+            lo = pad
+        elif mask == "swa":                 # each row's own window
+            lo = torch.clamp(c.seq_len - 1000, min=0)
+        counts = torch.stack([c.n_k_quant, c.n_k_win, c.n_v_quant], dim=1)
+        args = (q, c.k_codes, c.k_scale, c.k_mn, c.v_codes, c.v_scale,
+                c.v_mn, c.k_win, c.v_win, counts)
+        kw = dict(group_size=32, k_bits=bits, v_bits=bits, lo=lo)
+        got = FR.fused_decode_attention(*args, **kw)
+        want = FR.fused_decode_attention_plain(*args, **kw)
+        torch.cuda.synchronize()
+        what = (f"{name} bits={bits} vf={vf} Hkv={heads} r={r} mask={mask}"
+                f" fills={FILLS}")
+        worst = max(worst, _att_err(got, want, what))
+        if got[FILLS.index(0)].abs().max() != 0:
+            raise AssertionError(f"{what}: the empty row is not 0")
+        log(f"[kernel] {what}: empty row exactly 0; (n_k_quant, n_k_win, "
+            f"n_v_quant) per row {[x[:3] for x in rows]}")
+        if (bits, vf, r, mask) == (2, 128, 1, None):
+            timed = (c, qcfg, args, kw, q, rows)
+    # at counters equal on every row it is the wide kernel's function
+    for bits in (2, 4, 8):
+        qcfg = QuantConfig(bits, bits, 32, 128, v_flush=32)
+        c = _filled_cache(gen, qcfg, 1081, H)
+        q = _randn(gen, (B, H, 1, D))
+        arrays = (q, c.k_codes, c.k_scale, c.k_mn, c.v_codes, c.v_scale,
+                  c.v_mn, c.k_win, c.v_win)
+        kw = dict(group_size=32, k_bits=bits, v_bits=bits,
+                  lo=torch.arange(B, device="cuda", dtype=torch.int32) * 37)
+        counts = torch.tensor([[c.n_k_quant, c.n_k_win, c.n_v_quant]] * B,
+                              device="cuda", dtype=torch.int32)
+        got = FR.fused_decode_attention(*arrays, counts, **kw)
+        want = FD.fused_decode_attention_wide(
+            *arrays, c.n_k_quant, c.n_k_win, c.n_v_quant, **kw)
+        torch.cuda.synchronize()
+        _att_err(got, want, f"{name} bits={bits} uniform fill 1081 vs "
+                            "fused_decode_attention_wide")
+
+    c, qcfg, args, kw, q, rows = timed
+    sb = c.k_scale.element_size()
+    nbytes = (sum(H * _live_bytes(qcfg, sb, *x) for x in rows)
+              + q.numel() * 2 + S * H * D * 4 + S * 3 * 4)
+    bms, by = bound(nbytes, 4 * H * D * sum(FILLS))
+    # yardstick: SDPA over each row's cache dequantized to bf16, a per-row
+    # boolean mask over the longest fill
+    L = max(FILLS)
+    k = torch.zeros((S, H, L, D), dtype=torch.bfloat16, device="cuda")
+    v = torch.zeros_like(k)
+    k_deq = Q.dequantize_k(c.k_codes, c.k_scale, c.k_mn, 32,
+                           2).transpose(-1, -2)
+    v_deq = Q.dequantize_v(c.v_codes, c.v_scale, c.v_mn, 32, 2)
+    for s_, (nkq, nkw, nvq, nvw) in enumerate(rows):
+        k[s_, :, :nkq] = k_deq[s_, :, :nkq].to(torch.bfloat16)
+        k[s_, :, nkq:nkq + nkw] = c.k_win[s_, :, :nkw]
+        v[s_, :, :nvq] = v_deq[s_, :, :nvq].to(torch.bfloat16)
+        v[s_, :, nvq:nvq + nvw] = c.v_win[s_, :, :nvw]
+    mask = (torch.arange(L, device="cuda")[None, :]
+            < torch.tensor(FILLS, device="cuda")[:, None])[:, None, None]
+    del k_deq, v_deq
+    results[name] = dict(
+        max_abs_err=worst,
+        ms=cuda_ms(lambda: FR.fused_decode_attention(*args, **kw)),
+        plain_ms=cuda_ms(lambda: FR.fused_decode_attention_plain(
+            *args, **kw)),
+        bound_ms=bms, bound_by=by,
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask)))
+    log(f"[kernel] {name} timed at S={S} slots, fills {FILLS}, KIVI-2 "
+        f"(vf 128), H={H}, r=1: live bytes {nbytes / 1e6:.2f} MB")
 
 
 def check_extend(gen, results):
@@ -426,6 +569,43 @@ def check_fp_decode(gen, results):
                        f"mask={mask}"))
         if (fill, r, mask) == (1081, 1, None):
             timed = (c, q)
+    # per-row lengths (the continuous batcher's slot caches): each row
+    # at its own fill, 0 for an empty slot; the window counts back from
+    # each row's own length
+    S = len(FILLS)
+    lens = torch.tensor(FILLS, device="cuda", dtype=torch.int32)
+    for heads, r, mask in ((H, 1, None), (8, 4, "pad"), (H, 1, "swa")):
+        c = FC.init_fp_slot_cache(S, heads, D, TMAX, device="cuda")
+        c.k.copy_(_randn(gen, c.k.shape))
+        c.v.copy_(_randn(gen, c.v.shape))
+        c.length.copy_(lens)
+        q = _randn(gen, (S, heads, r, D))
+        kw = {}
+        if mask == "pad":
+            kw["pad_len"] = torch.tensor([0, 0, 37, 300, 1000, 5, 3999, 0],
+                                         device="cuda", dtype=torch.int32)
+        elif mask == "swa":
+            kw["sliding_window"] = 1000
+        got = FD.fp_decode_attention_kernel(q, c.k, c.v, c.length, **kw)
+        want = FD.fp_decode_attention_plain(q, c.k, c.v, c.length, **kw)
+        torch.cuda.synchronize()
+        what = (f"{name} per-row lengths {FILLS} Hkv={heads} r={r} "
+                f"mask={mask}")
+        worst = max(worst, _att_err(got, want, what))
+        if got[FILLS.index(0)].abs().max() != 0:
+            raise AssertionError(f"{what}: the empty row is not 0")
+        if (heads, mask) == (H, None):
+            rows = (c, q)
+    c_rows, q_rows = rows
+    rows_bytes = (2 * H * sum(FILLS) * D * 2 + q_rows.numel() * 2
+                  + q_rows.numel() * 4 + S * 4)
+    rows_bms, _ = bound(rows_bytes, 4 * H * sum(FILLS) * D)
+    rows_ms = cuda_ms(lambda: FD.fp_decode_attention_kernel(
+        q_rows, c_rows.k, c_rows.v, c_rows.length))
+    log(f"[kernel] {name} per-row lengths {FILLS}: {rows_ms:.4f} ms, bound "
+        f"{rows_bms:.4f} ms")
+    del c_rows, rows
+
     c, q = timed
     fill = c.length
     k = c.k[..., :fill].transpose(-1, -2).contiguous()   # (B, H, T, D)
@@ -439,7 +619,8 @@ def check_fp_decode(gen, results):
         plain_ms=cuda_ms(lambda: FD.fp_decode_attention_plain(q, c.k, c.v,
                                                               fill)),
         bound_ms=bms, bound_by=by,
-        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v)))
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
+        rows_ms=rows_ms, rows_bound_ms=rows_bms)
     log(f"[kernel] {name} timed at fill {fill}, B={B}, H={H}, r=1")
 
 
@@ -449,6 +630,7 @@ def phase_kernels():
     results = {}
     check_quant(gen, results)
     check_decode(gen, results)
+    check_fused_decode_rows(gen, results)
     check_extend(gen, results)
     check_flash(gen, results)
     check_fp_decode(gen, results)
@@ -460,15 +642,35 @@ def phase_kernels():
 # ---------------------------------------------------------------------------
 
 KIVI_KERNELS = ("quantize_pack_k", "quantize_pack_v", "flash_extend_attention",
-                "fused_decode_attention_wide")
+                "fused_decode_attention_wide", "fused_decode_attention")
 # path -> (kernels that must launch, kernels that must not)
 PATHS = {
-    "chunked": (KIVI_KERNELS, ()),
+    "chunked": (KIVI_KERNELS[:4], ("fused_decode_attention",)),
     "oneshot": (("flash_attention", "quantize_pack_k", "quantize_pack_v",
-                 "fused_decode_attention_wide"), ()),
+                 "fused_decode_attention_wide"), ("fused_decode_attention",)),
     "fp16": (("flash_attention", "fp_decode_attention_kernel"),
              KIVI_KERNELS),
+    "batcher": (("flash_attention", "quantize_pack_k", "quantize_pack_v",
+                 "fused_decode_attention"),
+                ("fused_decode_attention_wide", "flash_extend_attention",
+                 "fp_decode_attention_kernel")),
+    "batcher-chunked": (("flash_extend_attention", "quantize_pack_k",
+                         "quantize_pack_v", "fused_decode_attention"),
+                        ("fused_decode_attention_wide", "flash_attention",
+                         "fp_decode_attention_kernel")),
+    "batcher-fp16": (("flash_attention", "fp_decode_attention_kernel"),
+                     KIVI_KERNELS),
 }
+
+
+def check_launches(path: str, launches: dict) -> None:
+    must, must_not = PATHS[path]
+    for k in must:
+        if launches.get(k, 0) <= 0:
+            raise AssertionError(f"{path} path never launched {k}")
+    for k in must_not:
+        if launches.get(k, 0):
+            raise AssertionError(f"{path} path launched {k}")
 
 
 def run_path(path: str, eng, tokens, new: int, smi: str) -> dict:
@@ -488,13 +690,7 @@ def run_path(path: str, eng, tokens, new: int, smi: str) -> dict:
     launches = dict(_build.LAUNCHES)
     log(f"[main:{path}] generate({Bn}x{prompt}, {new} new): {wall:.2f} s, "
         f"launches {launches}")
-    must, must_not = PATHS[path]
-    for k in must:
-        if launches.get(k, 0) <= 0:
-            raise AssertionError(f"{path} path never launched {k}")
-    for k in must_not:
-        if launches.get(k, 0):
-            raise AssertionError(f"{path} path launched {k}")
+    check_launches(path, launches)
     if out.shape != (Bn, new) or out.min() < 0 or \
             out.max() >= eng.cfg.vocab_size:
         raise AssertionError(f"bad tokens: shape {tuple(out.shape)}")
@@ -534,8 +730,64 @@ def run_path(path: str, eng, tokens, new: int, smi: str) -> dict:
     return launches
 
 
+def batcher_requests(n: int, vocab: int, seed: int):
+    """n requests from a seeded generator: prompts of 100-1000 tokens,
+    16-128 new tokens, even uids greedy, odd ones at temperature 0.8 with
+    top_p 0.9 (no EOS, so each returns exactly its max_new_tokens)."""
+    import numpy as np
+
+    from kivi_tpu_torch.serving.batcher import Request
+    rng = np.random.RandomState(seed)
+    reqs = []
+    for i in range(n):
+        prompt = rng.randint(0, vocab, size=rng.randint(100, 1001)).tolist()
+        kw = {} if i % 2 == 0 else dict(temperature=0.8, top_p=0.9)
+        reqs.append(Request(uid=i, prompt=prompt,
+                            max_new_tokens=int(rng.randint(16, 129)), **kw))
+    return reqs
+
+
+def run_batcher(path: str, bat, reqs, smi: str) -> dict:
+    """Drive the batcher over reqs with the launch counts zeroed just
+    before and read just after; every request must come back with its
+    max_new_tokens valid token ids."""
+    from kivi_tpu_torch.kernels import _build
+    _build.LAUNCHES.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for r in reqs:
+        bat.submit(r)
+    steps = 0
+    while bat.queue or bat.active.any():
+        bat.step()
+        steps += 1
+    bat._retire()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    check_launches(path, launches)
+    V = bat.cfg.vocab_size
+    for r in reqs:
+        toks = bat.results[r.uid].tokens
+        if len(toks) != r.max_new_tokens or not all(
+                0 <= t < V for t in toks):
+            raise AssertionError(
+                f"{path}: request {r.uid} returned {len(toks)} tokens, "
+                f"want {r.max_new_tokens} valid ids")
+    n_tok = sum(r.max_new_tokens for r in reqs)
+    log(f"[main:{path}] {len(reqs)} requests, {bat.S} slots, prompts "
+        f"{min(len(r.prompt) for r in reqs)}-"
+        f"{max(len(r.prompt) for r in reqs)}: {n_tok} tokens in "
+        f"{steps} steps, {wall:.3f} s = {n_tok / wall:.1f} generated "
+        f"tokens/s | {bat.cfg.num_layers} layers | card {smi}")
+    log(f"[main:{path}] launches {launches}")
+    return launches
+
+
 def phase_main(layers: int, smi: str) -> dict:
-    """Returns {path: {kernel: launches}}."""
+    """Engine.generate on three paths, then the continuous batcher on
+    three, all on one set of weights.  Returns {path: {kernel:
+    launches}}."""
     import dataclasses
 
     from kivi_tpu_torch.config import PRESETS, QuantConfig
@@ -562,6 +814,18 @@ def phase_main(layers: int, smi: str) -> dict:
                      batch_size=B)
         launches[path] = run_path(path, eng, tokens, new, smi)
         del eng
+        torch.cuda.empty_cache()
+    from kivi_tpu_torch.serving.batcher import ContinuousBatcher
+    for path, qcfg, chunk in (("batcher", kivi, 0),
+                              ("batcher-chunked", kivi, 128),
+                              ("batcher-fp16", fp16, 0)):
+        bat = ContinuousBatcher(cfg, qcfg, params, num_slots=B,
+                                max_seq_len=TMAX,
+                                prompt_buckets=(128, 256, 512, 1024),
+                                prefill_chunk=chunk)
+        launches[path] = run_batcher(
+            path, bat, batcher_requests(12, cfg.vocab_size, seed=5), smi)
+        del bat
         torch.cuda.empty_cache()
     del params
     torch.cuda.empty_cache()
@@ -623,6 +887,154 @@ def phase_vs_plain():
                                  "disagree")
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the batcher against the engine on the card
+# ---------------------------------------------------------------------------
+
+def _small_model(seed: int):
+    import dataclasses
+
+    from kivi_tpu_torch.config import PRESETS
+    from kivi_tpu_torch.models import modeling
+    cfg = dataclasses.replace(PRESETS["llama2-7b"], num_layers=2)
+    return cfg, modeling.init_params(cfg, seed=seed, device="cuda")
+
+
+def phase_batcher_vs_engine():
+    """Greedy requests through the batcher (4 slots, bucketed admission)
+    against batch-1 Engine runs of the same prompts left-padded to the
+    same bucket (pad_lens), as tests/test_batcher.py::_oracle does: the
+    first tokens must be equal, and the batcher's first decode step's
+    logits of each slot must lie within the phase-5 tolerance of the
+    engine's; the agreement of the whole greedy sequences is reported."""
+    from kivi_tpu_torch.config import QuantConfig
+    from kivi_tpu_torch.serving.batcher import ContinuousBatcher, Request
+    from kivi_tpu_torch.serving.engine import Engine
+
+    cfg, params = _small_model(seed=2)
+    tmax, buckets, new = 1024, (128, 256), 48
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(6)
+    lens = (100, 256, 150, 201)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist()
+               for n in lens]
+    for label, qcfg in (("KIVI-2", QuantConfig(2, 2, 32, 128, v_flush=128)),
+                        ("fp16", QuantConfig(16, 16, 32, 128))):
+        bat = ContinuousBatcher(cfg, qcfg, params, num_slots=len(prompts),
+                                max_seq_len=tmax, prompt_buckets=buckets)
+        for i, p in enumerate(prompts):
+            bat.submit(Request(uid=i, prompt=p, max_new_tokens=new))
+        bat.step()                    # admits every request, decodes once
+        slot_of = {bat.slot_req[s].uid: s for s in range(bat.S)}
+        first = {i: bat.slot_out[slot_of[i]][0] for i in range(len(prompts))}
+        step_logits = bat.last_logits.float().cpu()
+        while bat.queue or bat.active.any():
+            bat.step()
+        bat._retire()
+        eng = Engine(cfg=cfg, qcfg=qcfg, params=params, max_seq_len=tmax,
+                     batch_size=1)
+        agree, worst = [], 0.0
+        for i, p in enumerate(prompts):
+            bucket = next(b for b in buckets if len(p) <= b)
+            pad = bucket - len(p)
+            toks = torch.tensor([[0] * pad + p], device="cuda")
+            logits, caches = eng._prefill(toks, pad_lens=[pad])
+            tok0 = int(logits.argmax(-1))
+            if tok0 != first[i]:
+                raise AssertionError(f"{label} request {i}: first token "
+                                     f"{first[i]} != engine's {tok0}")
+            lg, _ = eng.decode_step(
+                torch.tensor([[tok0]], device="cuda"),
+                torch.tensor([[len(p)]], device="cuda"), caches,
+                pad_lens=[pad], flush=True)
+            lg = lg[0].float().cpu()
+            err = (step_logits[slot_of[i]] - lg).abs().max().item()
+            tol = 5e-2 * lg.abs().max().item()
+            if not err <= tol:
+                raise AssertionError(f"{label} request {i}: decode logits "
+                                     f"max|batcher - engine| {err:.3e} > "
+                                     f"{tol:.3e}")
+            worst = max(worst, err / lg.abs().max().item())
+            want = eng.generate(toks, new, pad_lens=[pad])[0].tolist()
+            got = bat.results[i].tokens
+            agree.append(sum(a == b for a, b in zip(got, want)) / new)
+        log(f"[batcher-vs-engine] {label}, 2 layers full width, "
+            f"{len(prompts)} prompts {lens}: first tokens equal; first "
+            f"decode step's logits max|batcher - engine| / max|engine| = "
+            f"{worst:.3e} (tolerance 5e-2); greedy token agreement over "
+            f"{new} tokens per request {[round(a, 3) for a in agree]}")
+        del bat, eng
+    del params
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 7: ServingAPI on the loopback interface
+# ---------------------------------------------------------------------------
+
+def phase_api():
+    """Three concurrent POSTs (one streaming) through ServingAPI over a
+    2-layer full-width batcher, all answered, then /v1/health."""
+    import http.client
+    import threading
+
+    from kivi_tpu_torch.config import QuantConfig
+    from kivi_tpu_torch.serving.api import ServingAPI
+    from kivi_tpu_torch.serving.batcher import ContinuousBatcher
+
+    cfg, params = _small_model(seed=3)
+    bat = ContinuousBatcher(cfg, QuantConfig(2, 2, 32, 128, v_flush=128),
+                            params, num_slots=4, max_seq_len=1024,
+                            prompt_buckets=(128, 256))
+    news = (24, 16, 20)
+    out = [None] * 3
+
+    def post(port, i):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+        prompt = list(range(100 + 37 * i, 250 + 37 * i))
+        conn.request("POST", "/v1/generate", json.dumps({
+            "prompt": prompt, "max_new_tokens": news[i],
+            "stream": i == 1, "temperature": 0.8 if i == 2 else 0.0}),
+            {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        if i == 1:
+            toks = []
+            for raw in resp:
+                line = raw.decode().strip()
+                if line == "data: [DONE]":
+                    break
+                if line.startswith("data: "):
+                    toks.append(json.loads(line[6:])["token"])
+        else:
+            toks = json.loads(resp.read())["tokens"]
+        conn.close()
+        out[i] = (resp.status, toks)
+
+    t0 = time.perf_counter()
+    with ServingAPI(bat) as srv:
+        threads = [threading.Thread(target=post, args=(srv.port, i))
+                   for i in range(3)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        conn = http.client.HTTPConnection("127.0.0.1", srv.port, timeout=60)
+        conn.request("GET", "/v1/health")
+        health = json.loads(conn.getresponse().read())
+        conn.close()
+    wall = time.perf_counter() - t0
+    for i, n in enumerate(news):
+        if out[i] is None or out[i][0] != 200 or len(out[i][1]) != n:
+            raise AssertionError(f"ServingAPI request {i}: {out[i]}")
+    if health["status"] != "ok":
+        raise AssertionError(f"ServingAPI health: {health}")
+    log(f"[api] ServingAPI on 127.0.0.1: 3 concurrent requests (one "
+        f"streamed over SSE) answered with {[len(o[1]) for o in out]} "
+        f"tokens in {wall:.2f} s; health {health}")
+    del bat, params
+    torch.cuda.empty_cache()
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=32,
@@ -634,6 +1046,8 @@ def main():
     results = phase_kernels()
     launches = phase_main(args.layers, smi)
     phase_vs_plain()
+    phase_batcher_vs_engine()
+    phase_api()
     sources = {
         "quantize_pack_k": ("kivi_tpu_torch/kernels/csrc/quant_pack.cu",
                             "kivi_tpu/kernels/quant_pack.py:119"),
@@ -645,6 +1059,9 @@ def main():
         "fused_decode_attention_wide": (
             "kivi_tpu_torch/kernels/csrc/fused_decode.cu",
             "kivi_tpu/kernels/fused_decode_wide.py:544"),
+        "fused_decode_attention": (
+            "kivi_tpu_torch/kernels/csrc/fused_decode_rows.cu",
+            "kivi_tpu/kernels/fused_decode.py:198"),
         "flash_attention": ("kivi_tpu_torch/kernels/csrc/flash.cu",
                             "kivi_tpu/kernels/flash.py:118"),
         "fp_decode_attention_kernel": (
@@ -652,7 +1069,9 @@ def main():
             "kivi_tpu/kernels/fp_decode.py:84"),
     }
     yardstick = {"flash_attention": "SDPA, causal",
-                 "fp_decode_attention_kernel": "SDPA over the live K/V"}
+                 "fp_decode_attention_kernel": "SDPA over the live K/V",
+                 "fused_decode_attention": "SDPA, per-row mask, over the "
+                                           "cache dequantized to bf16"}
     kernels = []
     for k, (src, rep) in sources.items():
         r = results[k]

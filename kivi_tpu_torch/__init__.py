@@ -11,7 +11,9 @@ every kernel wrapper takes its plain PyTorch version.
 
 It holds the KIVI serving main path (chunked prefill through the extend
 attention, or one-shot prefill through flash attention, then
-greedy/sampled decode) and the fp16-cache baseline engine beside it.
+greedy/sampled decode), the fp16-cache baseline engine beside it, and
+the continuous batcher with its HTTP front end (serving/batcher.py,
+serving/api.py) over either cache.
 """
 
 from kivi_tpu_torch.config import (PRESETS, ModelConfig, QuantConfig,

@@ -1,22 +1,24 @@
 """Full-precision KV cache, the fp16-cache baseline: port of
-`kivi_tpu/cache/fp_cache.py` (all but `fp_append_masked`, which belongs
-to the continuous batcher).
+`kivi_tpu/cache/fp_cache.py`.
 
 The same static preallocation as the KIVI cache, so the two engines are
 compared like for like: K is stored TRANSPOSED, (B, H, D, Tmax), the
 token axis last as in the KIVI stores; V is (B, H, Tmax, D).  Appends
-`copy_` into slices of the preallocated tensors in place; `length` is a
-host int, uniform over the batch.
+`copy_` into slices of the preallocated tensors in place.  `length` is a
+host int, uniform over the batch (the engine), or a (B,) int32 device
+tensor, one length per row (the continuous batcher's slot caches,
+`init_fp_slot_cache`, updated by `fp_append_masked`).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
+from kivi_tpu_torch.cache.kivi_cache import _masked_store_write
 from kivi_tpu_torch.kernels.fp_decode import (NEG_INF,
                                                fp_decode_attention_kernel)
 from kivi_tpu_torch.utils.device import resolve_device
@@ -25,14 +27,14 @@ from kivi_tpu_torch.utils.device import resolve_device
 @dataclasses.dataclass
 class FpLayerCache:
     """k: (B, H, D, Tmax) transposed keys; v: (B, H, Tmax, D); length:
-    host int count of valid tokens."""
+    count of valid tokens, a host int or (B,) int32 device tensor."""
 
     k: torch.Tensor
     v: torch.Tensor
-    length: int = 0
+    length: Union[int, torch.Tensor] = 0
 
     @property
-    def seq_len(self) -> int:
+    def seq_len(self) -> Union[int, torch.Tensor]:
         return self.length
 
     @property
@@ -52,6 +54,18 @@ def init_fp_cache(batch: int, num_kv_heads: int, head_dim: int,
         v=torch.zeros((B, H, T, D), dtype=dtype, device=device))
 
 
+def init_fp_slot_cache(num_slots: int, num_kv_heads: int, head_dim: int,
+                       max_seq_len: int, dtype=torch.bfloat16,
+                       device=None) -> FpLayerCache:
+    """An empty slot cache: one row per slot, `length` a (num_slots,)
+    int32 tensor on the device."""
+    cache = init_fp_cache(num_slots, num_kv_heads, head_dim, max_seq_len,
+                          dtype, device)
+    cache.length = torch.zeros(num_slots, dtype=torch.int32,
+                               device=cache.k.device)
+    return cache
+
+
 def fp_append(cache: FpLayerCache, k_new, v_new) -> FpLayerCache:
     """Append T tokens of (B, H, T, D) in place at `length`."""
     t = k_new.shape[-2]
@@ -60,6 +74,24 @@ def fp_append(cache: FpLayerCache, k_new, v_new) -> FpLayerCache:
     cache.k[..., off:off + t].copy_(k_new.transpose(-1, -2))
     cache.v[:, :, off:off + t].copy_(v_new)
     cache.length = off + t
+    return cache
+
+
+def fp_append_masked(cache: FpLayerCache, k_new, v_new,
+                     active: Optional[torch.Tensor] = None) -> FpLayerCache:
+    """`fp_append` of T tokens (B, H, T, D) into a slot cache, each row at
+    its own length; rows where active (B,) is false keep their length.
+    They still write, at the frozen length, beyond the valid count and
+    hence invisible to attention, as in the JAX package.  The start is
+    clamped into [0, Tmax - T] (XLA's dynamic_update_slice), so a full
+    row never writes out of range."""
+    if active is None:
+        return fp_append(cache, k_new, v_new)
+    t = k_new.shape[-2]
+    _masked_store_write(cache.k, k_new.transpose(-1, -2), cache.length, 3)
+    _masked_store_write(cache.v, v_new, cache.length, 2)
+    cache.length += active.to(device=cache.k.device,
+                              dtype=torch.int32).reshape(-1) * t
     return cache
 
 
@@ -123,8 +155,10 @@ def fp_decode_attention(q, cache: FpLayerCache,
     """Exact single-token decode attention over the fp cache.
 
     q: (B, Hq, 1, D) -> (B, Hq, 1, D) f32.  CUDA tensors go to the
-    flash-decode kernel (kernels/fp_decode.py), CPU tensors to its plain
-    version.  pad_len: optional (B,) int left pad per row."""
+    flash-decode kernel (kernels/fp_decode.py), with the host-int length
+    or, in a slot cache, each row's length read on the device; CPU
+    tensors go to its plain version.  pad_len: optional (B,) int left pad
+    per row."""
     B, Hq, M, D = q.shape
     Hkv = cache.k.shape[1]
     r = Hq // Hkv

@@ -6,11 +6,18 @@ the JAX package donates buffers and returns new arrays, the port
 `copy_`s into slices of the preallocated tensors.  Every function still
 returns the cache (the same object) so call sites read like the JAX ones.
 
-The four counters are host Python ints, uniform over the batch as in
-the JAX cache.  The flush schedule is known on the host, so no step
-needs a device-to-host sync to read them; they reach the kernels as
-plain int arguments.  (Capturing the decode step in a CUDA graph will
-need them on the device.)
+The four counters come in two kinds:
+
+  * host Python ints, uniform over the batch as in the JAX cache (the
+    engine).  The flush schedule is known on the host, so no step needs
+    a device-to-host sync to read them; they reach the kernels as plain
+    int arguments;
+  * (B,) int32 device tensors, one count per row (the continuous
+    batcher's slot caches, `init_slot_cache`): the counterpart of the
+    JAX batcher's `jax.vmap` over batch-1 caches.  They are updated by
+    the masked, per-row functions (`decode_append_masked`,
+    `flush_k_masked`, `flush_v_masked`) with no Python branch on a
+    device value, and read per row by the decode kernel.
 
 Streaming policy (reference `models/llama_kivi.py:131-144, 174-187`):
   * every token appends post-RoPE K and V to fp windows;
@@ -23,6 +30,7 @@ Streaming policy (reference `models/llama_kivi.py:131-144, 174-187`):
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional, Union
 
 import torch
 
@@ -44,7 +52,8 @@ class KiviLayerCache:
       v_mn:    (B, H, D//gs, T)
       k_win:   (B, H, W, D) fp window of recent keys
       v_win:   (B, H, W, D) fp window of recent values
-      n_*:     host ints - valid token counts (quant stores / windows)
+      n_*:     valid token counts (quant stores / windows): host ints,
+               or (B,) int32 device tensors in a slot cache
     """
 
     k_codes: torch.Tensor
@@ -55,14 +64,14 @@ class KiviLayerCache:
     v_mn: torch.Tensor
     k_win: torch.Tensor
     v_win: torch.Tensor
-    n_k_quant: int = 0
-    n_k_win: int = 0
-    n_v_quant: int = 0
-    n_v_win: int = 0
+    n_k_quant: Union[int, torch.Tensor] = 0
+    n_k_win: Union[int, torch.Tensor] = 0
+    n_v_quant: Union[int, torch.Tensor] = 0
+    n_v_win: Union[int, torch.Tensor] = 0
 
     @property
-    def seq_len(self) -> int:
-        """Total tokens seen."""
+    def seq_len(self) -> Union[int, torch.Tensor]:
+        """Total tokens seen (per row in a slot cache)."""
         return self.n_k_quant + self.n_k_win
 
     @property
@@ -102,6 +111,51 @@ def init_layer_cache(batch: int, num_kv_heads: int, head_dim: int,
         k_win=z((B, H, W, D), dtype),
         v_win=z((B, H, W, D), dtype),
     )
+
+
+_COUNTERS = ("n_k_quant", "n_k_win", "n_v_quant", "n_v_win")
+
+
+def init_slot_cache(num_slots: int, num_kv_heads: int, head_dim: int,
+                    max_seq_len: int, qcfg: QuantConfig,
+                    dtype=torch.bfloat16, device=None) -> KiviLayerCache:
+    """An empty slot cache: `init_layer_cache` with one row per slot and
+    its four counters as (num_slots,) int32 tensors on the device."""
+    cache = init_layer_cache(num_slots, num_kv_heads, head_dim, max_seq_len,
+                             qcfg, dtype, device)
+    for f in _COUNTERS:
+        setattr(cache, f, torch.zeros(num_slots, dtype=torch.int32,
+                                      device=cache.k_codes.device))
+    return cache
+
+
+
+def clear(cache):
+    """Empty a host-int cache in place: every tensor zeroed, every counter
+    0 (the state init_layer_cache / init_fp_cache return).  Works on
+    KiviLayerCache and FpLayerCache alike."""
+    for f in dataclasses.fields(cache):
+        x = getattr(cache, f.name)
+        if isinstance(x, torch.Tensor):
+            x.zero_()
+        else:
+            setattr(cache, f.name, 0)
+    return cache
+
+
+def write_slot(slot_cache, s: int, one_cache):
+    """Copy a batch-1 host-int cache (an admission prefill's output) into
+    row s of a slot cache and set the row's counters: the counterpart of
+    the JAX batcher's `dynamic_update_index_in_dim` at the slot.  Works on
+    KiviLayerCache and FpLayerCache alike (every tensor field has the row
+    axis first; every host-int field is a counter)."""
+    for f in dataclasses.fields(slot_cache):
+        dst, src = getattr(slot_cache, f.name), getattr(one_cache, f.name)
+        if isinstance(src, torch.Tensor):
+            dst[s].copy_(src[0])
+        else:
+            dst[s] = src
+    return slot_cache
 
 
 # ---------------------------------------------------------------------------
@@ -261,4 +315,104 @@ def decode_append(cache: KiviLayerCache, k_new, v_new, qcfg: QuantConfig,
     cache.v_win[:, :, cache.n_v_win].copy_(v_new[:, :, 0])
     cache.n_k_win += 1
     cache.n_v_win += 1
+    return cache
+
+
+# ---------------------------------------------------------------------------
+# masked, per-row updates of a slot cache (kivi_tpu/cache/kivi_cache.py:
+# 348-401, 457-522): the continuous batcher's decode step
+# ---------------------------------------------------------------------------
+
+def _masked_store_write(store: torch.Tensor, block: torch.Tensor,
+                        start: torch.Tensor, dim: int,
+                        pred: Optional[torch.Tensor] = None) -> None:
+    """Write block (B, ...) into store (B, ...) in place at per-row
+    offsets start (B,) along `dim`, with the CONTENT falling back to the
+    store's own bytes on rows where pred (B,) is false.
+
+    As XLA's dynamic_update_slice, which the JAX package relies on, the
+    start is clamped into [0, store.shape[dim] - block.shape[dim]]: an
+    inactive row at n_win == W, or a full store at n_k_quant == Tmax,
+    writes (its own bytes) at the last slice instead of out of range.
+    Traffic is O(block) per row; no branch reads a device value."""
+    B, n = block.shape[0], block.shape[dim]
+    start = start.to(torch.int64).clamp(0, store.shape[dim] - n)
+    shape = [1] * block.dim()
+    shape[0], shape[dim] = B, n
+    idx = (start[:, None] + torch.arange(n, device=store.device)).reshape(
+        shape).expand(block.shape)
+    block = block.to(store.dtype)
+    if pred is not None:
+        keep = pred.reshape([B] + [1] * (block.dim() - 1))
+        block = torch.where(keep, block, store.gather(dim, idx))
+    store.scatter_(dim, idx, block)
+
+
+def _row_pred(cache: KiviLayerCache, pred) -> torch.Tensor:
+    B = cache.k_win.shape[0]
+    if pred is None:
+        return torch.ones(B, dtype=torch.bool, device=cache.k_win.device)
+    return pred.to(device=cache.k_win.device, dtype=torch.bool).reshape(B)
+
+
+def flush_k_masked(cache: KiviLayerCache, qcfg: QuantConfig,
+                   pred: Optional[torch.Tensor] = None) -> KiviLayerCache:
+    """Masked key-window flush of a slot cache: quantize every row's
+    window and append it on rows where pred & (n_k_win == W), by
+    slice-sized selected writes (`_masked_store_write`) at each row's
+    n_k_quant, never a branch on the counters."""
+    W, gs = qcfg.residual_length, qcfg.group_size
+    flush_k = _row_pred(cache, pred) & (cache.n_k_win == W)
+    kc, ks, km = quantize_pack_k(cache.k_win, gs, qcfg.k_bits)
+    off = cache.n_k_quant
+    _masked_store_write(cache.k_codes, kc, off, 3, flush_k)
+    _masked_store_write(cache.k_scale, ks, off // gs, 2, flush_k)
+    _masked_store_write(cache.k_mn, km, off // gs, 2, flush_k)
+    cache.n_k_quant += flush_k.to(torch.int32) * W
+    cache.n_k_win.masked_fill_(flush_k, 0)
+    return cache
+
+
+def flush_v_masked(cache: KiviLayerCache, qcfg: QuantConfig,
+                   pred: Optional[torch.Tensor] = None) -> KiviLayerCache:
+    """Masked value-window flush (the oldest v_flush tokens, then the
+    window shifts) on rows where pred & (n_v_win == W); see
+    flush_k_masked."""
+    W, vf, gs = qcfg.residual_length, qcfg.value_flush, qcfg.group_size
+    flush_v = _row_pred(cache, pred) & (cache.n_v_win == W)
+    vc, vs, vm = quantize_pack_v(cache.v_win[:, :, :vf], gs, qcfg.v_bits)
+    off = cache.n_v_quant
+    _masked_store_write(cache.v_codes, vc, off, 3, flush_v)
+    _masked_store_write(cache.v_scale, vs, off, 3, flush_v)
+    _masked_store_write(cache.v_mn, vm, off, 3, flush_v)
+    shifted = torch.cat([cache.v_win[:, :, vf:],
+                         torch.zeros_like(cache.v_win[:, :, :vf])], dim=2)
+    cache.v_win.copy_(torch.where(flush_v.reshape(-1, 1, 1, 1), shifted,
+                                  cache.v_win))
+    step = flush_v.to(torch.int32) * vf
+    cache.n_v_quant += step
+    cache.n_v_win -= step
+    return cache
+
+
+def decode_append_masked(cache: KiviLayerCache, k_new, v_new,
+                         qcfg: QuantConfig,
+                         active: Optional[torch.Tensor] = None
+                         ) -> KiviLayerCache:
+    """`decode_append` for a slot cache whose rows sit at divergent
+    window phases: each row flushes its own full windows, then appends
+    one token's K/V (B, H, 1, D).  Rows where active (B,) is false freeze
+    every counter, and their writes carry the store's own bytes: an
+    inactive row may sit at n_win == W, where the clamped write lands on
+    the last REAL window token.  Every row's window is quantized every
+    step (O(W·D), as in the JAX package); non-flushing rows write their
+    stores' bytes back."""
+    act = _row_pred(cache, active)
+    flush_k_masked(cache, qcfg, act)
+    flush_v_masked(cache, qcfg, act)
+    _masked_store_write(cache.k_win, k_new, cache.n_k_win, 2, act)
+    _masked_store_write(cache.v_win, v_new, cache.n_v_win, 2, act)
+    inc = act.to(torch.int32)
+    cache.n_k_win += inc
+    cache.n_v_win += inc
     return cache

@@ -1,6 +1,8 @@
 """KIVI attention over the static split cache, and exact prefill
 attention: port of the main-path subset of `kivi_tpu/core/attention.py`
 (`decode_attention`, `extend_attention`, `prefill_attention`).
+`decode_attention` takes the engine's caches (host-int counters) and
+the continuous batcher's slot caches (per-row device counters) alike.
 
 Decode attention is the KIVI reference's two-half softmax (its
 `models/llama_kivi.py:115-129, 167-172, 323-399`):
@@ -33,6 +35,7 @@ from kivi_tpu_torch.cache.kivi_cache import KiviLayerCache
 from kivi_tpu_torch.config import QuantConfig
 from kivi_tpu_torch.kernels.flash import flash_attention
 from kivi_tpu_torch.kernels.flash_extend import flash_extend_attention
+from kivi_tpu_torch.kernels.fused_decode import fused_decode_attention
 from kivi_tpu_torch.kernels.fused_decode_wide import \
     fused_decode_attention_wide
 
@@ -50,24 +53,40 @@ def decode_attention(q: torch.Tensor, cache: KiviLayerCache,
     pad_len: optional (B,) int — LEFT-padding slots at the front of each
     row's cache, masked as positions < pad_len.  A sliding window is the
     same kind of lower position bound (position t attends positions
-    > t - sliding_window), so both fold into one per-row `lo`."""
+    > t - sliding_window), so both fold into one per-row `lo`.
+
+    Host-int counters (the engine) go to `fused_decode_attention_wide`;
+    a slot cache's per-row device counters (the continuous batcher) go
+    to `fused_decode_attention`, which reads them on the device."""
     B, Hq, M, D = q.shape
     assert M == 1, "decode_attention is single-token"
     Hkv = cache.k_win.shape[1]
     r = Hq // Hkv
+    per_row = isinstance(cache.n_k_quant, torch.Tensor)
     lo = None
     if pad_len is not None:
         lo = pad_len.to(device=q.device, dtype=torch.int32).reshape(B)
     if sliding_window is not None:
-        swa_lo = max(cache.seq_len - sliding_window, 0)
-        lo = (torch.full((B,), swa_lo, dtype=torch.int32, device=q.device)
-              if lo is None else torch.clamp(lo, min=swa_lo))
-    out = fused_decode_attention_wide(
-        q.reshape(B, Hkv, r, D).contiguous(), cache.k_codes, cache.k_scale,
-        cache.k_mn, cache.v_codes, cache.v_scale, cache.v_mn, cache.k_win,
-        cache.v_win, cache.n_k_quant, cache.n_k_win, cache.n_v_quant,
-        group_size=qcfg.group_size, k_bits=qcfg.k_bits, v_bits=qcfg.v_bits,
-        lo=lo)
+        if per_row:
+            swa_lo = torch.clamp(cache.seq_len - sliding_window, min=0)
+            lo = swa_lo if lo is None else torch.maximum(lo, swa_lo)
+        else:
+            swa_lo = max(cache.seq_len - sliding_window, 0)
+            lo = (torch.full((B,), swa_lo, dtype=torch.int32,
+                             device=q.device)
+                  if lo is None else torch.clamp(lo, min=swa_lo))
+    args = (q.reshape(B, Hkv, r, D).contiguous(), cache.k_codes,
+            cache.k_scale, cache.k_mn, cache.v_codes, cache.v_scale,
+            cache.v_mn, cache.k_win, cache.v_win)
+    kw = dict(group_size=qcfg.group_size, k_bits=qcfg.k_bits,
+              v_bits=qcfg.v_bits, lo=lo)
+    if per_row:
+        counts = torch.stack([cache.n_k_quant, cache.n_k_win,
+                              cache.n_v_quant], dim=1)
+        out = fused_decode_attention(*args, counts, **kw)
+    else:
+        out = fused_decode_attention_wide(
+            *args, cache.n_k_quant, cache.n_k_win, cache.n_v_quant, **kw)
     return out.reshape(B, Hq, 1, D)
 
 

@@ -53,6 +53,12 @@ SIGNATURES = {
         # n_k_quant, n_k_win, n_v_quant, scale_is_f32, sm_scale, stream
         "kivi_fused_decode": [_P] * 11 + [_I] * 13 + [_F, _P],
     },
+    "fused_decode_rows": {
+        # q, k_codes, k_scale, k_mn, v_codes, v_scale, v_mn, k_win,
+        # v_win, counts, lo, out, B, H, r, D, Tmax, W, gs, k_bits,
+        # v_bits, scale_is_f32, sm_scale, stream
+        "kivi_fused_decode_rows": [_P] * 12 + [_I] * 10 + [_F, _P],
+    },
     "flash_extend": {
         # q, k_codes, k_scale, k_mn, v_codes, v_scale, v_mn, k_win,
         # v_win, k_new, v_new, pad, out, B, H, R, T1, D, Tmax, W, gs,
@@ -66,9 +72,9 @@ SIGNATURES = {
         "kivi_flash_prefill": [_P] * 5 + [_I] * 6 + [_F, _P],
     },
     "fp_decode": {
-        # q, k, v, pad, out, B, H, r, D, Tmax, length, sliding_window,
-        # sm_scale, stream
-        "kivi_fp_decode": [_P] * 5 + [_I] * 7 + [_F, _P],
+        # q, k, v, pad, lens, out, B, H, r, D, Tmax, length,
+        # sliding_window, sm_scale, stream
+        "kivi_fp_decode": [_P] * 6 + [_I] * 7 + [_F, _P],
     },
 }
 

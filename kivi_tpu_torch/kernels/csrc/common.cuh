@@ -1,7 +1,8 @@
 // Shared helpers for the port's CUDA kernels: the packed word layout of
 // kivi_tpu_torch/core/quant.py, scalar loads of the storage types, a
-// block-wide reduction (the decode kernels) and the tiled attention step
-// (the extend and prefill kernels).
+// block-wide reduction (the decode kernels), the KIVI decode body of one
+// (row, KV head) (the two KIVI decode kernels) and the tiled attention
+// step (the extend and prefill kernels).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -78,6 +79,181 @@ __device__ __forceinline__ void block_reduce(float (&v)[R], float* red,
     }
     __syncthreads();
 }
+
+// ---------------------------------------------------------------------------
+// Single-token KIVI decode attention of one (batch row, KV head), shared by
+// fused_decode.cu (counters uniform over the batch, passed as ints) and
+// fused_decode_rows.cu (counters read per row from the device).  A block of
+// NT = 128 threads holds the R query rows of the head in shared memory and
+// walks the live positions [lo, nkq + nkw) in chunks of NT, one online
+// softmax across all of them:
+//   * logits: thread i owns position c0+i.  A quantized position reads
+//     its KDw words of the (KDw, T) store (coalesced across threads) and
+//     dequantizes code*scale + min against the chunk's K scale rows,
+//     staged in shared memory; a window position reads its k_win row.
+//   * PV: thread d owns channel d.  The chunk's V codes and V scale/min
+//     columns are staged in shared memory; V is routed by position:
+//     pos < nvq reads the V store, the rest read v_win row pos - nvq.
+// Chunks below `lo` (left pad, sliding window) and past nkq + nkw are
+// never visited.  A head with no admitted position writes exact zeros
+// (p is zeroed by the mask, so l stays 0).
+// ---------------------------------------------------------------------------
+namespace kdec {
+
+constexpr int NT = 128;      // threads per block == positions per chunk
+constexpr int NW = NT / 32;
+
+inline size_t smem_bytes(int R, int D, int gs, int v_bits) {
+    const int VDw = D / (32 / v_bits), Dg = D / gs, cg = NT / gs;
+    return sizeof(float) * (size_t)(R * D + R * NT + 2 * cg * D
+                                    + 2 * Dg * NT + R * NW + VDw * NT);
+}
+
+// Pointers are those of batch row b's KV head h (bh = b*H + h): q (R, D),
+// k_codes (KDw, Tmax), k_scale/k_mn (Tmax/gs, D), v_codes (VDw, Tmax),
+// v_scale/v_mn (D/gs, Tmax), k_win/v_win (W, D), out (R, D).
+template <int R, typename ST>
+__device__ __forceinline__ void attend(
+        float* sm, const __nv_bfloat16* __restrict__ q,
+        const uint32_t* __restrict__ k_codes, const ST* __restrict__ k_scale,
+        const ST* __restrict__ k_mn, const uint32_t* __restrict__ v_codes,
+        const ST* __restrict__ v_scale, const ST* __restrict__ v_mn,
+        const __nv_bfloat16* __restrict__ k_win,
+        const __nv_bfloat16* __restrict__ v_win, float* __restrict__ out,
+        int D, int Tmax, int gs, int k_bits, int v_bits, int nkq, int nkw,
+        int nvq, int lo, float sm_scale) {
+    const int KDw = D / (32 / k_bits), VDw = D / (32 / v_bits);
+    const int Dg = D / gs, cg = NT / gs;
+    float* q_s = sm;                          // (R, D)
+    float* p_s = q_s + R * D;                 // (R, NT)
+    float* ks_s = p_s + R * NT;               // (cg, D)
+    float* km_s = ks_s + cg * D;              // (cg, D)
+    float* vs_s = km_s + cg * D;              // (Dg, NT)
+    float* vm_s = vs_s + Dg * NT;             // (Dg, NT)
+    float* red = vm_s + Dg * NT;              // (R, NW)
+    uint32_t* vc_s = (uint32_t*)(red + R * NW);   // (VDw, NT)
+
+    const int tid = threadIdx.x;
+    const int T_end = nkq + nkw;
+    lo = max(lo, 0);
+
+    for (int i = tid; i < R * D; i += NT) q_s[i] = to_f(q[i]);
+
+    float m[R], l[R], acc[R];
+#pragma unroll
+    for (int rr = 0; rr < R; ++rr) {
+        m[rr] = KIVI_NEG_INF;
+        l[rr] = 0.f;
+        acc[rr] = 0.f;
+    }
+    const int kw_d = tid < D ? tid : 0;       // this thread's PV channel
+    int v_w, v_shift;
+    channel_slot(kw_d, VDw, v_bits, &v_w, &v_shift);
+    const int v_g = kw_d / gs;
+
+    for (int c0 = (lo / NT) * NT; c0 < T_end; c0 += NT) {
+        __syncthreads();   // previous chunk's readers are done
+        if (c0 < nkq) {
+            const int g0 = c0 / gs;
+            const int ng = min(cg, (nkq - c0 + gs - 1) / gs);
+            for (int i = tid; i < ng * D; i += NT) {
+                const long long o = (long long)g0 * D + i;
+                ks_s[i] = to_f(k_scale[o]);
+                km_s[i] = to_f(k_mn[o]);
+            }
+        }
+        if (c0 < nvq) {
+            const int pos = c0 + tid;
+            const bool in = pos < nvq;
+            for (int w = 0; w < VDw; ++w)
+                vc_s[w * NT + tid] =
+                    in ? v_codes[(long long)w * Tmax + pos] : 0u;
+            for (int g = 0; g < Dg; ++g) {
+                const long long o = (long long)g * Tmax + pos;
+                vs_s[g * NT + tid] = in ? to_f(v_scale[o]) : 0.f;
+                vm_s[g * NT + tid] = in ? to_f(v_mn[o]) : 0.f;
+            }
+        }
+        __syncthreads();
+
+        // ---- logits: thread tid owns position c0 + tid ----
+        const int pos = c0 + tid;
+        const bool valid = pos < T_end && pos >= lo;
+        float s[R];
+#pragma unroll
+        for (int rr = 0; rr < R; ++rr) s[rr] = 0.f;
+        if (valid && pos < nkq) {
+            const int g = pos / gs - c0 / gs;
+            const float* ks = ks_s + g * D;
+            const float* km = km_s + g * D;
+            for (int w = 0; w < KDw; ++w) {
+                const uint32_t word = k_codes[(long long)w * Tmax + pos];
+                for (int k = 0; k < 32 / k_bits; ++k) {
+                    const int d = slot_channel(w, k, KDw, k_bits);
+                    const float kv =
+                        code_at(word, slot_shift(k, k_bits), k_bits) * ks[d]
+                        + km[d];
+#pragma unroll
+                    for (int rr = 0; rr < R; ++rr) s[rr] += q_s[rr * D + d] * kv;
+                }
+            }
+        } else if (valid) {
+            const __nv_bfloat16* row = k_win + (long long)(pos - nkq) * D;
+            for (int d = 0; d < D; ++d) {
+                const float kv = to_f(row[d]);
+#pragma unroll
+                for (int rr = 0; rr < R; ++rr) s[rr] += q_s[rr * D + d] * kv;
+            }
+        }
+        float cmax[R];
+#pragma unroll
+        for (int rr = 0; rr < R; ++rr) {
+            s[rr] *= sm_scale;
+            cmax[rr] = valid ? s[rr] : KIVI_NEG_INF;
+        }
+        block_reduce<R, NT>(cmax, red, true);
+        float alpha[R], psum[R];
+#pragma unroll
+        for (int rr = 0; rr < R; ++rr) {
+            const float m_new = fmaxf(m[rr], cmax[rr]);
+            alpha[rr] = expf(m[rr] - m_new);
+            const float p = valid ? expf(s[rr] - m_new) : 0.f;
+            p_s[rr * NT + tid] = p;
+            psum[rr] = p;
+            m[rr] = m_new;
+        }
+        block_reduce<R, NT>(psum, red, false);  // also orders p_s writes
+#pragma unroll
+        for (int rr = 0; rr < R; ++rr) {
+            l[rr] = l[rr] * alpha[rr] + psum[rr];
+            acc[rr] *= alpha[rr];
+        }
+
+        // ---- PV: thread tid owns channel tid ----
+        if (tid < D) {
+            const int n = min(NT, T_end - c0);
+            for (int i = 0; i < n; ++i) {
+                const int p_pos = c0 + i;
+                float v;
+                if (p_pos < nvq) {
+                    v = code_at(vc_s[v_w * NT + i], v_shift, v_bits)
+                        * vs_s[v_g * NT + i] + vm_s[v_g * NT + i];
+                } else {
+                    v = to_f(v_win[(long long)(p_pos - nvq) * D + tid]);
+                }
+#pragma unroll
+                for (int rr = 0; rr < R; ++rr) acc[rr] += p_s[rr * NT + i] * v;
+            }
+        }
+    }
+    if (tid < D) {
+#pragma unroll
+        for (int rr = 0; rr < R; ++rr)
+            out[rr * D + tid] = acc[rr] / (l[rr] > 0.f ? l[rr] : 1.f);
+    }
+}
+
+}  // namespace kdec
 
 // ---------------------------------------------------------------------------
 // Tiled attention of a block of query rows against chunks of keys, shared

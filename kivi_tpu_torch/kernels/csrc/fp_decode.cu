@@ -27,9 +27,13 @@
 //   * PV: thread d owns channel d and walks the chunk's V rows;
 //     neighbouring threads read neighbouring channels (coalesced in the
 //     (Tmax, D) layout).
-// The counters arrive as host ints, so chunks past `length` or below
-// the lower bound are never visited and no t_bound is needed.  Splitting
-// T across blocks (flash-decoding) is a later step.
+// `length` arrives as a host int (the engine: uniform over the batch) or
+// per row from a (B,) int32 device tensor (the continuous batcher's slot
+// caches, each at its own fill; the sliding window is then relative to
+// the row's own length and a row of length 0 writes zeros).  Either way
+// chunks past the row's length or below its lower bound are never
+// visited and no t_bound is needed.  Splitting T across blocks
+// (flash-decoding) is a later step.
 
 #include "common.cuh"
 
@@ -38,12 +42,13 @@ namespace {
 constexpr int NT = 128;      // threads per block == positions per chunk
 constexpr int NW = NT / 32;
 
-template <int R>
+template <int R, bool ROWS>
 __global__ void __launch_bounds__(NT)
 fp_decode_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v,
-                 const int* __restrict__ pad_ptr, float* __restrict__ out,
+                 const int* __restrict__ pad_ptr,
+                 const int* __restrict__ len_ptr, float* __restrict__ out,
                  int H, int D, int Tmax, int length, int window,
                  float sm_scale) {
     extern __shared__ float sm[];
@@ -53,6 +58,10 @@ fp_decode_kernel(const __nv_bfloat16* __restrict__ q,
 
     const int bh = blockIdx.x, b = bh / H;
     const int tid = threadIdx.x;
+    // a compile-time switch: the host-int instantiation keeps `length` a
+    // kernel parameter (reading it from memory on that path too made the
+    // kernel several times slower on the H100)
+    if (ROWS) length = min(max(len_ptr[b], 0), Tmax);
     int lo = pad_ptr ? max(pad_ptr[b], 0) : 0;
     if (window > 0) lo = max(lo, length - window);
     const __nv_bfloat16* kb = k + (long long)bh * D * Tmax;
@@ -110,13 +119,29 @@ fp_decode_kernel(const __nv_bfloat16* __restrict__ q,
         }
 
         // ---- PV: thread tid owns channel tid ----
+        // The loop's form is chosen per instantiation by measurement on
+        // the H100: with a host-int length, the loop over the chunk's live
+        // rows; with per-row lengths that loop ran slower than a fixed NT
+        // trip over the whole chunk (p is 0 past the length, so the extra
+        // rows add exact zeros as long as the store holds finite values
+        // there; the row index is clamped into the store).
         if (tid < D) {
-            const int n = min(NT, length - c0);
-            for (int i = 0; i < n; ++i) {
-                const float vv = to_f(vb[(long long)(c0 + i) * D + tid]);
+            if constexpr (ROWS) {
+                for (int i = 0; i < NT; ++i) {
+                    const float vv = to_f(
+                        vb[(long long)min(c0 + i, Tmax - 1) * D + tid]);
 #pragma unroll
-                for (int rr = 0; rr < R; ++rr)
-                    acc[rr] += p_s[rr * NT + i] * vv;
+                    for (int rr = 0; rr < R; ++rr)
+                        acc[rr] += p_s[rr * NT + i] * vv;
+                }
+            } else {
+                const int n = min(NT, length - c0);
+                for (int i = 0; i < n; ++i) {
+                    const float vv = to_f(vb[(long long)(c0 + i) * D + tid]);
+#pragma unroll
+                    for (int rr = 0; rr < R; ++rr)
+                        acc[rr] += p_s[rr * NT + i] * vv;
+                }
             }
         }
     }
@@ -130,35 +155,36 @@ fp_decode_kernel(const __nv_bfloat16* __restrict__ q,
 
 template <int R>
 int launch(const void* q, const void* k, const void* v, const void* pad,
-           void* out, int B, int H, int D, int Tmax, int length, int window,
-           float sm_scale, cudaStream_t stream) {
+           const void* lens, void* out, int B, int H, int D, int Tmax,
+           int length, int window, float sm_scale, cudaStream_t stream) {
     const size_t smem = sizeof(float) * (size_t)(R * D + R * NT + R * NW);
-    fp_decode_kernel<R><<<B * H, NT, smem, stream>>>(
+    auto kern = lens ? fp_decode_kernel<R, true> : fp_decode_kernel<R, false>;
+    kern<<<B * H, NT, smem, stream>>>(
         (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-        (const __nv_bfloat16*)v, (const int*)pad, (float*)out, H, D, Tmax,
-        length, window, sm_scale);
+        (const __nv_bfloat16*)v, (const int*)pad, (const int*)lens,
+        (float*)out, H, D, Tmax, length, window, sm_scale);
     return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// lens: NULL for the host-int `length` (1 <= length <= Tmax), else a (B,)
+// int32 device tensor of per-row lengths (`length` is then ignored).
 extern "C" int kivi_fp_decode(const void* q, const void* k, const void* v,
-                              const void* pad, void* out, int B, int H,
-                              int r, int D, int Tmax, int length,
-                              int sliding_window, float sm_scale,
+                              const void* pad, const void* lens, void* out,
+                              int B, int H, int r, int D, int Tmax,
+                              int length, int sliding_window, float sm_scale,
                               void* stream) {
-    if (D > NT || length < 1 || length > Tmax)
+    if (D > NT || (!lens && (length < 1 || length > Tmax)))
         return (int)cudaErrorInvalidValue;
     cudaStream_t st = (cudaStream_t)stream;
+#define KIVI_R(RR)                                                        \
+    case RR:                                                              \
+        return launch<RR>(q, k, v, pad, lens, out, B, H, D, Tmax, length, \
+                          sliding_window, sm_scale, st);
     switch (r) {
-        case 1: return launch<1>(q, k, v, pad, out, B, H, D, Tmax, length,
-                                 sliding_window, sm_scale, st);
-        case 2: return launch<2>(q, k, v, pad, out, B, H, D, Tmax, length,
-                                 sliding_window, sm_scale, st);
-        case 4: return launch<4>(q, k, v, pad, out, B, H, D, Tmax, length,
-                                 sliding_window, sm_scale, st);
-        case 8: return launch<8>(q, k, v, pad, out, B, H, D, Tmax, length,
-                                 sliding_window, sm_scale, st);
+        KIVI_R(1) KIVI_R(2) KIVI_R(4) KIVI_R(8)
         default: return (int)cudaErrorInvalidValue;
     }
+#undef KIVI_R
 }

@@ -5,6 +5,8 @@ plain version.
 
 The r query rows of each KV head attend cache positions p < length with
 p >= pad_b (left pad) and, with a sliding window, p >= length - window.
+`length` is a host int (the engine) or a (B,) device tensor of per-row
+lengths (the continuous batcher's slot caches).
 K is stored transposed, (B, H, D, Tmax); V is (B, H, Tmax, D).
 
 The plain version is the Pallas body's function in f32: logits in f32
@@ -33,16 +35,25 @@ NEG_INF = -1e30
 _ROWS = (1, 2, 4, 8)  # query rows per KV head the kernel is built for
 
 
-def fp_decode_attention_plain(qg, k, v, length: int, *,
+def fp_decode_attention_plain(qg, k, v, length, *,
                               sliding_window: Optional[int] = None,
                               pad_len: Optional[torch.Tensor] = None
                               ) -> torch.Tensor:
     """qg (B, H, r, D); k (B, H, D, Tmax); v (B, H, Tmax, D); length: host
-    int count of valid positions.  Returns (B, H, r, D) f32."""
+    int count of valid positions, or a (B,) int tensor of per-row counts
+    (the sliding window then counts back from each row's own length).
+    Returns (B, H, r, D) f32."""
     B, H, r, D = qg.shape
     dev = qg.device
-    kk = k[..., :length].float()
-    vv = v[:, :, :length].float()
+    if isinstance(length, torch.Tensor):
+        T = k.shape[-1]
+        hi = length.to(device=dev, dtype=torch.int64).clamp(0, T).reshape(
+            B, 1)
+    else:
+        T = length
+        hi = torch.full((B, 1), T, dtype=torch.int64, device=dev)
+    kk = k[..., :T].float()
+    vv = v[:, :, :T].float()
     att = torch.einsum("bhrd,bhdt->bhrt", qg.float(), kk) * (
         1.0 / math.sqrt(D))
     # first admitted position of each row: the left pad, raised by the
@@ -52,9 +63,9 @@ def fp_decode_attention_plain(qg, k, v, length: int, *,
         lo = torch.clamp(pad_len.to(device=dev, dtype=torch.int64)
                          .reshape(B, 1), min=0)
     if sliding_window:
-        lo = torch.clamp(lo, min=length - sliding_window)
-    valid = (torch.arange(length, device=dev) >= lo).reshape(B, 1, 1,
-                                                             length)
+        lo = torch.maximum(lo, hi - sliding_window)
+    pos = torch.arange(T, device=dev)
+    valid = ((pos >= lo) & (pos < hi)).reshape(B, 1, 1, T)
     att = att.masked_fill(~valid, NEG_INF)
     m = att.amax(dim=-1, keepdim=True)
     p = torch.where(valid, torch.exp(att - m), 0.0)
@@ -63,13 +74,15 @@ def fp_decode_attention_plain(qg, k, v, length: int, *,
     return out / torch.where(l > 0, l, 1.0)
 
 
-def fp_decode_attention_kernel(qg, k, v, length: int, *,
+def fp_decode_attention_kernel(qg, k, v, length, *,
                                sliding_window: Optional[int] = None,
                                pad_len: Optional[torch.Tensor] = None
                                ) -> torch.Tensor:
     """Flash-decode over the fp cache; see fp_decode_attention_plain for
     the contract.  On CUDA: qg, k and v contiguous bf16, r in
-    (1, 2, 4, 8), D <= 128, 1 <= length <= Tmax."""
+    (1, 2, 4, 8), D <= 128; a host-int length in [1, Tmax], or a (B,)
+    int tensor on the device read per row by the kernel (no host sync;
+    the kernel clamps each row into [0, Tmax])."""
     if not qg.is_cuda:
         return fp_decode_attention_plain(qg, k, v, length,
                                          sliding_window=sliding_window,
@@ -77,8 +90,16 @@ def fp_decode_attention_kernel(qg, k, v, length: int, *,
     name = "fp_decode_attention_kernel"
     B, H, r, D = qg.shape
     Tmax = k.shape[-1]
+    lens = None
+    if isinstance(length, torch.Tensor):
+        lens = length.to(device=qg.device, dtype=torch.int32).contiguous()
+        if lens.shape != (B,):
+            raise ValueError(f"{name}: length must be an int or have "
+                             f"shape ({B},), got {tuple(lens.shape)}")
+        length = 0
     length = int(length)
-    if r not in _ROWS or D > 128 or not 1 <= length <= Tmax:
+    if r not in _ROWS or D > 128 or (lens is None
+                                     and not 1 <= length <= Tmax):
         raise ValueError(f"{name}: unsupported r={r} D={D} "
                          f"length={length} Tmax={Tmax}")
     _build.check_tensors(name, qg.device, {
@@ -93,8 +114,9 @@ def fp_decode_attention_kernel(qg, k, v, length: int, *,
     lib = _build.library("fp_decode")
     err = lib.kivi_fp_decode(
         qg.data_ptr(), k.data_ptr(), v.data_ptr(), _build.ptr(pad_len),
-        out.data_ptr(), B, H, r, D, Tmax, length, int(sliding_window or 0),
-        1.0 / math.sqrt(D), _build.stream_handle(qg.device))
+        _build.ptr(lens), out.data_ptr(), B, H, r, D, Tmax, length,
+        int(sliding_window or 0), 1.0 / math.sqrt(D),
+        _build.stream_handle(qg.device))
     _build.check(err, name)
     _build.LAUNCHES[name] += 1
     return out

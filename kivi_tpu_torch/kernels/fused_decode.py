@@ -1,0 +1,97 @@
+"""Single-token decode attention over a KIVI cache whose counters differ
+per row: wrapper of `csrc/fused_decode_rows.cu` (port of
+`fused_decode_attention` in `kivi_tpu/kernels/fused_decode.py`, one
+program per (row, KV head)) and its plain version.
+
+The continuous batcher's slot caches carry their four counters as (S,)
+int32 device tensors, one fill per slot.  The kernel reads each row's
+(n_k_quant, n_k_win, n_v_quant) from a (B, 3) int32 device tensor, so no
+counter passes through the host on the decode path.  A row with no live
+position (an empty slot, seq_len 0) returns exact zeros.
+
+The plain version is the per-row form of the split two-half softmax of
+`fused_decode_wide.fused_decode_attention_wide_plain`: it reads the
+counters to the host and runs that function on each row alone.
+
+A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+or raises.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from kivi_tpu_torch.kernels import _build
+from kivi_tpu_torch.kernels.fused_decode_wide import (
+    _check_cuda, fused_decode_attention_wide_plain)
+
+
+def fused_decode_attention_plain(
+        qg, k_codes, k_scale, k_mn, v_codes, v_scale, v_mn, k_win, v_win,
+        counts: torch.Tensor, *, group_size: int, k_bits: int, v_bits: int,
+        lo: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """qg (B, Hkv, r, D) + cache arrays, counts (B, 3) int of (n_k_quant,
+    n_k_win, n_v_quant) per row -> (B, Hkv, r, D) f32.  lo: (B,) int lower
+    position bound per row (left pad / sliding window).  A row whose
+    admitted positions [max(lo, 0), n_k_quant + n_k_win) are empty gives
+    zeros."""
+    cnt = counts.to(device="cpu", dtype=torch.int64).reshape(-1, 3).tolist()
+    los = ([0] * len(cnt) if lo is None
+           else lo.to(device="cpu", dtype=torch.int64).reshape(-1).tolist())
+    out = torch.zeros(qg.shape, dtype=torch.float32, device=qg.device)
+    for b, (nkq, nkw, nvq) in enumerate(cnt):
+        if max(los[b], 0) >= nkq + nkw:
+            continue
+        row = slice(b, b + 1)
+        out[row] = fused_decode_attention_wide_plain(
+            qg[row], k_codes[row], k_scale[row], k_mn[row], v_codes[row],
+            v_scale[row], v_mn[row], k_win[row], v_win[row], nkq, nkw, nvq,
+            group_size=group_size, k_bits=k_bits, v_bits=v_bits,
+            lo=None if lo is None else lo[row])
+    return out
+
+
+def fused_decode_attention(
+        qg, k_codes, k_scale, k_mn, v_codes, v_scale, v_mn, k_win, v_win,
+        counts: torch.Tensor, *, group_size: int, k_bits: int, v_bits: int,
+        lo: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """qg (B, Hkv, r, D) + KiviLayerCache arrays -> (B, Hkv, r, D) f32,
+    the counters of row b in counts[b] = (n_k_quant, n_k_win, n_v_quant).
+
+    On CUDA: counts a (B, 3) and lo a (B,) int32 tensor on the device
+    (read there by each block, never by the host); qg and the windows
+    bf16, scales bf16 or f32, bits 2/4/8, r in (1, 2, 4, 8), D <= 128,
+    128 % group_size == 0."""
+    if not qg.is_cuda:
+        return fused_decode_attention_plain(
+            qg, k_codes, k_scale, k_mn, v_codes, v_scale, v_mn, k_win,
+            v_win, counts, group_size=group_size, k_bits=k_bits,
+            v_bits=v_bits, lo=lo)
+    name = "fused_decode_attention"
+    _check_cuda(name, qg, k_codes, k_scale, k_mn, v_codes, v_scale, v_mn,
+                k_win, v_win, group_size, k_bits, v_bits)
+    B, H, r, D = qg.shape
+    counts = counts.to(device=qg.device, dtype=torch.int32).contiguous()
+    if counts.shape != (B, 3):
+        raise ValueError(f"{name}: counts must have shape ({B}, 3), got "
+                         f"{tuple(counts.shape)}")
+    if lo is not None:
+        lo = lo.to(device=qg.device, dtype=torch.int32).contiguous()
+        if lo.shape != (B,):
+            raise ValueError(f"{name}: lo must have shape ({B},)")
+    out = torch.empty((B, H, r, D), dtype=torch.float32, device=qg.device)
+    lib = _build.library("fused_decode_rows")
+    err = lib.kivi_fused_decode_rows(
+        qg.data_ptr(), k_codes.data_ptr(), k_scale.data_ptr(),
+        k_mn.data_ptr(), v_codes.data_ptr(), v_scale.data_ptr(),
+        v_mn.data_ptr(), k_win.data_ptr(), v_win.data_ptr(),
+        counts.data_ptr(), _build.ptr(lo), out.data_ptr(), B, H, r, D,
+        k_codes.shape[-1], k_win.shape[2], group_size, k_bits, v_bits,
+        int(k_scale.dtype == torch.float32), 1.0 / math.sqrt(D),
+        _build.stream_handle(qg.device))
+    _build.check(err, name)
+    _build.LAUNCHES[name] += 1
+    return out

@@ -10,7 +10,9 @@ place.  Weights and activations are bf16 on the main path; norms and
 attention softmax run in f32.
 
 Modes: `prefill` (one-shot, through flash_attention), `extend` (chunked
-prefill) and `decode`, over either cache.
+prefill) and `decode`, over either cache.  Decode also runs over the
+continuous batcher's slot caches (`init_slot_caches`: per-row device
+counters), with `active=` selecting the masked, per-row appends.
 """
 
 from __future__ import annotations
@@ -23,9 +25,11 @@ import torch.nn.functional as F
 
 from kivi_tpu_torch.cache import kivi_cache as KC
 from kivi_tpu_torch.cache.fp_cache import (FpLayerCache, fp_append,
+                                           fp_append_masked,
                                            fp_decode_attention,
                                            fp_extend_attention,
-                                           init_fp_cache)
+                                           init_fp_cache,
+                                           init_fp_slot_cache)
 from kivi_tpu_torch.config import ModelConfig, QuantConfig
 from kivi_tpu_torch.core.attention import (decode_attention,
                                            extend_attention,
@@ -96,11 +100,12 @@ def swiglu_mlp(x: torch.Tensor, wg, wu, wd) -> torch.Tensor:
 
 def _attention_block(x, lp, cache, cfg: ModelConfig, qcfg: QuantConfig,
                      positions, *, mode: str, flush: bool = True,
-                     pad_len=None, prev_len: int = 0):
+                     pad_len=None, prev_len: int = 0, active=None):
     """mode: 'prefill' (T tokens into an empty cache), 'extend' (T suffix
     tokens onto a cache holding prev_len tokens: chunked prefill) or
     'decode' (T == 1).  The cache is a KiviLayerCache or an
-    FpLayerCache."""
+    FpLayerCache.  active: (B,) bool, decode only: the masked appends of
+    a slot cache, rows where it is false frozen."""
     B, T, _ = x.shape
     Hq, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     fp = isinstance(cache, FpLayerCache)
@@ -147,12 +152,20 @@ def _attention_block(x, lp, cache, cfg: ModelConfig, qcfg: QuantConfig,
             KC.prefill_extend(cache, k, v, qcfg, prev_len)
     elif mode == "decode":
         if fp:
-            fp_append(cache, k, v)
+            if active is not None:
+                fp_append_masked(cache, k, v, active)
+            else:
+                fp_append(cache, k, v)
             out = fp_decode_attention(q, cache,
                                       sliding_window=cfg.sliding_window,
                                       pad_len=pad_len)
         else:
-            KC.decode_append(cache, k, v, qcfg, do_flush=flush)
+            if active is not None:
+                # divergent per-row windows (the continuous batcher):
+                # masked slice writes, each row flushing its own
+                KC.decode_append_masked(cache, k, v, qcfg, active=active)
+            else:
+                KC.decode_append(cache, k, v, qcfg, do_flush=flush)
             out = decode_attention(q, cache, qcfg,
                                    sliding_window=cfg.sliding_window,
                                    pad_len=pad_len)
@@ -164,10 +177,11 @@ def _attention_block(x, lp, cache, cfg: ModelConfig, qcfg: QuantConfig,
 
 
 def _decoder_layer(x, lp, cache, cfg, qcfg, positions, *, mode, flush=True,
-                   pad_len=None, prev_len=0):
+                   pad_len=None, prev_len=0, active=None):
     h = _attention_block(rms_norm(x, lp["ln_attn"], cfg.rms_norm_eps), lp,
                          cache, cfg, qcfg, positions, mode=mode,
-                         flush=flush, pad_len=pad_len, prev_len=prev_len)
+                         flush=flush, pad_len=pad_len, prev_len=prev_len,
+                         active=active)
     x = x + h
     return x + swiglu_mlp(rms_norm(x, lp["ln_mlp"], cfg.rms_norm_eps),
                           lp["wg"], lp["wu"], lp["wd"])
@@ -182,17 +196,24 @@ def forward(params: dict, tokens: torch.Tensor, caches: List, cfg:
             ModelConfig, qcfg: QuantConfig, positions: torch.Tensor, *,
             mode: str, last_only: bool = False, flush: bool = True,
             pad_len: Optional[torch.Tensor] = None,
-            prev_len: int = 0) -> Tuple[torch.Tensor, List]:
+            prev_len: int = 0,
+            active: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, List]:
     """tokens (B, T) int; positions (B, T) int RoPE positions (for
     left-padded rows: cache index minus pad_len, clamped at 0).  The
     caches are updated in place.
+
+    active: (B,) bool, decode mode over slot caches (init_slot_caches):
+    `decode_append_masked` / `fp_append_masked`, rows where it is false
+    keep their counters (kivi_tpu/models/modeling.py:232-254).
 
     Returns (logits (B, T, vocab) f32, caches); with last_only the logits
     are (B, 1, vocab) for the final position."""
     x = params["embed"][tokens]
     for lp, cache in zip(params["layers"], caches):
         x = _decoder_layer(x, lp, cache, cfg, qcfg, positions, mode=mode,
-                           flush=flush, pad_len=pad_len, prev_len=prev_len)
+                           flush=flush, pad_len=pad_len, prev_len=prev_len,
+                           active=active)
     if last_only:
         x = x[:, -1:]
     x = rms_norm(x, params["ln_f"], cfg.rms_norm_eps)
@@ -211,6 +232,21 @@ def init_caches(cfg: ModelConfig, qcfg: QuantConfig, batch: int,
                 for _ in range(cfg.num_layers)]
     return [KC.init_layer_cache(batch, cfg.num_kv_heads, cfg.head_dim,
                                 max_seq_len, qcfg, dtype, device)
+            for _ in range(cfg.num_layers)]
+
+
+def init_slot_caches(cfg: ModelConfig, qcfg: QuantConfig, num_slots: int,
+                     max_seq_len: int, dtype=torch.bfloat16,
+                     device=None) -> List:
+    """`init_caches` for the continuous batcher: one row per slot, each
+    layer's counters (num_slots,) int32 tensors on the device."""
+    device = resolve_device(device)
+    if not qcfg.quantize_kv:
+        return [init_fp_slot_cache(num_slots, cfg.num_kv_heads,
+                                   cfg.head_dim, max_seq_len, dtype, device)
+                for _ in range(cfg.num_layers)]
+    return [KC.init_slot_cache(num_slots, cfg.num_kv_heads, cfg.head_dim,
+                               max_seq_len, qcfg, dtype, device)
             for _ in range(cfg.num_layers)]
 
 

@@ -10,13 +10,20 @@ drives.  --path picks the cache and the prefill:
   * chunked (default): KIVI-2 (group 32, residual 128, v_flush 128),
     prompts prefilled in chunks of 128 through the extend path;
   * oneshot: KIVI-2, one-shot prefill (flash_attention, then ingest);
-  * fp16: the fp16-cache baseline, one-shot prefill.
+  * fp16: the fp16-cache baseline, one-shot prefill;
+  * batcher: the continuous batcher over KIVI-2 slot caches (8 slots,
+    bucketed admission), every slot at its own fill.
 
 Two windows, each run once without and once under torch.profiler:
 
   * prefill: 8 prompts of 1024 tokens;
   * decode: S greedy steps after it (with KIVI-2, step 0 carries a
     V-window flush).
+
+With --path batcher the one window is S batcher steps (one batched
+decode step each: the masked per-slot appends, whose quantizers run
+every step, attention with per-row counters, per-row sampling) after
+8 requests of 100-1000 prompt tokens were admitted.
 
 For each window it prints the host wall time without the profiler, the
 device busy time (union of all kernel and copy intervals, profiled),
@@ -45,20 +52,28 @@ from kivi_tpu_torch.serving.engine import Engine
 B, PROMPT, CHUNK, TMAX = 8, 1024, 128, 4096
 OURS = {"quantize_pack_kernel": "quantize_pack_k/v",
         "fused_decode_kernel": "fused_decode_attention_wide",
+        "fused_decode_rows_kernel": "fused_decode_attention",
         "flash_extend_kernel": "flash_extend_attention",
         "flash_prefill_kernel": "flash_attention",
         "fp_decode_kernel": "fp_decode_attention_kernel"}
 QCFG = {"chunked": QuantConfig(2, 2, 32, 128, v_flush=128),
         "oneshot": QuantConfig(2, 2, 32, 128, v_flush=128),
-        "fp16": QuantConfig(16, 16, 32, 128)}
+        "fp16": QuantConfig(16, 16, 32, 128),
+        "batcher": QuantConfig(2, 2, 32, 128, v_flush=128)}
 GEMM = re.compile(r"gemm|nvjet|cutlass|xmma|cublas", re.I)
+# the masked per-slot cache writes (kivi_cache._masked_store_write)
+SCATTER = re.compile(r"scatter|gather", re.I)
 
 
 def category(name: str) -> str:
     for prefix, label in OURS.items():
         if prefix in name:
             return label
-    return "matmul (cuBLAS)" if GEMM.search(name) else "other torch ops"
+    if GEMM.search(name):
+        return "matmul (cuBLAS)"
+    if SCATTER.search(name):
+        return "masked slot writes (gather/scatter)"
+    return "other torch ops"
 
 
 def report(what: str, prof, wall_s: float) -> None:
@@ -97,6 +112,46 @@ def report(what: str, prof, wall_s: float) -> None:
         print(f"[{what}]     {t / 1e3:10.3f} ms {n:6d}x  {name[:110]}")
 
 
+def profile_batcher(cfg, steps: int, smi: str) -> None:
+    """The continuous batcher's decode step, every slot busy at its own
+    fill: S steps timed without the profiler, then S under it."""
+    from kivi_tpu_torch.serving.batcher import ContinuousBatcher, Request
+    bat = ContinuousBatcher(cfg, QCFG["batcher"],
+                            modeling.init_params(cfg, seed=0,
+                                                 device="cuda"),
+                            num_slots=B, max_seq_len=TMAX,
+                            prompt_buckets=(128, 256, 512, 1024))
+    gen = torch.Generator()
+    gen.manual_seed(1)
+    lens = (100, 137, 240, 400, 555, 640, 800, 1000)
+    for i, n in enumerate(lens):
+        bat.submit(Request(uid=i, prompt=torch.randint(
+            0, cfg.vocab_size, (n,), generator=gen).tolist(),
+            max_new_tokens=3 * steps + 8))
+    bat.step()                         # admits all 8, decodes once
+    for _ in range(steps):             # warm
+        bat.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        bat.step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            bat.step()
+        torch.cuda.synchronize()
+    fills = (bat.caches[0].seq_len - bat.pad_dev.to(torch.int32)).tolist()
+    print(f"[config] llama2-7b width, {cfg.num_layers} layers, continuous "
+          f"batcher over KIVI-2 slot caches, {B} slots, prompts {lens} "
+          f"(bucketed), true fills at the end {fills}, {steps} steps | "
+          f"card {smi}")
+    report("decode", prof, wall)
+    print(f"[decode] {B * steps / wall:.1f} tokens/s, "
+          f"{wall / steps * 1e3:.3f} ms per step")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--path", choices=sorted(QCFG), default="chunked")
@@ -113,6 +168,9 @@ def main():
           f"{torch.version.cuda}")
 
     cfg = dataclasses.replace(PRESETS["llama2-7b"], num_layers=args.layers)
+    if args.path == "batcher":
+        profile_batcher(cfg, args.steps, smi)
+        return
     eng = Engine(cfg=cfg, qcfg=QCFG[args.path],
                  params=modeling.init_params(cfg, seed=0, device="cuda"),
                  max_seq_len=TMAX, batch_size=B)

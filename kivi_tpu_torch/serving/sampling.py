@@ -1,6 +1,8 @@
 """Sampling transforms with HuggingFace `generate()` semantics: port of
-`kivi_tpu/serving/sampling.py` (the static-control subset the engine
-uses).
+`kivi_tpu/serving/sampling.py`: the static controls the engine uses and
+the per-row controls of the continuous batcher (`*_per_row`), where
+each slot carries its own temperature, top_k, top_p and penalty as
+device tensors.
 
   * repetition penalty (CTRL): for every token id already in the
     sequence, logit > 0 -> logit / p, logit <= 0 -> logit * p.
@@ -12,7 +14,10 @@ uses).
 Order as in HF: penalty before the warpers, warpers in temperature ->
 top_k -> top_p order.  Draws come from an explicit torch.Generator, so
 sampled tokens differ from the JAX package's (jax.random) draws; the
-distributions are the same.
+distributions are the same.  The per-row sampler draws as
+`jax.random.categorical` does, by Gumbel-max (argmax of the warped
+logits plus Gumbel noise), which also never raises on a row whose
+logits are all masked (`torch.multinomial` would).
 """
 
 from __future__ import annotations
@@ -31,6 +36,16 @@ def apply_repetition_penalty(logits: torch.Tensor, seen: torch.Tensor,
     if penalty == 1.0:
         return logits
     penalized = torch.where(logits > 0, logits / penalty, logits * penalty)
+    return torch.where(seen, penalized, logits)
+
+
+def apply_repetition_penalty_per_row(logits: torch.Tensor,
+                                     seen: torch.Tensor,
+                                     penalty: torch.Tensor) -> torch.Tensor:
+    """Per-row penalty values (B,) (the batcher's variant); rows with
+    penalty 1.0 are unchanged by construction."""
+    pen = penalty.to(dtype=torch.float32).reshape(-1, 1)
+    penalized = torch.where(logits > 0, logits / pen, logits * pen)
     return torch.where(seen, penalized, logits)
 
 
@@ -76,6 +91,67 @@ def sample_step(logits: torch.Tensor,
                                       top_k=top_k, top_p=top_p), dim=-1)
     return torch.multinomial(probs, 1, generator=generator)[:, 0].to(
         torch.int32)
+
+
+def warp_logits_per_row(logits: torch.Tensor, temperature: torch.Tensor,
+                        top_k: torch.Tensor,
+                        top_p: torch.Tensor) -> torch.Tensor:
+    """Per-row warper chain (temperature -> top_k -> top_p) on (B, V)
+    logits, every control a (B,) tensor: rank masking replaces the static
+    top-k, the nucleus threshold follows apply_top_p.  Rows with
+    temperature <= 0 are warped at t = 1 (callers handle greedy rows);
+    rows with top_k <= 0 / top_p >= 1 are unfiltered."""
+    B, V = logits.shape
+    t = temperature.to(torch.float32).reshape(B, 1)
+    k = top_k.to(torch.int64).reshape(B, 1)
+    p = top_p.to(torch.float32).reshape(B, 1)
+    lt = logits / torch.where(t <= 0.0, 1.0, t)
+
+    order = torch.argsort(-lt, dim=-1, stable=True)     # descending
+    ranks = torch.argsort(order, dim=-1, stable=True)    # rank of each logit
+    lt = lt.masked_fill(ranks >= torch.where(k > 0, k, V), FILTER_VALUE)
+
+    sorted_lt = torch.gather(lt, -1, order)
+    probs = torch.softmax(sorted_lt, dim=-1)
+    prev = torch.cumsum(probs, dim=-1) - probs
+    n_keep = (prev < p).sum(dim=-1, keepdim=True)        # >= 1
+    # index -1 (a row of NaN probabilities) wraps to the last rank, as
+    # jnp.take_along_axis does
+    thr = torch.gather(sorted_lt, -1, torch.remainder(n_keep - 1, V))
+    return lt.masked_fill(lt < thr, FILTER_VALUE)
+
+
+def probs_per_row(logits: torch.Tensor, temperature: torch.Tensor,
+                  top_k: torch.Tensor, top_p: torch.Tensor) -> torch.Tensor:
+    """Per-row sampling distribution: softmax of the warped logits for
+    sampled rows, a one-hot at the argmax for greedy rows (temperature
+    <= 0)."""
+    B, V = logits.shape
+    t = temperature.to(torch.float32).reshape(B, 1)
+    w = torch.softmax(warp_logits_per_row(logits, temperature, top_k,
+                                          top_p), dim=-1)
+    hot = torch.nn.functional.one_hot(torch.argmax(logits, -1), V).to(
+        w.dtype)
+    return torch.where(t <= 0.0, hot, w)
+
+
+def sample_step_per_row(logits: torch.Tensor,
+                        generator: Optional[torch.Generator],
+                        temperature: torch.Tensor, top_k: torch.Tensor,
+                        top_p: torch.Tensor) -> torch.Tensor:
+    """Per-row sampling controls, the continuous batcher's variant: each
+    row carries its own (temperature, top_k, top_p); temperature <= 0
+    rows are greedy.  Sampled rows draw argmax(warped logits + Gumbel
+    noise) from `generator` (jax.random.categorical's method).  Returns
+    token ids (B,) int32."""
+    B, V = logits.shape
+    greedy = temperature.reshape(B) <= 0.0
+    lt = warp_logits_per_row(logits.float(), temperature, top_k, top_p)
+    u = torch.rand((B, V), generator=generator, device=logits.device)
+    u = u.clamp(min=torch.finfo(torch.float32).tiny)
+    sampled = torch.argmax(lt - torch.log(-torch.log(u)), dim=-1)
+    return torch.where(greedy, torch.argmax(logits, dim=-1),
+                       sampled).to(torch.int32)
 
 
 def seen_mask_from_prompt(tokens: torch.Tensor, vocab_size: int,

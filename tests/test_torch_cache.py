@@ -167,3 +167,110 @@ def test_prefill_extend_equals_ingest(vf, chunks):
         assert getattr(ext, c) == getattr(one, c), c
     for f in FIELDS:
         assert torch.equal(getattr(ext, f), getattr(one, f)), f
+
+
+# ---------------------------------------------------------------------------
+# masked, per-row updates of a slot cache (the continuous batcher's decode)
+# ---------------------------------------------------------------------------
+
+SW, STMAX = 64, 256          # window and capacity of the slot tests
+
+
+def _slot_port(jcs):
+    """Batch-1 JAX caches -> one port slot cache (rows stacked, counters
+    (S,) int32 tensors)."""
+    f = {}
+    for n in FIELDS:
+        a = np.concatenate([np.asarray(getattr(c, n)) for c in jcs])
+        f[n] = (torch.from_numpy(a.view(np.int32).copy())
+                if a.dtype == np.uint32 else torch.from_numpy(a.copy()))
+    cnt = {n: torch.tensor([int(getattr(c, n)) for c in jcs],
+                           dtype=torch.int32) for n in COUNTERS}
+    return TC.KiviLayerCache(**f, **cnt)
+
+
+def assert_slots_equal(tc, jstack, where=""):
+    for c in COUNTERS:
+        np.testing.assert_array_equal(getattr(tc, c).numpy(),
+                                      np.asarray(getattr(jstack, c)),
+                                      err_msg=f"{where} {c}")
+    for f in FIELDS:
+        t, j = getattr(tc, f), np.asarray(getattr(jstack, f))[:, 0]
+        if t.dtype == torch.int32:
+            np.testing.assert_array_equal(t.numpy().view(np.uint32), j,
+                                          err_msg=f"{where} {f}")
+        else:
+            np.testing.assert_array_equal(t.numpy(), j,
+                                          err_msg=f"{where} {f}")
+
+
+@pytest.mark.parametrize("bits,vf", [((2, 4), 32), ((8, 2), 64)])
+def test_decode_append_masked_matches_vmapped_jax(bits, vf):
+    """S slots at divergent window phases through decode_append_masked,
+    against jax.vmap(kivi_cache.decode_append_masked) over batch-1
+    caches, bit for bit after every step.  Slot 1 sits inactive at
+    n_k_win == W (its clamped append must carry its own bytes); slot 2
+    starts with a full K store (n_k_quant == Tmax: every masked write
+    clamps to the store's last slice, as XLA's dynamic_update_slice
+    does); slot 0 pauses for ten steps; the run crosses K and V flushes."""
+    kw = dict(k_bits=bits[0], v_bits=bits[1], group_size=32,
+              residual_length=SW, v_flush=vf, scale_dtype="float32")
+    tq, jq = QuantConfig(**kw), JQuantConfig(**kw)
+    rng = np.random.default_rng(sum(bits) + vf)
+    n = lambda *s: jnp.asarray(rng.standard_normal(s).astype(np.float32))
+    step1 = jax.jit(lambda c, k, v: JC.decode_append(c, k, v, jq))
+    jcs = []
+    for prompt, steps in [(100, 0), (40, 24), (STMAX, 0), (20, 0)]:
+        c = JC.init_layer_cache(1, H, D, STMAX, jq, dtype=jnp.float32)
+        if prompt:
+            c = JC.prefill_ingest(c, n(1, H, prompt, D), n(1, H, prompt, D),
+                                  jq)
+        for _ in range(steps):
+            c = step1(c, n(1, H, 1, D), n(1, H, 1, D))
+        jcs.append(c)
+    assert int(jcs[1].n_k_win) == SW and int(jcs[2].n_k_quant) == STMAX
+    tcache = _slot_port(jcs)
+    jstack = jax.tree_util.tree_map(lambda *xs: jnp.stack(xs), *jcs)
+    S = len(jcs)
+    jstep = jax.vmap(lambda c, k, v, a: JC.decode_append_masked(
+        c, k, v, jq, active=a))
+    steps = 50
+    kd = rng.standard_normal((steps, S, 1, H, 1, D)).astype(np.float32)
+    vd = rng.standard_normal((steps, S, 1, H, 1, D)).astype(np.float32)
+    flushed = np.zeros(S, bool)
+    # eager JAX quantizer (see test_decode_append_own_flushes_match_jax)
+    with jax.disable_jit():
+        for i in range(steps):
+            act = np.array([not 30 <= i < 40, False, True, True])
+            before = tcache.n_k_quant.clone()
+            TC.decode_append_masked(tcache, torch.from_numpy(kd[i][:, 0]),
+                                    torch.from_numpy(vd[i][:, 0]), tq,
+                                    active=torch.from_numpy(act))
+            jstack = jstep(jstack, jnp.asarray(kd[i]), jnp.asarray(vd[i]),
+                           jnp.asarray(act))
+            flushed |= (tcache.n_k_quant != before).numpy()
+            assert_slots_equal(tcache, jstack, f"step {i}")
+    assert flushed[0] and flushed[3]             # K flushes crossed
+    assert int(tcache.n_k_win[1]) == SW          # the inactive row froze
+    assert tcache.n_v_quant[0] > int(jcs[0].n_v_quant)   # V flushes too
+
+
+def test_write_slot_and_slot_counters():
+    """write_slot copies a batch-1 host-int cache into one row and sets
+    its counters; the other rows stay as they were."""
+    tq, _ = _qcfgs(128)
+    rng = np.random.default_rng(5)
+    k, v = _kv(rng, 300)
+    one = TC.prefill_ingest(
+        TC.init_layer_cache(1, H, D, TMAX, tq, device="cpu"),
+        torch.from_numpy(k[:1]), torch.from_numpy(v[:1]), tq)
+    slots = TC.init_slot_cache(3, H, D, TMAX, tq, device="cpu")
+    assert slots.n_k_quant.dtype == torch.int32
+    TC.write_slot(slots, 1, one)
+    assert slots.seq_len.tolist() == [0, 300, 0]
+    for c in COUNTERS:
+        assert getattr(slots, c).tolist()[1] == getattr(one, c)
+    for f in FIELDS:
+        assert torch.equal(getattr(slots, f)[1], getattr(one, f)[0]), f
+        assert not getattr(slots, f)[0].any() and \
+            not getattr(slots, f)[2].any(), f

@@ -17,6 +17,7 @@ Tolerances:
     own kernel-vs-oracle tolerance, 2e-2 (tests/test_kernels.py:170).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -145,3 +146,81 @@ def test_fp_decode_plain_masks_by_row():
     got = TF.fp_decode_attention(q, tc, sliding_window=1)
     np.testing.assert_allclose(got[:, :, 0].numpy(),
                                tc.v[:, :, 59].numpy(), **TOL)
+
+
+# ---------------------------------------------------------------------------
+# slot caches: per-row lengths (the continuous batcher)
+# ---------------------------------------------------------------------------
+
+def test_fp_append_masked_matches_vmapped_jax():
+    """fp_append_masked against jax.vmap(fp_cache.fp_append_masked) over
+    batch-1 caches, equal after every step: inactive rows write at their
+    frozen length, and a full row (length == Tmax) writes at the clamped
+    last position, as XLA's dynamic_update_slice does."""
+    S = 3
+    tc = TF.init_fp_slot_cache(S, H, D, TMAX, torch.float32, device="cpu")
+    assert tc.length.dtype == torch.int32 and tc.length.shape == (S,)
+    start = np.array([5, 0, TMAX], np.int32)
+    tc.length.copy_(torch.from_numpy(start))
+    jc = JF.FpLayerCache(k=jnp.zeros((S, 1, H, D, TMAX), jnp.float32),
+                         v=jnp.zeros((S, 1, H, TMAX, D), jnp.float32),
+                         length=jnp.asarray(start))
+    jstep = jax.vmap(lambda c, k, v, a: JF.fp_append_masked(c, k, v, a))
+    for i in range(12):
+        k = _np((S, 1, H, 1, D), 50 + 2 * i)
+        v = _np((S, 1, H, 1, D), 51 + 2 * i)
+        act = np.array([i % 3 != 0, True, i % 2 == 0])
+        TF.fp_append_masked(tc, torch.from_numpy(k[:, 0]),
+                            torch.from_numpy(v[:, 0]), torch.from_numpy(act))
+        jc = jstep(jc, jnp.asarray(k), jnp.asarray(v), jnp.asarray(act))
+        np.testing.assert_array_equal(tc.length.numpy(), np.asarray(jc.length))
+        np.testing.assert_array_equal(tc.k.numpy(), np.asarray(jc.k)[:, 0])
+        np.testing.assert_array_equal(tc.v.numpy(), np.asarray(jc.v)[:, 0])
+
+
+@pytest.mark.parametrize("masks", ["none", "pad", "swa"])
+def test_fp_decode_per_row_lengths(masks):
+    """fp_decode_attention over a slot cache: each row at its own length
+    (0 for an empty slot, which returns zeros), the window counted back
+    from the row's own length.  Within 1e-5 of the host-int plain version
+    run row by row (the same sums over a longer, zero-padded range), and
+    within the JAX package's oracle tolerance (2e-2) of
+    jax.vmap over batch-1 caches of its jnp oracle."""
+    heads, d, S = 2, 64, 4
+    lens = np.array([0, 1, 90, 200], np.int32)
+    k = _np((S, heads, d, TMAX), 60, "bfloat16")
+    v = _np((S, heads, TMAX, d), 61, "bfloat16")
+    tc = TF.FpLayerCache(k=torch.from_numpy(k), v=torch.from_numpy(v),
+                         length=torch.from_numpy(lens))
+    q = _np((S, heads * 2, 1, d), 62, "bfloat16")
+    pad = np.array([0, 0, 37, 3], np.int32)
+    kw_t, kw_j = {}, {}
+    if masks == "pad":
+        kw_t["pad_len"], kw_j["pad_len"] = torch.tensor(pad), None
+    if masks == "swa":
+        kw_t["sliding_window"] = kw_j["sliding_window"] = 48
+    got = TF.fp_decode_attention(torch.from_numpy(q), tc, **kw_t)
+    assert got.shape == (S, heads * 2, 1, d)
+    assert (got[0] == 0).all()
+    for s in range(1, S):
+        row = TF.FpLayerCache(k=tc.k[s:s + 1], v=tc.v[s:s + 1],
+                              length=int(lens[s]))
+        kw = dict(kw_t)
+        if masks == "pad":
+            kw["pad_len"] = kw_t["pad_len"][s:s + 1]
+        want = TF.fp_decode_attention(torch.from_numpy(q[s:s + 1]), row, **kw)
+        np.testing.assert_allclose(got[s:s + 1].numpy(), want.numpy(),
+                                   err_msg=f"row {s}", **TOL)
+
+    jc = JF.FpLayerCache(k=jnp.asarray(k)[:, None], v=jnp.asarray(v)[:, None],
+                         length=jnp.asarray(lens))
+
+    def one(q1, c1, p1):
+        return JF.fp_decode_attention(
+            q1[None], c1, impl="jnp",
+            pad_len=p1[None] if masks == "pad" else None,
+            sliding_window=kw_j.get("sliding_window"))[0]
+
+    want = jax.vmap(one)(jnp.asarray(q), jc, jnp.asarray(pad))
+    np.testing.assert_allclose(got[1:].numpy(), np.asarray(want)[1:],
+                               rtol=2e-2, atol=2e-2)
