@@ -8,7 +8,10 @@ Phases (any failure raises; the exit code is then non-zero):
   2. build: compile every CUDA kernel from kivi_tpu_torch/kernels/csrc;
   3. kernels vs their plain PyTorch versions on the card, at the main
      path's shapes and edge cases, timed with CUDA events beside their
-     bound and a one-call PyTorch yardstick;
+     bound and a one-call PyTorch yardstick; the split routes (split
+     decode, qhist extend) against the fused kernels on the same inputs
+     at the long slice's geometry, timed at fills of 1K, 4K and 12K (the
+     crossover behind core.attention.SPLIT_MIN_HISTORY);
   4. the paths at Llama-2-7B width, sharing one set of weights:
      Engine.generate of 8 prompts of 1024 tokens, 128 greedy tokens,
        * KIVI-2, chunked prefill of 128 (extend + KIVI decode),
@@ -25,9 +28,17 @@ Phases (any failure raises; the exit code is then non-zero):
        * the fp16 cache, bucketed admission (fp decode, per-row lengths);
      each path's kernels must launch and the engine's decode kernel must
      not;
+     then the long-context slice at Llama-3.1-8B width: Engine.generate
+     at batch 1 of a 12,000-token prompt left-padded to 12,032, chunks
+     of 128, a 16,384-token cache, KIVI-2 with group 32 and residual 32
+     (the reference's example configuration), 64 greedy tokens; the
+     split routes' kernels must launch and the fused decode kernels
+     must not;
   5. the paths against the plain path: 2 layers at full width on the
      card (kernels) and on the host CPU (plain versions), same weights:
-     chunked and one-shot prefill logits of both caches;
+     chunked and one-shot prefill logits of both caches; the long slice
+     with a prompt of SPLIT_MIN_HISTORY + 1024 tokens (prefill and one
+     decode step's logits, both split routes on both sides);
   6. the batcher against the engine on the card (2 layers, full width):
      first tokens equal and one decode step's logits per slot within the
      phase-5 tolerance of batch-1 Engine runs of the same left-padded
@@ -62,6 +73,11 @@ ATT_RTOL, ATT_ATOL = 1e-5, 1e-5
 B, H, D, TMAX, T1 = 8, 32, 128, 4096, 128
 # per-slot fills of the per-row decode checks: divergent, 0 = empty slot
 FILLS = (1, 137, 640, 1081, 2048, 3000, 4000, 0)
+# the long-context slice: Llama-3.1-8B's attention (8 KV heads, 4 query
+# rows each) at batch 1, a 16K cache holding a 12,032-token prompt
+LB, LH, LR, LTMAX, LFILL, LPAD, LNEW = 1, 8, 4, 16384, 12032, 32, 64
+CROSS_FILLS = (1024, 2048, 4096, 8192, 12032)   # split vs fused timings
+NEG_INF = -1e30
 
 
 def log(*a):
@@ -177,16 +193,29 @@ def check_quant(gen, results):
             bound_by=by, library_ms=None)
 
 
-def _filled_cache(gen, qcfg, fill: int, heads: int = H):
-    """A (B, heads, D, TMAX) cache holding `fill` tokens, the last one
+def _filled_cache(gen, qcfg, fill: int, heads: int = H, batch: int = B,
+                  tmax: int = TMAX):
+    """A (batch, heads, D, tmax) cache holding `fill` tokens, the last one
     just appended by decode_append (the state decode attention reads)."""
     from kivi_tpu_torch.cache import kivi_cache as KC
-    c = KC.init_layer_cache(B, heads, D, TMAX, qcfg, device="cuda")
+    c = KC.init_layer_cache(batch, heads, D, tmax, qcfg, device="cuda")
     if fill > 1:
-        KC.prefill_ingest(c, _randn(gen, (B, heads, fill - 1, D)),
-                          _randn(gen, (B, heads, fill - 1, D)), qcfg)
-    KC.decode_append(c, _randn(gen, (B, heads, 1, D)),
-                     _randn(gen, (B, heads, 1, D)), qcfg)
+        KC.prefill_ingest(c, _randn(gen, (batch, heads, fill - 1, D)),
+                          _randn(gen, (batch, heads, fill - 1, D)), qcfg)
+    KC.decode_append(c, _randn(gen, (batch, heads, 1, D)),
+                     _randn(gen, (batch, heads, 1, D)), qcfg)
+    return c
+
+
+def _ingested_cache(gen, qcfg, fill: int, heads: int = LH, batch: int = LB,
+                    tmax: int = LTMAX):
+    """A cache holding a `fill`-token prompt as prefill left it (the state
+    the next prefill chunk's extend attention reads)."""
+    from kivi_tpu_torch.cache import kivi_cache as KC
+    c = KC.init_layer_cache(batch, heads, D, tmax, qcfg, device="cuda")
+    if fill:
+        KC.prefill_ingest(c, _randn(gen, (batch, heads, fill, D)),
+                          _randn(gen, (batch, heads, fill, D)), qcfg)
     return c
 
 
@@ -472,6 +501,241 @@ def check_extend(gen, results):
         f"KIVI-2, B={B}")
 
 
+def _logit_err(got, want, nq: int, what: str) -> float:
+    """QK logits: positions >= nq exactly NEG_INF in both, the rest within
+    the attention tolerance."""
+    if not ((got[..., nq:] == NEG_INF).all()
+            and (want[..., nq:] == NEG_INF).all()):
+        raise AssertionError(f"{what}: positions >= n_quant are not masked")
+    if nq == 0:
+        log(f"[kernel] {what}: every position masked")
+        return 0.0
+    return _att_err(got[..., :nq], want[..., :nq], what)
+
+
+def check_qk_pv(gen, results):
+    """Rows 7 and 8 at the long slice's geometry (batch 1, 8 KV heads, a
+    16K cache filled to 12K), bits 2/4/8, r 1/4/8, n_quant 0, partial,
+    the cache's and all of T; then timed at the slice's shapes."""
+    from kivi_tpu_torch.config import QuantConfig
+    from kivi_tpu_torch.core import quant as Q
+    from kivi_tpu_torch.kernels import qk_pv as QP
+    worst = {"qk_dequant_matmul": 0.0, "pv_dequant_matmul": 0.0}
+    pos = torch.arange(LTMAX, device="cuda")
+    timed = None
+    for bits, r in ((2, 4), (2, 1), (2, 8), (4, 4), (8, 4)):
+        qcfg = QuantConfig(bits, bits, 32, 32)
+        c = _filled_cache(gen, qcfg, LFILL + 1, LH, LB, LTMAX)
+        q = _randn(gen, (LB, LH, r, D))
+        kargs = (c.k_codes, c.k_scale, c.k_mn, 32, bits)
+        vargs = (c.v_codes, c.v_scale, c.v_mn, 32, bits)
+        for nq in (0, 5017, c.n_k_quant, LTMAX):
+            what = f"bits={bits} r={r} n_quant={nq}"
+            got = QP.qk_dequant_matmul(q, *kargs, n_quant=nq)
+            want = QP.qk_dequant_matmul_plain(q, *kargs, n_quant=nq)
+            torch.cuda.synchronize()
+            worst["qk_dequant_matmul"] = max(
+                worst["qk_dequant_matmul"],
+                _logit_err(got, want, nq, f"qk_dequant_matmul {what}"))
+            # p: a softmax over the first nq positions, exactly 0 past them
+            p = torch.zeros((LB, LH, r, LTMAX), device="cuda")
+            if nq:
+                p = torch.softmax(torch.randn(
+                    p.shape, generator=gen, device="cuda").masked_fill(
+                        pos >= nq, float("-inf")), dim=-1)
+            got = QP.pv_dequant_matmul(p, *vargs, n_quant=nq)
+            want = QP.pv_dequant_matmul_plain(p, *vargs, n_quant=nq)
+            again = QP.pv_dequant_matmul(p, *vargs, n_quant=nq)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise AssertionError(f"pv_dequant_matmul {what}: two runs "
+                                     "differ")
+            worst["pv_dequant_matmul"] = max(
+                worst["pv_dequant_matmul"],
+                _att_err(got, want, f"pv_dequant_matmul {what} (two runs "
+                                    "bit-equal)"))
+        if (bits, r) == (2, LR):
+            timed = (c, q, kargs, vargs)
+
+    c, q, kargs, vargs = timed
+    nkq, nvq = c.n_k_quant, c.n_v_quant
+    p = torch.softmax(torch.randn((LB, LH, LR, LTMAX), generator=gen,
+                                  device="cuda").masked_fill(
+        pos >= nkq, float("-inf")), dim=-1).masked_fill(pos >= nvq, 0.0)
+    # yardsticks: one torch.matmul over the stores dequantized to bf16
+    k_deq = Q.dequantize_k(*kargs)[..., :nkq].to(torch.bfloat16).contiguous()
+    v_deq = Q.dequantize_v(*vargs)[:, :, :nvq].to(torch.bfloat16).contiguous()
+    p_b = p[..., :nvq].to(torch.bfloat16).contiguous()
+    sb, kdw = c.k_scale.element_size(), D // 16
+    qk_bytes = (LB * LH * (nkq * kdw * 4 + 2 * (nkq // 32) * D * sb)
+                + q.numel() * 2 + LB * LH * LR * LTMAX * 4)
+    pv_bytes = (LB * LH * (nvq * kdw * 4 + 2 * (D // 32) * nvq * sb)
+                + LB * LH * LR * nvq * 4 + LB * LH * LR * D * 4)
+    for name, fn, plain, lib, nbytes, n in (
+            ("qk_dequant_matmul",
+             lambda: QP.qk_dequant_matmul(q, *kargs, n_quant=nkq),
+             lambda: QP.qk_dequant_matmul_plain(q, *kargs, n_quant=nkq),
+             lambda: torch.matmul(q, k_deq), qk_bytes, nkq),
+            ("pv_dequant_matmul",
+             lambda: QP.pv_dequant_matmul(p, *vargs, n_quant=nvq),
+             lambda: QP.pv_dequant_matmul_plain(p, *vargs, n_quant=nvq),
+             lambda: torch.matmul(p_b, v_deq), pv_bytes, nvq)):
+        bms, by = bound(nbytes, 2 * LB * LH * LR * n * D)
+        results[name] = dict(max_abs_err=worst[name], ms=cuda_ms(fn),
+                             plain_ms=cuda_ms(plain), bound_ms=bms,
+                             bound_by=by, library_ms=cuda_ms(lib))
+        log(f"[kernel] {name} timed at B={LB}, Hkv={LH}, r={LR}, n_quant "
+            f"{n} of {LTMAX}, KIVI-2: {nbytes / 1e6:.2f} MB")
+
+
+def _state_err(got, want, what: str) -> float:
+    """A flash state (acc, m, l) against the plain one: rows with no
+    admitted position are (0, NEG_INF, 0) in both; the rest within the
+    attention tolerance."""
+    acc, m, l = got
+    acc_w, m_w, l_w = want
+    empty = m_w == NEG_INF
+    if not (torch.equal(m == NEG_INF, empty) and (l[empty] == 0).all()
+            and (acc[empty] == 0).all()):
+        raise AssertionError(f"{what}: empty rows are not (0, -1e30, 0)")
+    err = 0.0
+    if not empty.all():
+        err = max(_att_err(acc, acc_w, f"{what} acc"),
+                  _att_err(m[~empty], m_w[~empty], f"{what} m"),
+                  _att_err(l, l_w, f"{what} l"))
+    log(f"[kernel] {what}: {int(empty.sum())} rows see no history, "
+        "exactly (0, -1e30, 0)")
+    return err
+
+
+def check_qhist(gen, results):
+    """Row 5 against its plain version: the slice's geometry, an empty
+    history, bits 2/4/8, n_k_quant > n_v_quant, per-row pads (one past
+    the history) and a sliding window; timed at the slice's shapes."""
+    import torch.nn.functional as F
+
+    from kivi_tpu_torch.config import QuantConfig
+    from kivi_tpu_torch.kernels import flash_extend as FE
+    name = "flash_extend_qhist"
+    worst, timed = 0.0, None
+    # (history, pads, sliding window, bits, W, v_flush)
+    cases = [(LFILL, None, 0, 2, 32, 32),        # the slice
+             (0, None, 0, 2, 32, 32),            # empty history
+             (3000, None, 0, 4, 32, 32), (3000, None, 0, 8, 32, 32),
+             (2200, None, 0, 2, 128, 32),        # n_k_quant > n_v_quant
+             (3000, (0, 700), 0, 2, 32, 32),
+             (3000, (32, 3050), 0, 2, 32, 32),   # row 1 sees nothing
+             (3000, None, 1000, 4, 32, 32)]      # sliding window
+    for fill, pads, sw, bits, W, vf in cases:
+        qcfg = QuantConfig(bits, bits, 32, W, v_flush=vf)
+        batch = 1 if pads is None else len(pads)
+        c = _ingested_cache(gen, qcfg, fill, batch=batch)
+        qg = _randn(gen, (batch, LH, LR * T1, D))
+        pad_len = (None if pads is None else
+                   torch.tensor(pads, device="cuda", dtype=torch.int32))
+        args = (qg, c.k_codes, c.k_scale, c.k_mn, c.v_codes, c.v_scale,
+                c.v_mn, c.v_win, c.n_k_quant, c.n_v_quant, c.seq_len)
+        kw = dict(group_size=32, k_bits=bits, v_bits=bits, t1=T1,
+                  sliding_window=sw, pad_len=pad_len)
+        got = FE.flash_extend_qhist(*args, **kw)
+        want = FE.flash_extend_qhist_plain(*args, **kw)
+        torch.cuda.synchronize()
+        worst = max(worst, _state_err(
+            got, want, f"{name} history={fill} pads={pads} window={sw} "
+                       f"bits={bits} W={W} vf={vf} (nkq={c.n_k_quant} "
+                       f"nvq={c.n_v_quant})"))
+        if fill == LFILL:
+            timed = (c, qcfg, args, kw, qg)
+    c, qcfg, args, kw, qg = timed
+    nkq, nvq = c.n_k_quant, c.n_v_quant
+    k, v = _deq_kv(c, qcfg, nkq)
+    sb, kdw = c.k_scale.element_size(), D // 16
+    R = LR * T1
+    nbytes = (LB * LH * (nkq * kdw * 4 + 2 * (nkq // 32) * D * sb
+                         + nvq * kdw * 4 + 2 * (D // 32) * nvq * sb
+                         + (nkq - nvq) * D * 2)
+              + qg.numel() * 2 + LB * LH * R * (D + 2) * 4)
+    bms, by = bound(nbytes, 4 * LB * LH * R * nkq * D)
+    results[name] = dict(
+        max_abs_err=worst,
+        ms=cuda_ms(lambda: FE.flash_extend_qhist(*args, **kw)),
+        plain_ms=cuda_ms(lambda: FE.flash_extend_qhist_plain(*args, **kw)),
+        bound_ms=bms, bound_by=by,
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(qg, k, v)))
+    log(f"[kernel] {name} timed at B={LB}, Hkv={LH}, R={R} rows (r={LR}, "
+        f"T1={T1}), history {nkq} of {LTMAX}, KIVI-2")
+
+
+def check_split_routes(gen, crossover: list):
+    """The split routes against the fused kernels on the same inputs, and
+    the fused kernels against their plain versions, at the long slice's
+    geometry with W = 32, v_flush = 32 (the reference's example
+    configuration), left pad 32; both timed at each of CROSS_FILLS.
+    Decode: the split route (qk_dequant_matmul, torch softmax,
+    pv_dequant_matmul) vs fused_decode_attention_wide; extend (T1 = 128):
+    the qhist route (flash_extend_qhist + torch merge) vs
+    flash_extend_attention.  Both pairs compute one function in f32, so
+    the tolerance is the kernels' (ATT_RTOL, ATT_ATOL)."""
+    from kivi_tpu_torch.config import QuantConfig
+    from kivi_tpu_torch.core import attention as TA
+    from kivi_tpu_torch.kernels import flash_extend as FE
+    from kivi_tpu_torch.kernels import fused_decode_wide as FD
+    qcfg = QuantConfig(2, 2, 32, 32)
+    pad = torch.full((LB,), LPAD, device="cuda", dtype=torch.int32)
+    for fill in CROSS_FILLS:
+        c = _filled_cache(gen, qcfg, fill + 1, LH, LB, LTMAX)
+        q = _randn(gen, (LB, LH, LR, D))
+        args = (q, c.k_codes, c.k_scale, c.k_mn, c.v_codes, c.v_scale,
+                c.v_mn, c.k_win, c.v_win, c.n_k_quant, c.n_k_win,
+                c.n_v_quant)
+        kw = dict(group_size=32, k_bits=2, v_bits=2, lo=pad)
+        fused = FD.fused_decode_attention_wide(*args, **kw)
+        plain = FD.fused_decode_attention_wide_plain(*args, **kw)
+        split = TA._decode_attention_split(q, c, qcfg, pad)
+        torch.cuda.synchronize()
+        geo = f"W=32 vf=32 B={LB} Hkv={LH} r={LR} pad={LPAD}"
+        _att_err(fused, plain, f"fused_decode_attention_wide {geo} fill="
+                               f"{c.seq_len} vs its plain version")
+        _att_err(split, fused, f"split decode route vs fused_decode_"
+                               f"attention_wide, {geo} fill={c.seq_len}")
+        dec = (cuda_ms(lambda: FD.fused_decode_attention_wide(*args, **kw)),
+               cuda_ms(lambda: TA._decode_attention_split(q, c, qcfg, pad)))
+
+        ce = _ingested_cache(gen, qcfg, fill)
+        qe = _randn(gen, (LB, LH, LR * T1, D))
+        kn, vn = _randn(gen, (LB, LH, T1, D)), _randn(gen, (LB, LH, T1, D))
+        eargs = (qe, ce.k_codes, ce.k_scale, ce.k_mn, ce.v_codes,
+                 ce.v_scale, ce.v_mn, ce.k_win, ce.v_win, kn, vn,
+                 ce.n_k_quant, ce.n_k_win, ce.n_v_quant)
+        ekw = dict(group_size=32, k_bits=2, v_bits=2, t1=T1,
+                   sliding_window=0, pad_len=pad)
+
+        def qhist_route():
+            return TA._extend_attention_qhist(
+                qe.reshape(LB, LH, LR, T1, D), kn, vn, ce, qcfg,
+                sliding_window=None, pad_len=pad)
+
+        full = FE.flash_extend_attention(*eargs, **ekw)
+        eplain = FE.flash_extend_attention_plain(*eargs, **ekw)
+        routed = qhist_route().reshape(full.shape)
+        torch.cuda.synchronize()
+        _att_err(full, eplain, f"flash_extend_attention {geo} T1={T1} "
+                               f"history={fill} vs its plain version")
+        _att_err(routed, full, f"qhist extend route vs flash_extend_"
+                               f"attention, {geo} T1={T1} history={fill}")
+        ext = (cuda_ms(lambda: FE.flash_extend_attention(*eargs, **ekw)),
+               cuda_ms(qhist_route))
+        crossover.append(dict(fill=fill, decode_fused_ms=dec[0],
+                              decode_split_ms=dec[1],
+                              extend_fused_ms=ext[0],
+                              extend_split_ms=ext[1]))
+        log(f"[crossover] history {fill}: decode fused {dec[0]:.4f} ms, "
+            f"split {dec[1]:.4f} ms | extend (T1={T1}) fused {ext[0]:.4f} "
+            f"ms, qhist {ext[1]:.4f} ms | SPLIT_MIN_HISTORY "
+            f"{TA.SPLIT_MIN_HISTORY}")
+        del c, ce
+
+
 def check_flash(gen, results):
     import torch.nn.functional as F
 
@@ -634,32 +898,44 @@ def phase_kernels():
     check_extend(gen, results)
     check_flash(gen, results)
     check_fp_decode(gen, results)
-    return results
+    check_qk_pv(gen, results)
+    check_qhist(gen, results)
+    crossover = []
+    check_split_routes(gen, crossover)
+    return results, crossover
 
 
 # ---------------------------------------------------------------------------
 # phase 4: the paths at full width
 # ---------------------------------------------------------------------------
 
+SPLIT_KERNELS = ("qk_dequant_matmul", "pv_dequant_matmul",
+                 "flash_extend_qhist")
 KIVI_KERNELS = ("quantize_pack_k", "quantize_pack_v", "flash_extend_attention",
-                "fused_decode_attention_wide", "fused_decode_attention")
+                "fused_decode_attention_wide",
+                "fused_decode_attention") + SPLIT_KERNELS
 # path -> (kernels that must launch, kernels that must not)
 PATHS = {
-    "chunked": (KIVI_KERNELS[:4], ("fused_decode_attention",)),
+    "chunked": (KIVI_KERNELS[:4],
+                ("fused_decode_attention",) + SPLIT_KERNELS),
     "oneshot": (("flash_attention", "quantize_pack_k", "quantize_pack_v",
-                 "fused_decode_attention_wide"), ("fused_decode_attention",)),
+                 "fused_decode_attention_wide"),
+                ("fused_decode_attention",) + SPLIT_KERNELS),
     "fp16": (("flash_attention", "fp_decode_attention_kernel"),
              KIVI_KERNELS),
     "batcher": (("flash_attention", "quantize_pack_k", "quantize_pack_v",
                  "fused_decode_attention"),
                 ("fused_decode_attention_wide", "flash_extend_attention",
-                 "fp_decode_attention_kernel")),
+                 "fp_decode_attention_kernel") + SPLIT_KERNELS),
     "batcher-chunked": (("flash_extend_attention", "quantize_pack_k",
                          "quantize_pack_v", "fused_decode_attention"),
                         ("fused_decode_attention_wide", "flash_attention",
-                         "fp_decode_attention_kernel")),
+                         "fp_decode_attention_kernel") + SPLIT_KERNELS),
     "batcher-fp16": (("flash_attention", "fp_decode_attention_kernel"),
                      KIVI_KERNELS),
+    "long": (("quantize_pack_k", "quantize_pack_v") + SPLIT_KERNELS,
+             ("fused_decode_attention_wide", "fused_decode_attention",
+              "fp_decode_attention_kernel", "flash_attention")),
 }
 
 
@@ -673,18 +949,20 @@ def check_launches(path: str, launches: dict) -> None:
             raise AssertionError(f"{path} path launched {k}")
 
 
-def run_path(path: str, eng, tokens, new: int, smi: str) -> dict:
+def run_path(path: str, eng, tokens, new: int, smi: str,
+             chunk=None, pad_lens=None) -> dict:
     """generate() with the launch counts zeroed just before and read just
     after; then the same path split into prefill and decode, timed, whose
     tokens must equal generate()'s: two greedy runs of the same kernels
-    on the same weights, prompt and card."""
+    on the same weights, prompt and card.  chunk: the prefill chunk
+    (None = one-shot); pad_lens: the rows' left pads."""
     from kivi_tpu_torch.kernels import _build
-    chunk = 128 if path == "chunked" else None
     Bn, prompt = tokens.shape
     _build.LAUNCHES.clear()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out = eng.generate(tokens, new, prefill_chunk_size=chunk)
+    out = eng.generate(tokens, new, prefill_chunk_size=chunk,
+                       pad_lens=pad_lens)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(_build.LAUNCHES)
@@ -698,22 +976,25 @@ def run_path(path: str, eng, tokens, new: int, smi: str) -> dict:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     if chunk is None:
-        first, caches = eng.prefill(tokens)
+        first, caches = eng.prefill(tokens, pad_lens=pad_lens)
     else:
-        logits, caches = eng.prefill_chunked(tokens, chunk)
+        logits, caches = eng.prefill_chunked(tokens, chunk,
+                                             pad_lens=pad_lens)
         if not torch.isfinite(logits).all():
             raise AssertionError("non-finite prefill logits")
         first = logits.argmax(-1).to(torch.int32)[:, None]
     torch.cuda.synchronize()
     t_pre = time.perf_counter() - t0
     pos = torch.full((Bn, 1), prompt, device="cuda")
+    if pad_lens is not None:
+        pos = pos - torch.tensor(pad_lens, device="cuda")[:, None]
     t0 = time.perf_counter()
     rest, caches = eng.decode(first, pos, caches, steps=new - 1,
-                              prompt_len=prompt)
+                              prompt_len=prompt, pad_lens=pad_lens)
     torch.cuda.synchronize()
     t_dec = time.perf_counter() - t0
     last, _ = eng.decode_step(rest[:, -1:], pos + new - 1, caches,
-                              flush=True)
+                              pad_lens=pad_lens, flush=True)
     if not torch.isfinite(last).all():
         raise AssertionError("non-finite decode logits")
     split = torch.cat([first, rest], 1)
@@ -724,7 +1005,8 @@ def run_path(path: str, eng, tokens, new: int, smi: str) -> dict:
             f"from step {int(bad[0])} on")
     tps = Bn * (new - 1) / t_dec
     log(f"[main:{path}] prefill {Bn}x{prompt}"
-        f"{' (chunks of 128)' if chunk else ' (one-shot)'}: {t_pre:.3f} s | "
+        f"{f' (chunks of {chunk})' if chunk else ' (one-shot)'}"
+        f"{f', left pads {pad_lens}' if pad_lens else ''}: {t_pre:.3f} s | "
         f"decode {new - 1} steps: {t_dec:.3f} s = {tps:.1f} tokens/s | "
         f"{eng.cfg.num_layers} layers | card {smi}")
     return launches
@@ -786,8 +1068,8 @@ def run_batcher(path: str, bat, reqs, smi: str) -> dict:
 
 def phase_main(layers: int, smi: str) -> dict:
     """Engine.generate on three paths, then the continuous batcher on
-    three, all on one set of weights.  Returns {path: {kernel:
-    launches}}."""
+    three, all on one set of Llama-2-7B weights; then the long slice on
+    Llama-3.1-8B weights.  Returns {path: {kernel: launches}}."""
     import dataclasses
 
     from kivi_tpu_torch.config import PRESETS, QuantConfig
@@ -812,7 +1094,8 @@ def phase_main(layers: int, smi: str) -> dict:
                        ("fp16", fp16)):
         eng = Engine(cfg=cfg, qcfg=qcfg, params=params, max_seq_len=TMAX,
                      batch_size=B)
-        launches[path] = run_path(path, eng, tokens, new, smi)
+        launches[path] = run_path(path, eng, tokens, new, smi,
+                                  chunk=128 if path == "chunked" else None)
         del eng
         torch.cuda.empty_cache()
     from kivi_tpu_torch.serving.batcher import ContinuousBatcher
@@ -828,6 +1111,43 @@ def phase_main(layers: int, smi: str) -> dict:
         del bat
         torch.cuda.empty_cache()
     del params
+    torch.cuda.empty_cache()
+    launches["long"] = phase_long(layers, smi)
+    return launches
+
+
+def long_prompt(n: int, pad: int, vocab: int, seed: int):
+    """(1, pad + n) token ids: `pad` zeros, then n seeded random ids."""
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(seed)
+    toks = torch.zeros((1, pad + n), dtype=torch.int64)
+    toks[0, pad:] = torch.randint(1, vocab, (n,), generator=gen)
+    return toks
+
+
+def phase_long(layers: int, smi: str) -> dict:
+    """The long-context slice at Llama-3.1-8B width: batch 1, a
+    12,000-token prompt left-padded to 12,032, chunks of 128, a
+    16,384-token cache (the LongBench runner's bucket), KIVI-2 with group
+    32 and residual 32, 64 greedy tokens."""
+    import dataclasses
+
+    from kivi_tpu_torch.config import PRESETS, QuantConfig
+    from kivi_tpu_torch.models import modeling
+    from kivi_tpu_torch.serving.engine import Engine
+
+    cfg = dataclasses.replace(PRESETS["llama3.1-8b"], num_layers=layers)
+    t0 = time.perf_counter()
+    params = modeling.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    log(f"[main:long] llama3.1-8b width, {layers} layers: random bf16 "
+        f"weights in {time.perf_counter() - t0:.1f} s")
+    eng = Engine(cfg=cfg, qcfg=QuantConfig(2, 2, 32, 32), params=params,
+                 max_seq_len=LTMAX, batch_size=1)
+    tokens = long_prompt(LFILL - LPAD, LPAD, cfg.vocab_size, seed=7)
+    launches = run_path("long", eng, tokens.cuda(), LNEW, smi, chunk=128,
+                        pad_lens=[LPAD])
+    del eng, params
     torch.cuda.empty_cache()
     return launches
 
@@ -885,6 +1205,91 @@ def phase_vs_plain():
         if not err <= tol:
             raise AssertionError(f"{path}: card and host prefill logits "
                                  "disagree")
+
+
+def _counting_routes():
+    """Wrap the attention module's split-route kernel wrappers with call
+    counters (on either device); returns (counts, restore)."""
+    import collections
+
+    from kivi_tpu_torch.core import attention as TA
+    counts, saved = collections.Counter(), {}
+    for name in SPLIT_KERNELS:
+        fn = saved[name] = getattr(TA, name)
+
+        def wrapped(*a, _fn=fn, _name=name, **k):
+            counts[_name] += 1
+            return _fn(*a, **k)
+
+        setattr(TA, name, wrapped)
+
+    def restore():
+        for name, fn in saved.items():
+            setattr(TA, name, fn)
+    return counts, restore
+
+
+def phase_long_vs_plain():
+    """The long slice at 2 layers and full Llama-3.1-8B width, card
+    (kernels) against host (plain versions), same weights: a prompt of
+    SPLIT_MIN_HISTORY + 1024 tokens (left pad 32) in chunks of 128, in
+    the cache bucket that holds it, so that the later chunks take the
+    qhist extend route and the decode step the split decode route on
+    both sides.  Prefill logits and one decode step's logits (fed the
+    card's greedy token on both sides) are compared."""
+    import dataclasses
+
+    from kivi_tpu_torch.config import PRESETS, QuantConfig
+    from kivi_tpu_torch.core import attention as TA
+    from kivi_tpu_torch.models import modeling
+    from kivi_tpu_torch.serving.engine import Engine
+
+    cfg = dataclasses.replace(PRESETS["llama3.1-8b"], num_layers=2)
+    qcfg = QuantConfig(2, 2, 32, 32)
+    n = TA.SPLIT_MIN_HISTORY + 1024
+    tmax = next(b for b in (1024, 2048, 4096, 8192, 16384, 32768)
+                if n + 1 <= b)               # the LongBench runner's bucket
+    params = modeling.init_params(cfg, seed=4, device="cuda")
+    cpu_params = {k: ([{n_: t.cpu() for n_, t in lp.items()} for lp in v]
+                      if k == "layers" else v.cpu())
+                  for k, v in params.items()}
+    tokens = long_prompt(n - LPAD, LPAD, cfg.vocab_size, seed=8)
+    pos = torch.tensor([[n - LPAD]])
+    out, first = {}, None
+    for dev, p in (("cuda", params), ("cpu", cpu_params)):
+        counts, restore = _counting_routes()
+        try:
+            eng = Engine(cfg=cfg, qcfg=qcfg, params=p, max_seq_len=tmax,
+                         batch_size=1, device=dev)
+            t0 = time.perf_counter()
+            lg, caches = eng.prefill_chunked(tokens.to(dev), 128,
+                                             pad_lens=[LPAD])
+            if first is None:
+                first = lg.argmax(-1).to(torch.int32)[:, None].cpu()
+            lg2, _ = eng.decode_step(first.to(dev), pos.to(dev), caches,
+                                     pad_lens=[LPAD], flush=True)
+            out[dev] = (lg.float().cpu(), lg2.float().cpu())   # synchronizes
+        finally:
+            restore()
+        if not all(counts[k] for k in SPLIT_KERNELS):
+            raise AssertionError(f"long vs plain on {dev}: the split routes "
+                                 f"did not run: {dict(counts)}")
+        log(f"[plain:long] {dev}: prefill of {n} tokens + one decode step "
+            f"in {time.perf_counter() - t0:.1f} s, split-route calls "
+            f"{dict(counts)}")
+    for i, what in enumerate(("prefill", "decode step")):
+        card, host = out["cuda"][i], out["cpu"][i]
+        err = (card - host).abs().max().item()
+        scale = host.abs().max().item()
+        tol = 5e-2 * scale                   # as phase 5's other paths
+        log(f"[plain:long] 2 layers llama3.1-8b width, B=1, prompt {n} "
+            f"(pad {LPAD}), cache {tmax}: {what} logits max|card - host| "
+            f"= {err:.3e} (max|host| {scale:.3e}, tolerance {tol:.3e})")
+        if not err <= tol:
+            raise AssertionError(f"long: card and host {what} logits "
+                                 "disagree")
+    del params, cpu_params
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -1043,9 +1448,10 @@ def main():
     t_start = time.perf_counter()
     name, smi = phase_card()
     phase_build()
-    results = phase_kernels()
+    results, crossover = phase_kernels()
     launches = phase_main(args.layers, smi)
     phase_vs_plain()
+    phase_long_vs_plain()
     phase_batcher_vs_engine()
     phase_api()
     sources = {
@@ -1067,11 +1473,24 @@ def main():
         "fp_decode_attention_kernel": (
             "kivi_tpu_torch/kernels/csrc/fp_decode.cu",
             "kivi_tpu/kernels/fp_decode.py:84"),
+        "qk_dequant_matmul": ("kivi_tpu_torch/kernels/csrc/qk_pv.cu",
+                              "kivi_tpu/kernels/qk_pv.py:158"),
+        "pv_dequant_matmul": ("kivi_tpu_torch/kernels/csrc/qk_pv.cu",
+                              "kivi_tpu/kernels/qk_pv.py:273"),
+        "flash_extend_qhist": (
+            "kivi_tpu_torch/kernels/csrc/flash_extend_qhist.cu",
+            "kivi_tpu/kernels/flash_extend.py:512"),
     }
     yardstick = {"flash_attention": "SDPA, causal",
                  "fp_decode_attention_kernel": "SDPA over the live K/V",
                  "fused_decode_attention": "SDPA, per-row mask, over the "
-                                           "cache dequantized to bf16"}
+                                           "cache dequantized to bf16",
+                 "qk_dequant_matmul": "torch.matmul over the K store "
+                                      "dequantized to bf16",
+                 "pv_dequant_matmul": "torch.matmul over the V store "
+                                      "dequantized to bf16",
+                 "flash_extend_qhist": "SDPA over the history dequantized "
+                                       "to bf16"}
     kernels = []
     for k, (src, rep) in sources.items():
         r = results[k]
@@ -1087,6 +1506,12 @@ def main():
         kernels.append({"name": k, "route": "cuda", "source": src,
                         "replaces": rep, "launches": total,
                         "launches_by_path": by_path, **r})
+    for row in crossover:
+        log(f"[time] split vs fused at history {row['fill']} (B={LB}, "
+            f"Hkv={LH}, r={LR}, KIVI-2, W=32): decode "
+            f"{row['decode_split_ms']:.4f} vs {row['decode_fused_ms']:.4f} "
+            f"ms, extend T1={T1} {row['extend_split_ms']:.4f} vs "
+            f"{row['extend_fused_ms']:.4f} ms | card {smi}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -66,6 +66,21 @@ SIGNATURES = {
         # scale_is_f32, sm_scale, stream
         "kivi_flash_extend": [_P] * 13 + [_I] * 15 + [_F, _P],
     },
+    "flash_extend_qhist": {
+        # q, k_codes, k_scale, k_mn, v_codes, v_scale, v_mn, v_win, pad,
+        # part_acc, part_m, part_l, acc, m, l, B, H, R, T1, D, Tmax, W, gs,
+        # k_bits, v_bits, n_k_quant, n_v_quant, seq_len, sliding_window,
+        # scale_is_f32, sm_scale, stream
+        "kivi_flash_extend_qhist": [_P] * 15 + [_I] * 15 + [_F, _P],
+    },
+    "qk_pv": {
+        # q, k_codes, k_scale, k_mn, out, B, H, r, D, T, gs, bits,
+        # n_quant, scale_is_f32, stream
+        "kivi_qk_dequant": [_P] * 5 + [_I] * 9 + [_P],
+        # p, v_codes, v_scale, v_mn, part, out, B, H, r, D, T, gs, bits,
+        # n_quant, scale_is_f32, stream
+        "kivi_pv_dequant": [_P] * 6 + [_I] * 9 + [_P],
+    },
     "flash": {
         # q, k, v, pad, out, B, Hq, Hkv, T, D, sliding_window, sm_scale,
         # stream

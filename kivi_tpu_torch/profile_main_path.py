@@ -12,11 +12,16 @@ drives.  --path picks the cache and the prefill:
   * oneshot: KIVI-2, one-shot prefill (flash_attention, then ingest);
   * fp16: the fp16-cache baseline, one-shot prefill;
   * batcher: the continuous batcher over KIVI-2 slot caches (8 slots,
-    bucketed admission), every slot at its own fill.
+    bucketed admission), every slot at its own fill;
+  * long: the long-context slice at Llama-3.1-8B width, batch 1, KIVI-2
+    with group 32 and residual 32, a 16,384-token cache, a 12,000-token
+    prompt left-padded to 12,032 in chunks of 128 (the split routes:
+    flash_extend_qhist once the history passes SPLIT_MIN_HISTORY,
+    qk_dequant_matmul + pv_dequant_matmul in every decode step).
 
 Two windows, each run once without and once under torch.profiler:
 
-  * prefill: 8 prompts of 1024 tokens;
+  * prefill: 8 prompts of 1024 tokens (long: one of 12,032);
   * decode: S greedy steps after it (with KIVI-2, step 0 carries a
     V-window flush).
 
@@ -50,16 +55,23 @@ from kivi_tpu_torch.models import modeling
 from kivi_tpu_torch.serving.engine import Engine
 
 B, PROMPT, CHUNK, TMAX = 8, 1024, 128, 4096
+LONG_PROMPT, LONG_PAD, LONG_TMAX = 12032, 32, 16384
 OURS = {"quantize_pack_kernel": "quantize_pack_k/v",
         "fused_decode_kernel": "fused_decode_attention_wide",
         "fused_decode_rows_kernel": "fused_decode_attention",
         "flash_extend_kernel": "flash_extend_attention",
         "flash_prefill_kernel": "flash_attention",
-        "fp_decode_kernel": "fp_decode_attention_kernel"}
+        "fp_decode_kernel": "fp_decode_attention_kernel",
+        "qk_kernel": "qk_dequant_matmul",
+        "pv_split_kernel": "pv_dequant_matmul",
+        "pv_reduce_kernel": "pv_dequant_matmul",
+        "qhist_split_kernel": "flash_extend_qhist",
+        "qhist_merge_kernel": "flash_extend_qhist"}
 QCFG = {"chunked": QuantConfig(2, 2, 32, 128, v_flush=128),
         "oneshot": QuantConfig(2, 2, 32, 128, v_flush=128),
         "fp16": QuantConfig(16, 16, 32, 128),
-        "batcher": QuantConfig(2, 2, 32, 128, v_flush=128)}
+        "batcher": QuantConfig(2, 2, 32, 128, v_flush=128),
+        "long": QuantConfig(2, 2, 32, 32)}
 GEMM = re.compile(r"gemm|nvjet|cutlass|xmma|cublas", re.I)
 # the masked per-slot cache writes (kivi_cache._masked_store_write)
 SCATTER = re.compile(r"scatter|gather", re.I)
@@ -167,28 +179,36 @@ def main():
     print(f"[card] {smi} | torch {torch.__version__} cuda "
           f"{torch.version.cuda}")
 
-    cfg = dataclasses.replace(PRESETS["llama2-7b"], num_layers=args.layers)
+    long = args.path == "long"
+    preset = "llama3.1-8b" if long else "llama2-7b"
+    cfg = dataclasses.replace(PRESETS[preset], num_layers=args.layers)
     if args.path == "batcher":
         profile_batcher(cfg, args.steps, smi)
         return
+    Bp, prompt, tmax = (1, LONG_PROMPT, LONG_TMAX) if long else (B, PROMPT,
+                                                                  TMAX)
+    pad = [LONG_PAD] if long else None
     eng = Engine(cfg=cfg, qcfg=QCFG[args.path],
                  params=modeling.init_params(cfg, seed=0, device="cuda"),
-                 max_seq_len=TMAX, batch_size=B)
+                 max_seq_len=tmax, batch_size=Bp)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
-    tokens = torch.randint(0, cfg.vocab_size, (B, PROMPT), generator=gen,
+    tokens = torch.randint(0, cfg.vocab_size, (Bp, prompt), generator=gen,
                            device="cuda")
-    pos = torch.full((B, 1), PROMPT, device="cuda")
+    pos = torch.full((Bp, 1), prompt, device="cuda")
+    if long:
+        tokens[:, :LONG_PAD] = 0
+        pos = pos - LONG_PAD
 
     def prefill():
-        if args.path == "chunked":
-            return eng.prefill_chunked(tokens, CHUNK)
+        if args.path in ("chunked", "long"):
+            return eng.prefill_chunked(tokens, CHUNK, pad_lens=pad)
         return eng._prefill(tokens)
 
     def decode(logits, caches):
         first = logits.argmax(-1).to(torch.int32)[:, None]
         return eng.decode(first, pos, caches, steps=args.steps,
-                          prompt_len=PROMPT)
+                          prompt_len=prompt, pad_lens=pad)
 
     walls = {}
     for rep in range(2):               # the first pass builds and warms
@@ -215,12 +235,15 @@ def main():
         torch.cuda.synchronize()
     how = {"chunked": f"KIVI-2, prompt {PROMPT} in chunks of {CHUNK}",
            "oneshot": f"KIVI-2, prompt {PROMPT} one-shot",
-           "fp16": f"fp16 cache, prompt {PROMPT} one-shot"}[args.path]
-    print(f"[config] llama2-7b width, {args.layers} layers, {how}, batch "
-          f"{B}, {args.steps} decode steps | card {smi}")
+           "fp16": f"fp16 cache, prompt {PROMPT} one-shot",
+           "long": f"KIVI-2 (group 32, residual 32), prompt {prompt} (left "
+                   f"pad {LONG_PAD}) in chunks of {CHUNK}, cache {tmax}"
+           }[args.path]
+    print(f"[config] {preset} width, {args.layers} layers, {how}, batch "
+          f"{Bp}, {args.steps} decode steps | card {smi}")
     report("prefill", p_pre, walls["prefill"])
     report("decode", p_dec, walls["decode"])
-    print(f"[decode] {B * args.steps / walls['decode']:.1f} tokens/s, "
+    print(f"[decode] {Bp * args.steps / walls['decode']:.1f} tokens/s, "
           f"{walls['decode'] / args.steps * 1e3:.3f} ms per step")
 
 
