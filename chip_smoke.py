@@ -11,7 +11,9 @@ Phases (any failure raises; the exit code is then non-zero):
      bound and a one-call PyTorch yardstick; the split routes (split
      decode, qhist extend) against the fused kernels on the same inputs
      at the long slice's geometry, timed at fills of 1K, 4K and 12K (the
-     crossover behind core.attention.SPLIT_MIN_HISTORY);
+     crossover behind core.attention.SPLIT_MIN_HISTORY); the decode
+     ablation probe (kernels/trimmed.py), every variant, then its full
+     variant at the profiler's 32K geometry;
   4. the paths at Llama-2-7B width, sharing one set of weights:
      Engine.generate of 8 prompts of 1024 tokens, 128 greedy tokens,
        * KIVI-2, chunked prefill of 128 (extend + KIVI decode),
@@ -34,6 +36,9 @@ Phases (any failure raises; the exit code is then non-zero):
      (the reference's example configuration), 64 greedy tokens; the
      split routes' kernels must launch and the fused decode kernels
      must not;
+     then the probe path: `python3 -m kivi_tpu_torch.profile_wide_32k
+     --quick` (B = 4, 32 KV heads, a 32K history), whose wide kernel,
+     split decode route and probe variants must launch;
   5. the paths against the plain path: 2 layers at full width on the
      card (kernels) and on the host CPU (plain versions), same weights:
      chunked and one-shot prefill logits of both caches; the long slice
@@ -48,22 +53,27 @@ Phases (any failure raises; the exit code is then non-zero):
 
 Prints the kernels' JSON line, the card's name and power limit, and as
 the last line {"ok": true, "device": {...}}.  Exits non-zero without a
-result when CUDA is unavailable.
+result when CUDA is unavailable, or when the script runs without the
+kivi_tpu_torch package beside it.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
-import statistics
-import subprocess
 import sys
 import time
 
 import torch
 
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate
-BF16_FLOP_PER_S = 989e12         # H100 SXM dense bf16 tensor-core rate
+try:
+    from kivi_tpu_torch.utils.device import card
+    from kivi_tpu_torch.utils.timing import bound, cuda_ms
+except ModuleNotFoundError as e:
+    # run alone, without the package it drives: fail with no result
+    raise SystemExit(f"chip_smoke: {e}; run it from the root of a checkout "
+                     "of the repository") from None
+
 # Attention tolerance on the card: max|kernel - plain| <= ATT_RTOL *
 # max|plain| + ATT_ATOL.  Tighter than bf16 rounding on purpose: the
 # kernels and the plain versions both dequantize and compute in f32
@@ -84,36 +94,6 @@ def log(*a):
     print(*a, flush=True)
 
 
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Median milliseconds of fn() by CUDA events.  Each timed call finds
-    the 50 MB L2 holding other, clean data, as on the main path, where a
-    layer's weights pass through L2 between two calls of the same kernel
-    (reading the scrub buffer, not writing it, leaves no dirty lines to
-    write back during the timed call)."""
-    scrub = torch.ones(64 << 20, dtype=torch.int8, device="cuda")
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(iters):
-        scrub.amax()
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
-        fn()
-        e.record()
-        e.synchronize()
-        times.append(s.elapsed_time(e))
-    return statistics.median(times)
-
-
-def bound(nbytes: float, flops: float):
-    """Least time (ms) for the work: bytes over the memory rate vs
-    operations over the bf16 tensor-core rate."""
-    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOP_PER_S * 1e3
-    return (tb, "bytes") if tb >= tf else (tf, "operations")
-
-
 # ---------------------------------------------------------------------------
 # phase 1: card
 # ---------------------------------------------------------------------------
@@ -122,10 +102,7 @@ def phase_card():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
     name = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
+    smi = card()
     log(f"[card] {name} | nvidia-smi: {smi} | torch {torch.__version__} "
         f"cuda {torch.version.cuda} | python {sys.version.split()[0]}")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -736,6 +713,73 @@ def check_split_routes(gen, crossover: list):
         del c, ce
 
 
+def check_trimmed(results):
+    """Row 11, the decode ablation probe, against its plain version:
+    every variant (trimmed.VARIANTS) at bits 2/4, r 1/4, fill partial
+    and full (B = 2, 8 KV heads, a 4K cache), each bit-equal across two
+    runs; the attention variants (full, fold) also against the plain
+    decode at an empty window.  Then the full variant at the profiler's
+    32K geometry (B = 4, 32 KV heads, fill 32,640, KIVI-2), checked and
+    timed."""
+    import torch.nn.functional as F
+
+    from kivi_tpu_torch import profile_wide_32k as PW
+    from kivi_tpu_torch.core import quant as Q
+    from kivi_tpu_torch.kernels import fused_decode_wide as FD
+    from kivi_tpu_torch.kernels import trimmed as TR
+    name = "trimmed"
+    worst = 0.0
+    for bits in (2, 4):
+        for r in (1, 4):
+            for fill in (2500, 4096):
+                qg, c = PW.make_cache(2, 4096, fill, heads=8, r=r, bits=bits,
+                                      seed=bits + r)
+                stores = (c.k_codes, c.k_scale, c.k_mn, c.v_codes,
+                          c.v_scale, c.v_mn)
+                empty = c.k_win[:, :, :1]
+                decode = FD.fused_decode_attention_wide_plain(
+                    qg, *stores, empty, empty, fill, 0, fill, group_size=32,
+                    k_bits=bits, v_bits=bits)
+                for key in TR.VARIANTS:
+                    kw = dict(zip(("scales", "do_qk", "do_vpath",
+                                   "do_unpack"), key), group_size=32,
+                              k_bits=bits, v_bits=bits)
+                    got = TR.trimmed(qg, *stores, fill, **kw)
+                    again = TR.trimmed(qg, *stores, fill, **kw)
+                    want = TR.trimmed_plain(qg, *stores, fill, **kw)
+                    torch.cuda.synchronize()
+                    what = (f"{PW.variant_name(*key)} bits={bits} r={r} "
+                            f"fill={fill}")
+                    if not torch.equal(got, again):
+                        raise AssertionError(f"{what}: two runs differ")
+                    worst = max(worst, _att_err(got, want, what))
+                    if key[1:] == (True, True, True) and key[0] != "none":
+                        _att_err(got, decode, f"{what} vs the plain decode, "
+                                              "empty window")
+    B4, T4, F4 = 4, 32768, 32640
+    qg, c = PW.make_cache(B4, T4, F4)
+    args = (qg, c.k_codes, c.k_scale, c.k_mn, c.v_codes, c.v_scale, c.v_mn,
+            F4)
+    kw = dict(group_size=32, k_bits=2, v_bits=2)
+    worst = max(worst, _att_err(TR.trimmed(*args, **kw),
+                                TR.trimmed_plain(*args, **kw),
+                                f"{name} full B={B4} Hkv={PW.HKV} fill={F4}"))
+    k = Q.dequantize_k(c.k_codes, c.k_scale, c.k_mn, 32, 2)[..., :F4]
+    k = k.transpose(-1, -2).to(torch.bfloat16).contiguous()
+    v = Q.dequantize_v(c.v_codes, c.v_scale, c.v_mn, 32, 2)[:, :, :F4]
+    v = v.to(torch.bfloat16).contiguous()
+    bms, by = PW.attention_bound(qg, c, F4, 0)
+    results[name] = dict(
+        max_abs_err=worst, ms=cuda_ms(lambda: TR.trimmed(*args, **kw)),
+        plain_ms=cuda_ms(lambda: TR.trimmed_plain(*args, **kw)),
+        bound_ms=bms, bound_by=by,
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(qg, k, v)))
+    log(f"[kernel] {name} (full variant) timed at B={B4}, Hkv={PW.HKV}, r=1,"
+        f" fill {F4} of {T4}, KIVI-2")
+    del k, v, c
+    torch.cuda.empty_cache()
+
+
 def check_flash(gen, results):
     import torch.nn.functional as F
 
@@ -900,6 +944,7 @@ def phase_kernels():
     check_fp_decode(gen, results)
     check_qk_pv(gen, results)
     check_qhist(gen, results)
+    check_trimmed(results)
     crossover = []
     check_split_routes(gen, crossover)
     return results, crossover
@@ -914,28 +959,37 @@ SPLIT_KERNELS = ("qk_dequant_matmul", "pv_dequant_matmul",
 KIVI_KERNELS = ("quantize_pack_k", "quantize_pack_v", "flash_extend_attention",
                 "fused_decode_attention_wide",
                 "fused_decode_attention") + SPLIT_KERNELS
+PROBE = ("trimmed",)        # the ablation probe runs on the probe path only
 # path -> (kernels that must launch, kernels that must not)
 PATHS = {
     "chunked": (KIVI_KERNELS[:4],
-                ("fused_decode_attention",) + SPLIT_KERNELS),
+                ("fused_decode_attention",) + SPLIT_KERNELS + PROBE),
     "oneshot": (("flash_attention", "quantize_pack_k", "quantize_pack_v",
                  "fused_decode_attention_wide"),
-                ("fused_decode_attention",) + SPLIT_KERNELS),
+                ("fused_decode_attention",) + SPLIT_KERNELS + PROBE),
     "fp16": (("flash_attention", "fp_decode_attention_kernel"),
-             KIVI_KERNELS),
+             KIVI_KERNELS + PROBE),
     "batcher": (("flash_attention", "quantize_pack_k", "quantize_pack_v",
                  "fused_decode_attention"),
                 ("fused_decode_attention_wide", "flash_extend_attention",
-                 "fp_decode_attention_kernel") + SPLIT_KERNELS),
+                 "fp_decode_attention_kernel") + SPLIT_KERNELS + PROBE),
     "batcher-chunked": (("flash_extend_attention", "quantize_pack_k",
                          "quantize_pack_v", "fused_decode_attention"),
                         ("fused_decode_attention_wide", "flash_attention",
-                         "fp_decode_attention_kernel") + SPLIT_KERNELS),
+                         "fp_decode_attention_kernel") + SPLIT_KERNELS
+                        + PROBE),
     "batcher-fp16": (("flash_attention", "fp_decode_attention_kernel"),
-                     KIVI_KERNELS),
+                     KIVI_KERNELS + PROBE),
     "long": (("quantize_pack_k", "quantize_pack_v") + SPLIT_KERNELS,
              ("fused_decode_attention_wide", "fused_decode_attention",
-              "fp_decode_attention_kernel", "flash_attention")),
+              "fp_decode_attention_kernel", "flash_attention") + PROBE),
+    # the 32K ablation profiler: the wide kernel and the split decode
+    # route as anchors, then every variant of the probe
+    "probe": (PROBE + ("fused_decode_attention_wide", "qk_dequant_matmul",
+                       "pv_dequant_matmul"),
+              ("quantize_pack_k", "quantize_pack_v", "flash_extend_attention",
+               "fused_decode_attention", "flash_extend_qhist",
+               "flash_attention", "fp_decode_attention_kernel")),
 }
 
 
@@ -1149,6 +1203,28 @@ def phase_long(layers: int, smi: str) -> dict:
                         pad_lens=[LPAD])
     del eng, params
     torch.cuda.empty_cache()
+    return launches
+
+
+def phase_probe() -> dict:
+    """The ablation profiler's path at its 32K geometry (`python3 -m
+    kivi_tpu_torch.profile_wide_32k --quick`: B = 4, 32 KV heads, fill
+    32,640 of 32,768, KIVI-2), with the launch counts zeroed just before
+    and read just after: the wide kernel and the split decode route as
+    anchors, then every variant of the probe."""
+    from kivi_tpu_torch import profile_wide_32k as PW
+    from kivi_tpu_torch.kernels import _build
+    _build.LAUNCHES.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rows = PW.main(["--quick"])
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    log(f"[probe] profile_wide_32k --quick: {len(rows)} items in "
+        f"{time.perf_counter() - t0:.1f} s, launches {launches}")
+    check_launches("probe", launches)
+    if not rows or not all(0 < r["ms"] < 1e3 for r in rows):
+        raise AssertionError(f"probe: bad timings {rows}")
     return launches
 
 
@@ -1450,6 +1526,7 @@ def main():
     phase_build()
     results, crossover = phase_kernels()
     launches = phase_main(args.layers, smi)
+    launches["probe"] = phase_probe()
     phase_vs_plain()
     phase_long_vs_plain()
     phase_batcher_vs_engine()
@@ -1480,6 +1557,8 @@ def main():
         "flash_extend_qhist": (
             "kivi_tpu_torch/kernels/csrc/flash_extend_qhist.cu",
             "kivi_tpu/kernels/flash_extend.py:512"),
+        "trimmed": ("kivi_tpu_torch/kernels/csrc/trimmed.cu",
+                    "scripts/profile_wide_32k.py:243"),
     }
     yardstick = {"flash_attention": "SDPA, causal",
                  "fp_decode_attention_kernel": "SDPA over the live K/V",
@@ -1490,7 +1569,8 @@ def main():
                  "pv_dequant_matmul": "torch.matmul over the V store "
                                       "dequantized to bf16",
                  "flash_extend_qhist": "SDPA over the history dequantized "
-                                       "to bf16"}
+                                       "to bf16",
+                 "trimmed": "SDPA over the history dequantized to bf16"}
     kernels = []
     for k, (src, rep) in sources.items():
         r = results[k]

@@ -91,6 +91,11 @@ SIGNATURES = {
         # sliding_window, sm_scale, stream
         "kivi_fp_decode": [_P] * 6 + [_I] * 7 + [_F, _P],
     },
+    "trimmed": {
+        # q, k_codes, k_scale, k_mn, v_codes, v_scale, v_mn, out, B, H, r,
+        # D, Tmax, gs, k_bits, v_bits, n_quant, variant, sm_scale, stream
+        "kivi_trimmed": [_P] * 8 + [_I] * 10 + [_F, _P],
+    },
 }
 
 _LIBS: dict = {}

@@ -43,7 +43,6 @@ import argparse
 import collections
 import dataclasses
 import re
-import subprocess
 import time
 
 import torch
@@ -53,6 +52,7 @@ from torch.profiler import ProfilerActivity, profile
 from kivi_tpu_torch.config import PRESETS, QuantConfig
 from kivi_tpu_torch.models import modeling
 from kivi_tpu_torch.serving.engine import Engine
+from kivi_tpu_torch.utils.device import card
 
 B, PROMPT, CHUNK, TMAX = 8, 1024, 128, 4096
 LONG_PROMPT, LONG_PAD, LONG_TMAX = 12032, 32, 16384
@@ -172,10 +172,7 @@ def main():
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_main_path: CUDA is not available")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
+    smi = card()
     print(f"[card] {smi} | torch {torch.__version__} cuda "
           f"{torch.version.cuda}")
 

@@ -8,6 +8,8 @@ places arrays on its default backend).
 
 from __future__ import annotations
 
+import subprocess
+
 import torch
 
 
@@ -21,3 +23,15 @@ def resolve_device(device=None) -> torch.device:
                                "to run the plain versions on the host")
         return torch.device("cuda")
     return torch.device(device)
+
+
+def card() -> str:
+    """The first GPU's name and power limit as `nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader` gives them: the
+    label every measurement of the port carries (a card set below its
+    maximum power runs slower under load)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout
+    return out.strip().splitlines()[0]
