@@ -11,9 +11,11 @@ Phases (any failure raises; the exit code is then non-zero):
      bound and a one-call PyTorch yardstick; the split routes (split
      decode, qhist extend) against the fused kernels on the same inputs
      at the long slice's geometry, timed at fills of 1K, 4K and 12K (the
-     crossover behind core.attention.SPLIT_MIN_HISTORY); the decode
-     ablation probe (kernels/trimmed.py), every variant, then its full
-     variant at the profiler's 32K geometry;
+     crossover behind core.attention.SPLIT_MIN_HISTORY); the probe
+     path's kernels by the profiler's checker (profile_wide_32k.check):
+     every variant of the decode ablation probe (kernels/trimmed.py),
+     the wide kernel and the split decode route, at small shapes and at
+     the probe path's own 32K geometry, on a flat and a peaked softmax;
   4. the paths at Llama-2-7B width, sharing one set of weights:
      Engine.generate of 8 prompts of 1024 tokens, 128 greedy tokens,
        * KIVI-2, chunked prefill of 128 (extend + KIVI decode),
@@ -714,56 +716,39 @@ def check_split_routes(gen, crossover: list):
 
 
 def check_trimmed(results):
-    """Row 11, the decode ablation probe, against its plain version:
-    every variant (trimmed.VARIANTS) at bits 2/4, r 1/4, fill partial
-    and full (B = 2, 8 KV heads, a 4K cache), each bit-equal across two
+    """Row 11, the decode ablation probe, by the profiler's own checker
+    (profile_wide_32k.check) on its uniform cache and on a peaked one
+    (keys and values quantized from N(0, 1)): every variant
+    (trimmed.VARIANTS) against its plain version, bit-equal across two
     runs; the attention variants (full, fold) also against the plain
-    decode at an empty window.  Then the full variant at the profiler's
-    32K geometry (B = 4, 32 KV heads, fill 32,640, KIVI-2), checked and
-    timed."""
+    decode at an empty window; the wide kernel and the decode route
+    core.attention picks (split) against the plain decode with the
+    window.  At bits 2/4, r 1/4, fill partial and full (B = 2, 8 KV
+    heads, a 4K cache), then at the probe path's own 32K geometry
+    (B = 4, 32 KV heads, fill 32,640, KIVI-2), whose uniform cache is
+    the one the probe path times; there the full variant is timed."""
     import torch.nn.functional as F
 
     from kivi_tpu_torch import profile_wide_32k as PW
     from kivi_tpu_torch.core import quant as Q
-    from kivi_tpu_torch.kernels import fused_decode_wide as FD
     from kivi_tpu_torch.kernels import trimmed as TR
     name = "trimmed"
+    tol = dict(rtol=ATT_RTOL, atol=ATT_ATOL)
     worst = 0.0
     for bits in (2, 4):
         for r in (1, 4):
             for fill in (2500, 4096):
-                qg, c = PW.make_cache(2, 4096, fill, heads=8, r=r, bits=bits,
-                                      seed=bits + r)
-                stores = (c.k_codes, c.k_scale, c.k_mn, c.v_codes,
-                          c.v_scale, c.v_mn)
-                empty = c.k_win[:, :, :1]
-                decode = FD.fused_decode_attention_wide_plain(
-                    qg, *stores, empty, empty, fill, 0, fill, group_size=32,
-                    k_bits=bits, v_bits=bits)
-                for key in TR.VARIANTS:
-                    kw = dict(zip(("scales", "do_qk", "do_vpath",
-                                   "do_unpack"), key), group_size=32,
-                              k_bits=bits, v_bits=bits)
-                    got = TR.trimmed(qg, *stores, fill, **kw)
-                    again = TR.trimmed(qg, *stores, fill, **kw)
-                    want = TR.trimmed_plain(qg, *stores, fill, **kw)
-                    torch.cuda.synchronize()
-                    what = (f"{PW.variant_name(*key)} bits={bits} r={r} "
-                            f"fill={fill}")
-                    if not torch.equal(got, again):
-                        raise AssertionError(f"{what}: two runs differ")
-                    worst = max(worst, _att_err(got, want, what))
-                    if key[1:] == (True, True, True) and key[0] != "none":
-                        _att_err(got, decode, f"{what} vs the plain decode, "
-                                              "empty window")
+                for data in PW.DATA:
+                    worst = max(worst, PW.check(*PW.make_cache(
+                        2, 4096, fill, heads=8, r=r, bits=bits,
+                        seed=bits + r, data=data), what=f"{data} ", **tol))
     B4, T4, F4 = 4, 32768, 32640
-    qg, c = PW.make_cache(B4, T4, F4)
+    for data in PW.DATA[::-1]:          # the profiler's uniform cache last
+        qg, c = PW.make_cache(B4, T4, F4, data=data)
+        worst = max(worst, PW.check(qg, c, what=f"{data} ", **tol))
     args = (qg, c.k_codes, c.k_scale, c.k_mn, c.v_codes, c.v_scale, c.v_mn,
             F4)
     kw = dict(group_size=32, k_bits=2, v_bits=2)
-    worst = max(worst, _att_err(TR.trimmed(*args, **kw),
-                                TR.trimmed_plain(*args, **kw),
-                                f"{name} full B={B4} Hkv={PW.HKV} fill={F4}"))
     k = Q.dequantize_k(c.k_codes, c.k_scale, c.k_mn, 32, 2)[..., :F4]
     k = k.transpose(-1, -2).to(torch.bfloat16).contiguous()
     v = Q.dequantize_v(c.v_codes, c.v_scale, c.v_mn, 32, 2)[:, :, :F4]

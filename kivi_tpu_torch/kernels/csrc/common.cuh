@@ -1,7 +1,8 @@
 // Shared helpers for the port's CUDA kernels: the packed word layout of
 // kivi_tpu_torch/core/quant.py, scalar loads of the storage types, a
 // block-wide reduction (the decode kernels), the KIVI decode body of one
-// (row, KV head) (the two KIVI decode kernels) and the tiled attention
+// (row, KV head) (the two KIVI decode kernels and, with ablations, the
+// decode probe) and the tiled attention
 // step (the extend and prefill kernels).
 #pragma once
 
@@ -83,7 +84,8 @@ __device__ __forceinline__ void block_reduce(float (&v)[R], float* red,
 // ---------------------------------------------------------------------------
 // Single-token KIVI decode attention of one (batch row, KV head), shared by
 // fused_decode.cu (counters uniform over the batch, passed as ints) and
-// fused_decode_rows.cu (counters read per row from the device).  A block of
+// fused_decode_rows.cu (counters read per row from the device), and by
+// trimmed.cu (the ablations below, at full fill).  A block of
 // NT = 128 threads holds the R query rows of the head in shared memory and
 // walks the live positions [lo, nkq + nkw) in chunks of NT, one online
 // softmax across all of them:
@@ -97,22 +99,58 @@ __device__ __forceinline__ void block_reduce(float (&v)[R], float* red,
 // Chunks below `lo` (left pad, sliding window) and past nkq + nkw are
 // never visited.  A head with no admitted position writes exact zeros
 // (p is zeroed by the mask, so l stays 0).
+//
+// The ablation parameter A takes one part of the quantized positions'
+// work out at a time, for the decode probe (trimmed.cu); the decode
+// kernels run Ablation<0>, the full body.  An ablated branch is not
+// compiled into another variant.
+//   0 full           K scales per element: q . (c * s + mn)
+//   1 fold           each group's K scale folded into the query rows once
+//                    per chunk: sum_d (q_d s_d) c + sum_d q_d mn_d
+//   2 none           the chunk's first K scale row for every position
+//   3 no V path      the PV product replaced by the probability of the
+//                    chunk's first position
+//   4 fold, no V path
+//   5 no QK          logit = q . mn + sum_d c_d s_d (the unpack and scale
+//                    stay live, the products with q go)
+//   6 no unpack      every slot of a word reads its low `bits` bits
+//   7 dma only       2, 3, 5 and 6 at once: the loads, and the output of 3
+// Every variant stages the chunk's K scales, V codes and V scales as the
+// full body does.
 // ---------------------------------------------------------------------------
 namespace kdec {
 
 constexpr int NT = 128;      // threads per block == positions per chunk
 constexpr int NW = NT / 32;
 
-inline size_t smem_bytes(int R, int D, int gs, int v_bits) {
+enum Scales { ELEMENT = 0, FOLD = 1, NONE = 2 };
+
+template <int VAR>
+struct Ablation {
+    static constexpr int scales = (VAR == 1 || VAR == 4) ? FOLD
+                                  : (VAR == 2 || VAR == 7) ? NONE
+                                                           : ELEMENT;
+    static constexpr bool qk = !(VAR == 5 || VAR == 7);
+    static constexpr bool vpath = !(VAR == 3 || VAR == 4 || VAR == 7);
+    static constexpr bool unpack = !(VAR == 6 || VAR == 7);
+    // the zero-point term q . mn per (group, row) is staged once per
+    // chunk where the logits need it apart from the K values
+    static constexpr bool zp = scales == FOLD || !qk;
+};
+
+// zp: add the (cg, R, D) folded query rows and (cg, R) zero-point terms
+// of an ablation that stages them (Ablation<VAR>::zp).
+inline size_t smem_bytes(int R, int D, int gs, int v_bits, bool zp = false) {
     const int VDw = D / (32 / v_bits), Dg = D / gs, cg = NT / gs;
     return sizeof(float) * (size_t)(R * D + R * NT + 2 * cg * D
-                                    + 2 * Dg * NT + R * NW + VDw * NT);
+                                    + 2 * Dg * NT + R * NW + VDw * NT
+                                    + (zp ? cg * R * D + cg * R : 0));
 }
 
 // Pointers are those of batch row b's KV head h (bh = b*H + h): q (R, D),
 // k_codes (KDw, Tmax), k_scale/k_mn (Tmax/gs, D), v_codes (VDw, Tmax),
 // v_scale/v_mn (D/gs, Tmax), k_win/v_win (W, D), out (R, D).
-template <int R, typename ST>
+template <int R, typename ST, typename A = Ablation<0>>
 __device__ __forceinline__ void attend(
         float* sm, const __nv_bfloat16* __restrict__ q,
         const uint32_t* __restrict__ k_codes, const ST* __restrict__ k_scale,
@@ -132,6 +170,8 @@ __device__ __forceinline__ void attend(
     float* vm_s = vs_s + Dg * NT;             // (Dg, NT)
     float* red = vm_s + Dg * NT;              // (R, NW)
     uint32_t* vc_s = (uint32_t*)(red + R * NW);   // (VDw, NT)
+    float* qs_s = (float*)(vc_s + VDw * NT);  // (cg, R, D) ablations only
+    float* zp_s = qs_s + cg * R * D;          // (cg, R) ablations only
 
     const int tid = threadIdx.x;
     const int T_end = nkq + nkw;
@@ -175,6 +215,29 @@ __device__ __forceinline__ void attend(
             }
         }
         __syncthreads();
+        if (A::zp && c0 < nkq) {
+            const int ng = min(cg, (nkq - c0 + gs - 1) / gs);
+            if (A::scales == FOLD) {
+                for (int i = tid; i < ng * R * D; i += NT) {
+                    const int g = i / (R * D), rd = i % (R * D);
+                    qs_s[i] = q_s[rd] * ks_s[g * D + rd % D];
+                }
+            }
+            // one warp per (group, row): lanes over D, then a shuffle sum
+            // (a loop over D in one thread per (group, row) ran the 32K
+            // probe's zero-point variants 0.17 ms slower on an H100)
+            const int lane = tid & 31, warp = tid >> 5;
+            for (int i = warp; i < ng * R; i += NW) {
+                const int g = i / R, rr = i % R;
+                float z = 0.f;
+                for (int d = lane; d < D; d += 32)
+                    z += q_s[rr * D + d] * km_s[g * D + d];
+                for (int o = 16; o > 0; o >>= 1)
+                    z += __shfl_xor_sync(0xffffffffu, z, o);
+                if (lane == 0) zp_s[i] = z;
+            }
+        }
+        if (A::zp) __syncthreads();
 
         // ---- logits: thread tid owns position c0 + tid ----
         const int pos = c0 + tid;
@@ -184,18 +247,35 @@ __device__ __forceinline__ void attend(
         for (int rr = 0; rr < R; ++rr) s[rr] = 0.f;
         if (valid && pos < nkq) {
             const int g = pos / gs - c0 / gs;
-            const float* ks = ks_s + g * D;
+            const float* ks = ks_s + (A::scales == NONE ? 0 : g) * D;
             const float* km = km_s + g * D;
+            const float* qs = qs_s + g * R * D;
+            float sum_cs = 0.f;
             for (int w = 0; w < KDw; ++w) {
                 const uint32_t word = k_codes[(long long)w * Tmax + pos];
                 for (int k = 0; k < 32 / k_bits; ++k) {
                     const int d = slot_channel(w, k, KDw, k_bits);
-                    const float kv =
-                        code_at(word, slot_shift(k, k_bits), k_bits) * ks[d]
-                        + km[d];
+                    const float c =
+                        A::unpack ? code_at(word, slot_shift(k, k_bits), k_bits)
+                                  : (float)(word & ((1u << k_bits) - 1u));
+                    if (!A::qk) {
+                        sum_cs += c * ks[d];
+                    } else if (A::scales == FOLD) {
 #pragma unroll
-                    for (int rr = 0; rr < R; ++rr) s[rr] += q_s[rr * D + d] * kv;
+                        for (int rr = 0; rr < R; ++rr)
+                            s[rr] += qs[rr * D + d] * c;
+                    } else {
+                        const float kv = c * ks[d] + km[d];
+#pragma unroll
+                        for (int rr = 0; rr < R; ++rr)
+                            s[rr] += q_s[rr * D + d] * kv;
+                    }
                 }
+            }
+            if (A::zp) {
+#pragma unroll
+                for (int rr = 0; rr < R; ++rr)
+                    s[rr] += zp_s[g * R + rr] + (A::qk ? 0.f : sum_cs);
             }
         } else if (valid) {
             const __nv_bfloat16* row = k_win + (long long)(pos - nkq) * D;
@@ -230,7 +310,10 @@ __device__ __forceinline__ void attend(
         }
 
         // ---- PV: thread tid owns channel tid ----
-        if (tid < D) {
+        if (tid < D && !A::vpath) {
+#pragma unroll
+            for (int rr = 0; rr < R; ++rr) acc[rr] += p_s[rr * NT];
+        } else if (tid < D) {
             const int n = min(NT, T_end - c0);
             for (int i = 0; i < n; ++i) {
                 const int p_pos = c0 + i;

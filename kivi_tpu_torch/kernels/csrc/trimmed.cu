@@ -1,15 +1,15 @@
-// Ablation probe of the KIVI decode body: the chunk phase of
-// fused_decode.cu at full fill (no fp windows, no lower bound), with
-// switches that take out one part of the work at a time.
+// Ablation probe of the KIVI decode body: kdec::attend of common.cuh, the
+// body of fused_decode.cu and fused_decode_rows.cu, run at full fill (no
+// fp windows, no lower bound) under one of its ablations (kdec::Ablation,
+// documented there), each of which takes out one part of the work.
 //
 // Replaces the TPU kernel `trimmed` of scripts/profile_wide_32k.py (body
 // `_kernel`), the chunk phase of kivi_tpu/kernels/fused_decode_wide.py
-// under ablations.  It is a copy of this port's row-4 body, not of the
-// Pallas grid: kdec::attend of common.cuh (one block of NT = 128 threads
-// per (batch row, KV head), chunks of NT positions, thread per position
-// for QK, thread per channel for PV, one online softmax), with its shared
-// memory carved by kdec::smem_bytes.  Contract:
-// kivi_tpu_torch/kernels/trimmed.py `trimmed_plain`.
+// under ablations.  It runs this port's row-4 body itself, not a copy of
+// the Pallas grid: one block of NT = 128 threads per (batch row, KV head),
+// chunks of NT positions, thread per position for QK, thread per channel
+// for PV, one online softmax.  Variant 0 is the body the decode kernels
+// run.  Contract: kivi_tpu_torch/kernels/trimmed.py `trimmed_plain`.
 //
 // Bound on the H100: bytes.  Every variant loads the live packed K and V
 // codes and their bf16 scale/min rows once; at the profiler's geometry
@@ -17,237 +17,46 @@
 // at 3.35 TB/s.  With 4 * 32 = 128 blocks on 132 SMs, one block walks 255
 // chunks in series, so the time is that walk's latency, not the card's
 // bandwidth: the probe splits the walk into its parts.
-//
-// The variants (VAR, a template argument, so an ablated branch is not
-// compiled in):
-//   0 full           K scales per element: q . (c * s + mn)
-//   1 fold           each group's K scale folded into the query rows once
-//                    per chunk: sum_d (q_d s_d) c + sum_d q_d mn_d
-//   2 none           the chunk's first K scale row for every position
-//   3 no V path      the PV product replaced by the probability of the
-//                    chunk's first position
-//   4 fold, no V path
-//   5 no QK          logit = q . mn + sum_d c_d s_d (the unpack and scale
-//                    stay live, the products with q go)
-//   6 no unpack      every slot of a word reads its low `bits` bits
-//   7 dma only       2, 3, 5 and 6 at once: the loads, and the output of 3
-// Every variant stages the chunk's V codes and scales in shared memory, as
-// the full body does; only the PV arithmetic is switched.
 
 #include "common.cuh"
 
 namespace {
 
 using kdec::NT;
-using kdec::NW;
 
-enum Scales { ELEMENT = 0, FOLD = 1, NONE = 2 };
-
-template <int VAR>
-struct Variant {
-    static constexpr int scales = (VAR == 1 || VAR == 4) ? FOLD
-                                  : (VAR == 2 || VAR == 7) ? NONE
-                                                           : ELEMENT;
-    static constexpr bool qk = !(VAR == 5 || VAR == 7);
-    static constexpr bool vpath = !(VAR == 3 || VAR == 4 || VAR == 7);
-    static constexpr bool unpack = !(VAR == 6 || VAR == 7);
-    // the zero-point term q . mn per (group, row) is staged once per
-    // chunk where the logits need it apart from the K values
-    static constexpr bool zp = scales == FOLD || !qk;
-};
-
-// kdec::attend's shared memory, then (cg, R, D) folded query rows and
-// (cg, R) zero-point terms.
-size_t smem_bytes(int R, int D, int gs, int v_bits) {
-    const int cg = NT / gs;
-    return kdec::smem_bytes(R, D, gs, v_bits)
-           + sizeof(float) * (size_t)(cg * R * D + cg * R);
-}
-
+// fused_decode.cu's kernel with the ablation added: the same parameters,
+// all of them run-time values, so that variant 0 compiles to the wide
+// decode kernel's code.  Told at compile time that the window is empty and
+// nvq == nkq, nvcc built a body that ran 0.46 ms slower than the wide
+// kernel at 32K on an H100, where this one runs 0.03 ms faster (one
+// window chunk fewer).  The launch passes an empty window, no lower
+// bound, nvq = nkq.
 template <int R, int VAR>
 __global__ void __launch_bounds__(NT)
-trimmed_kernel(const __nv_bfloat16* __restrict__ q_all,
-               const uint32_t* __restrict__ k_codes_all,
-               const __nv_bfloat16* __restrict__ k_scale_all,
-               const __nv_bfloat16* __restrict__ k_mn_all,
-               const uint32_t* __restrict__ v_codes_all,
-               const __nv_bfloat16* __restrict__ v_scale_all,
-               const __nv_bfloat16* __restrict__ v_mn_all,
-               float* __restrict__ out_all, int D, int Tmax, int gs,
-               int k_bits, int v_bits, int nq, float sm_scale) {
-    using V = Variant<VAR>;
+trimmed_kernel(const __nv_bfloat16* __restrict__ q,
+               const uint32_t* __restrict__ k_codes,
+               const __nv_bfloat16* __restrict__ k_scale,
+               const __nv_bfloat16* __restrict__ k_mn,
+               const uint32_t* __restrict__ v_codes,
+               const __nv_bfloat16* __restrict__ v_scale,
+               const __nv_bfloat16* __restrict__ v_mn,
+               const __nv_bfloat16* __restrict__ k_win,
+               const __nv_bfloat16* __restrict__ v_win,
+               const int* __restrict__ lo_ptr, float* __restrict__ out,
+               int H, int D, int Tmax, int W, int gs, int k_bits, int v_bits,
+               int nkq, int nkw, int nvq, float sm_scale) {
     extern __shared__ float sm[];
     const long long bh = blockIdx.x;
+    const int b = (int)(bh / H);
     const int KDw = D / (32 / k_bits), VDw = D / (32 / v_bits);
-    const int Dg = D / gs, cg = NT / gs;
-    const __nv_bfloat16* q = q_all + bh * R * D;
-    const uint32_t* k_codes = k_codes_all + bh * KDw * Tmax;
-    const __nv_bfloat16* k_scale = k_scale_all + bh * (Tmax / gs) * D;
-    const __nv_bfloat16* k_mn = k_mn_all + bh * (Tmax / gs) * D;
-    const uint32_t* v_codes = v_codes_all + bh * VDw * Tmax;
-    const __nv_bfloat16* v_scale = v_scale_all + bh * Dg * Tmax;
-    const __nv_bfloat16* v_mn = v_mn_all + bh * Dg * Tmax;
-    float* out = out_all + bh * R * D;
-
-    // kdec::attend's layout
-    float* q_s = sm;                          // (R, D)
-    float* p_s = q_s + R * D;                 // (R, NT)
-    float* ks_s = p_s + R * NT;               // (cg, D)
-    float* km_s = ks_s + cg * D;              // (cg, D)
-    float* vs_s = km_s + cg * D;              // (Dg, NT)
-    float* vm_s = vs_s + Dg * NT;             // (Dg, NT)
-    float* red = vm_s + Dg * NT;              // (R, NW)
-    uint32_t* vc_s = (uint32_t*)(red + R * NW);   // (VDw, NT)
-    float* qs_s = (float*)(vc_s + VDw * NT);  // (cg, R, D) folded rows
-    float* zp_s = qs_s + cg * R * D;          // (cg, R) q . mn
-
-    const int tid = threadIdx.x;
-    const uint32_t low = (1u << k_bits) - 1u;
-    for (int i = tid; i < R * D; i += NT) q_s[i] = to_f(q[i]);
-
-    float m[R], l[R], acc[R];
-#pragma unroll
-    for (int rr = 0; rr < R; ++rr) {
-        m[rr] = KIVI_NEG_INF;
-        l[rr] = 0.f;
-        acc[rr] = 0.f;
-    }
-    const int kw_d = tid < D ? tid : 0;       // this thread's PV channel
-    int v_w, v_shift;
-    channel_slot(kw_d, VDw, v_bits, &v_w, &v_shift);
-    const int v_g = kw_d / gs;
-
-    for (int c0 = 0; c0 < nq; c0 += NT) {
-        __syncthreads();   // previous chunk's readers are done
-        const int g0 = c0 / gs;
-        const int ng = min(cg, (nq - c0 + gs - 1) / gs);
-        for (int i = tid; i < ng * D; i += NT) {
-            const long long o = (long long)g0 * D + i;
-            ks_s[i] = to_f(k_scale[o]);
-            km_s[i] = to_f(k_mn[o]);
-        }
-        {
-            const int pos = c0 + tid;
-            const bool in = pos < nq;
-            for (int w = 0; w < VDw; ++w)
-                vc_s[w * NT + tid] =
-                    in ? v_codes[(long long)w * Tmax + pos] : 0u;
-            for (int g = 0; g < Dg; ++g) {
-                const long long o = (long long)g * Tmax + pos;
-                vs_s[g * NT + tid] = in ? to_f(v_scale[o]) : 0.f;
-                vm_s[g * NT + tid] = in ? to_f(v_mn[o]) : 0.f;
-            }
-        }
-        __syncthreads();
-        if (V::scales == FOLD) {
-            for (int i = tid; i < ng * R * D; i += NT) {
-                const int g = i / (R * D), rd = i % (R * D);
-                qs_s[i] = q_s[rd] * ks_s[g * D + rd % D];
-            }
-        }
-        if (V::zp) {   // one warp per (group, row): lanes over D, then a
-                       // shuffle sum (a loop over D in one thread per
-                       // (group, row) ran the 32K probe's zero-point
-                       // variants 0.17 ms slower on an H100)
-            const int lane = tid & 31, warp = tid >> 5;
-            for (int i = warp; i < ng * R; i += NW) {
-                const int g = i / R, rr = i % R;
-                float z = 0.f;
-                for (int d = lane; d < D; d += 32)
-                    z += q_s[rr * D + d] * km_s[g * D + d];
-                for (int o = 16; o > 0; o >>= 1)
-                    z += __shfl_xor_sync(0xffffffffu, z, o);
-                if (lane == 0) zp_s[i] = z;
-            }
-        }
-        if (V::zp) __syncthreads();
-
-        // ---- logits: thread tid owns position c0 + tid ----
-        const int pos = c0 + tid;
-        const bool valid = pos < nq;
-        float s[R];
-#pragma unroll
-        for (int rr = 0; rr < R; ++rr) s[rr] = 0.f;
-        if (valid) {
-            const int g = pos / gs - g0;
-            const float* ks = ks_s + (V::scales == NONE ? 0 : g) * D;
-            const float* km = km_s + g * D;
-            const float* qs = qs_s + g * R * D;
-            float sum_cs = 0.f;
-            for (int w = 0; w < KDw; ++w) {
-                const uint32_t word = k_codes[(long long)w * Tmax + pos];
-                for (int k = 0; k < 32 / k_bits; ++k) {
-                    const int d = slot_channel(w, k, KDw, k_bits);
-                    const float c =
-                        V::unpack ? code_at(word, slot_shift(k, k_bits), k_bits)
-                                  : (float)(word & low);
-                    if (!V::qk) {
-                        sum_cs += c * ks[d];
-                    } else if (V::scales == FOLD) {
-#pragma unroll
-                        for (int rr = 0; rr < R; ++rr)
-                            s[rr] += qs[rr * D + d] * c;
-                    } else {
-                        const float kv = c * ks[d] + km[d];
-#pragma unroll
-                        for (int rr = 0; rr < R; ++rr)
-                            s[rr] += q_s[rr * D + d] * kv;
-                    }
-                }
-            }
-            if (V::zp) {
-#pragma unroll
-                for (int rr = 0; rr < R; ++rr)
-                    s[rr] += zp_s[g * R + rr] + (V::qk ? 0.f : sum_cs);
-            }
-        }
-        float cmax[R];
-#pragma unroll
-        for (int rr = 0; rr < R; ++rr) {
-            s[rr] *= sm_scale;
-            cmax[rr] = valid ? s[rr] : KIVI_NEG_INF;
-        }
-        block_reduce<R, NT>(cmax, red, true);
-        float alpha[R], psum[R];
-#pragma unroll
-        for (int rr = 0; rr < R; ++rr) {
-            const float m_new = fmaxf(m[rr], cmax[rr]);
-            alpha[rr] = expf(m[rr] - m_new);
-            const float p = valid ? expf(s[rr] - m_new) : 0.f;
-            p_s[rr * NT + tid] = p;
-            psum[rr] = p;
-            m[rr] = m_new;
-        }
-        block_reduce<R, NT>(psum, red, false);  // also orders p_s writes
-#pragma unroll
-        for (int rr = 0; rr < R; ++rr) {
-            l[rr] = l[rr] * alpha[rr] + psum[rr];
-            acc[rr] *= alpha[rr];
-        }
-
-        // ---- PV: thread tid owns channel tid ----
-        if (tid < D) {
-            if (V::vpath) {
-                const int n = min(NT, nq - c0);
-                for (int i = 0; i < n; ++i) {
-                    const float v =
-                        code_at(vc_s[v_w * NT + i], v_shift, v_bits)
-                            * vs_s[v_g * NT + i] + vm_s[v_g * NT + i];
-#pragma unroll
-                    for (int rr = 0; rr < R; ++rr)
-                        acc[rr] += p_s[rr * NT + i] * v;
-                }
-            } else {
-#pragma unroll
-                for (int rr = 0; rr < R; ++rr) acc[rr] += p_s[rr * NT];
-            }
-        }
-    }
-    if (tid < D) {
-#pragma unroll
-        for (int rr = 0; rr < R; ++rr)
-            out[rr * D + tid] = acc[rr] / (l[rr] > 0.f ? l[rr] : 1.f);
-    }
+    const int Dg = D / gs;
+    kdec::attend<R, __nv_bfloat16, kdec::Ablation<VAR>>(
+        sm, q + bh * R * D, k_codes + bh * KDw * Tmax,
+        k_scale + bh * (Tmax / gs) * D, k_mn + bh * (Tmax / gs) * D,
+        v_codes + bh * VDw * Tmax, v_scale + bh * Dg * Tmax,
+        v_mn + bh * Dg * Tmax, k_win + bh * W * D, v_win + bh * W * D,
+        out + bh * R * D, D, Tmax, gs, k_bits, v_bits, nkq, nkw, nvq,
+        lo_ptr ? lo_ptr[b] : 0, sm_scale);
 }
 
 template <int R, int VAR>
@@ -256,7 +65,8 @@ int launch(const void* q, const void* k_codes, const void* k_scale,
            const void* v_mn, void* out, int B, int H, int D, int Tmax,
            int gs, int k_bits, int v_bits, int nq, float sm_scale,
            cudaStream_t stream) {
-    const size_t smem = smem_bytes(R, D, gs, v_bits);
+    const size_t smem =
+        kdec::smem_bytes(R, D, gs, v_bits, kdec::Ablation<VAR>::zp);
     auto kern = trimmed_kernel<R, VAR>;
     if (smem > 48 * 1024) {
         cudaError_t e = cudaFuncSetAttribute(
@@ -267,8 +77,8 @@ int launch(const void* q, const void* k_codes, const void* k_scale,
         (const __nv_bfloat16*)q, (const uint32_t*)k_codes,
         (const __nv_bfloat16*)k_scale, (const __nv_bfloat16*)k_mn,
         (const uint32_t*)v_codes, (const __nv_bfloat16*)v_scale,
-        (const __nv_bfloat16*)v_mn, (float*)out, D, Tmax, gs, k_bits,
-        v_bits, nq, sm_scale);
+        (const __nv_bfloat16*)v_mn, nullptr, nullptr, nullptr, (float*)out,
+        H, D, Tmax, 0, gs, k_bits, v_bits, nq, 0, nq, sm_scale);
     return (int)cudaGetLastError();
 }
 

@@ -3,11 +3,13 @@
 `kivi_tpu/kernels/fused_decode_wide.py` under ablations) and its plain
 version.
 
-The kernel is a trimmed copy of this port's decode body (`kdec::attend`,
-shared by `csrc/fused_decode.cu` and `csrc/fused_decode_rows.cu`): the
-walk over the quantized history at full fill, no fp windows, no lower
-bound.  Switches take out one part of the work at a time, so the time of
-the full body splits into loads, unpack, scale application, QK and PV
+The kernel runs this port's decode body itself (`kdec::attend` of
+`csrc/common.cuh`, the body of `csrc/fused_decode.cu` and
+`csrc/fused_decode_rows.cu`): the walk over the quantized history at
+full fill, no fp windows, no lower bound.  The body's ablation switches
+(`kdec::Ablation`; variant 0 is the body the decode kernels run) take
+out one part of the work at a time, so the time of the full body splits
+into loads, unpack, scale application, QK and PV
 (`kivi_tpu_torch.profile_wide_32k`).  Each variant computes a function
 that `trimmed_plain` states exactly; only the full and `fold` variants
 are attention, the others are timing probes.
@@ -32,7 +34,8 @@ from kivi_tpu_torch.core import quant as Q
 from kivi_tpu_torch.kernels import _build
 from kivi_tpu_torch.kernels.fused_decode_wide import _CHUNK, _ROWS, NEG_INF
 
-# (scales, do_qk, do_vpath, do_unpack) -> the kernel's variant (csrc VAR).
+# (scales, do_qk, do_vpath, do_unpack) -> the kernel's variant (VAR of
+# kdec::Ablation in csrc/common.cuh).
 #   scales "element": q . (c * s + mn), the scale of each position's group;
 #          "fold":    sum_d (q_d * s_d) * c + sum_d q_d * mn_d, the scale
 #                     folded into the query rows once per group (the same

@@ -2,7 +2,7 @@
 no CPU mode): each skips without a CUDA device.  This file imports torch
 and the port only, so that it runs where JAX is not installed:
 
-    python -m pytest --noconftest tests/test_torch_kernels_cuda.py -m cuda
+    python -m pytest --noconftest tests/test_torch_kernels_cuda.py
 
 (`--noconftest`: the suite's conftest.py configures JAX.)
 
@@ -15,7 +15,6 @@ import pytest
 import torch
 
 from kivi_tpu_torch import profile_wide_32k as PW
-from kivi_tpu_torch.kernels import trimmed as TR
 
 
 @pytest.fixture
@@ -25,30 +24,21 @@ def cuda():
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
-@pytest.mark.cuda
 @pytest.mark.parametrize("fill", [2500, 4096])
 @pytest.mark.parametrize("bits,r", [(2, 1), (2, 4), (4, 1), (4, 4)])
 def test_trimmed_matches_plain(cuda, bits, r, fill):
     """Every variant of the decode ablation probe against its plain
-    version, and bit-equal across two runs."""
-    qg, c = PW.make_cache(2, 4096, fill, heads=8, r=r, bits=bits,
-                          seed=bits + r)
-    args = (qg, c.k_codes, c.k_scale, c.k_mn, c.v_codes, c.v_scale,
-            c.v_mn, fill)
-    for key in TR.VARIANTS:
-        kw = dict(zip(("scales", "do_qk", "do_vpath", "do_unpack"), key),
-                  group_size=32, k_bits=bits, v_bits=bits)
-        got = TR.trimmed(*args, **kw)
-        want = TR.trimmed_plain(*args, **kw)
-        assert torch.equal(got, TR.trimmed(*args, **kw)), key
-        err = (got - want).abs().max().item()
-        assert err <= 1e-5 * want.abs().max().item() + 1e-5, (key, err)
+    version and bit-equal across two runs, the attention variants also
+    against the plain decode, the wide kernel and the decode route
+    against theirs (`profile_wide_32k.check`), on the profiler's cache
+    and on a peaked one."""
+    for data in PW.DATA:
+        PW.check(*PW.make_cache(2, 4096, fill, heads=8, r=r, bits=bits,
+                                seed=bits + r, data=data))
 
 
-@pytest.mark.cuda
 def test_profile_wide_32k_check(cuda):
     """`python3 -m kivi_tpu_torch.profile_wide_32k --check` at a 4K
-    history: the attention variants against trimmed_plain and the plain
-    decode at an empty window."""
+    history."""
     assert PW.main(["--check", "--B", "2", "--T", "4096",
                     "--fill", "4000"]) == []

@@ -258,9 +258,42 @@ def test_profiler_runs_on_the_host(monkeypatch, capsys):
     assert all(r["ms"] > 0 and r["bound_ms"] > 0 for r in rows)
     assert rows[-1]["item"] == ("trimmed scales=none, no QK, no V path, "
                                 "no unpack")
-    PW.check(*PW.make_cache(1, 512, 480, device="cpu"))
+    for data in PW.DATA:
+        assert PW.check(*PW.make_cache(1, 512, 480, device="cpu",
+                                       data=data)) >= 0.0
     out = capsys.readouterr().out
-    assert out.count("[time]") == len(rows) and out.count("[check]") == 4
+    assert out.count("[time]") == len(rows)
+    assert out.count("[check]") == len(PW.DATA) * (len(TR.VARIANTS) + 4)
+    assert "decode route (split)" in out
     if not torch.cuda.is_available():
         with pytest.raises(SystemExit, match="CUDA is not available"):
             PW.main(["--quick"])
+
+
+@pytest.mark.parametrize("bits", [2, 4])
+def test_normal_cache_peaks_the_softmax(bits):
+    """The profiler's `make_cache(data="normal")`, the second cache its
+    check (and chip_smoke.py) holds the kernels to: keys and values
+    quantized by the port from N(0, 1), q scaled to a logit spread of
+    Q_STD.  Its softmax is peaked, so attention that lost its QK term
+    (the mean of V over the history) misses the card's tolerance by
+    orders of magnitude, where on the uniform cache it misses by far
+    less."""
+    from kivi_tpu_torch import profile_wide_32k as PW
+    from kivi_tpu_torch.core import quant as TQ
+    fill, miss = 1000, {}
+    for data in PW.DATA:
+        qg, c = PW.make_cache(1, 1024, fill, heads=2, bits=bits, seed=3,
+                              device="cpu", data=data)
+        assert c.k_scale.dtype == c.v_mn.dtype == qg.dtype == torch.bfloat16
+        stores = (c.k_codes, c.k_scale, c.k_mn, c.v_codes, c.v_scale,
+                  c.v_mn)
+        # the card's wrappers take contiguous stores only
+        assert all(t.is_contiguous() for t in stores + (c.k_win, qg))
+        out = TR.trimmed_plain(qg, *stores, fill, group_size=GS,
+                               k_bits=bits, v_bits=bits)
+        flat = TQ.dequantize_v(c.v_codes, c.v_scale, c.v_mn, GS,
+                               bits)[:, :, :fill].mean(dim=2, keepdim=True)
+        tol = 1e-5 * out.abs().max().item() + 1e-5
+        miss[data] = (out - flat).abs().max().item() / tol
+    assert miss["normal"] > 1e4 and miss["normal"] > 10 * miss["uniform"]
