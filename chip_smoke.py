@@ -8,7 +8,10 @@ Phases (any failure raises; the exit code is then non-zero):
   2. build: compile every CUDA kernel from kivi_tpu_torch/kernels/csrc;
   3. kernels vs their plain PyTorch versions on the card, at the main
      path's shapes and edge cases, timed with CUDA events beside their
-     bound and a one-call PyTorch yardstick; the split routes (split
+     bound and a one-call PyTorch yardstick (the two tensor-core
+     kernels per query row at utils.tolerance's limits, beside a control
+     that drops one chunk of keys and must be refused, and their wgmma
+     tile alone against torch.matmul); the split routes (split
      decode, qhist extend) against the fused kernels on the same inputs
      at the long slice's geometry, timed at fills of 1K, 4K and 12K (the
      crossover behind core.attention.SPLIT_MIN_HISTORY); the probe
@@ -69,6 +72,7 @@ import time
 import torch
 
 try:
+    from kivi_tpu_torch.utils import tolerance as TOL
     from kivi_tpu_torch.utils.device import card
     from kivi_tpu_torch.utils.timing import bound, cuda_ms
 except ModuleNotFoundError as e:
@@ -77,10 +81,15 @@ except ModuleNotFoundError as e:
                      "of the repository") from None
 
 # Attention tolerance on the card: max|kernel - plain| <= ATT_RTOL *
-# max|plain| + ATT_ATOL.  Tighter than bf16 rounding on purpose: the
-# kernels and the plain versions both dequantize and compute in f32
-# from the same bf16 inputs (TF32 off), so they differ only in
-# summation order and fused multiply-adds, about 1e-7 relative.
+# max|plain| + ATT_ATOL.  Tighter than bf16 rounding on purpose: every
+# kernel but flash_attention and flash_extend_qhist and its plain version
+# both dequantize and compute in f32 from the same bf16 inputs (TF32
+# off), so they differ only in summation order and fused multiply-adds,
+# about 1e-7 relative.  Those two run their products on the tensor cores
+# with bf16 operands, as the Pallas kernels do, and are held per query
+# row to utils.tolerance's FLASH_RTOL and QHIST_RTOL (the reasons are
+# there); so is the qhist extend route against the f32
+# flash_extend_attention.
 ATT_RTOL, ATT_ATOL = 1e-5, 1e-5
 B, H, D, TMAX, T1 = 8, 32, 128, 4096, 128
 # per-slot fills of the per-row decode checks: divergent, 0 = empty slot
@@ -123,7 +132,8 @@ def phase_build():
         f"{_build.BUILD_SECONDS:.1f} s into {_build.BUILD_DIR}")
     for name, text in _build.BUILD_LOG.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("registers", "spill", "wgmma",
+                                       "arning")):
                 log(f"[build] {name}: {line.strip()}")
 
 
@@ -567,24 +577,32 @@ def check_qk_pv(gen, results):
             f"{n} of {LTMAX}, KIVI-2: {nbytes / 1e6:.2f} MB")
 
 
+def _rows_err(got, want, what: str, rtol: float) -> float:
+    """A tensor-core kernel's output against the plain one, each query
+    row within rtol of its own largest value (utils.tolerance)."""
+    err, share = TOL.check_rows(got, want, rtol, what)
+    log(f"[kernel] {what}: max|kernel - plain| = {err:.3e}, worst row at "
+        f"{share:.3f} of its limit (rtol {rtol:.4g} of the row's max)")
+    return err
+
+
 def _state_err(got, want, what: str) -> float:
     """A flash state (acc, m, l) against the plain one: rows with no
-    admitted position are (0, NEG_INF, 0) in both; the rest within the
-    attention tolerance."""
-    acc, m, l = got
-    acc_w, m_w, l_w = want
-    empty = m_w == NEG_INF
-    if not (torch.equal(m == NEG_INF, empty) and (l[empty] == 0).all()
-            and (acc[empty] == 0).all()):
-        raise AssertionError(f"{what}: empty rows are not (0, -1e30, 0)")
-    err = 0.0
-    if not empty.all():
-        err = max(_att_err(acc, acc_w, f"{what} acc"),
-                  _att_err(m[~empty], m_w[~empty], f"{what} m"),
-                  _att_err(l, l_w, f"{what} l"))
-    log(f"[kernel] {what}: {int(empty.sum())} rows see no history, "
-        "exactly (0, -1e30, 0)")
+    admitted position are (0, NEG_INF, 0) in both; the rest per row
+    within QHIST_RTOL (utils.tolerance.check_state)."""
+    err, share, empty = TOL.check_state(got, want, TOL.QHIST_RTOL, what)
+    log(f"[kernel] {what}: max|acc - plain| = {err:.3e}, worst row at "
+        f"{share:.3f} of its limit; {empty} rows see no history, exactly "
+        "(0, -1e30, 0)")
     return err
+
+
+def _refused(share: float, what: str) -> None:
+    """A control that must fail the check: its worst share > 1."""
+    if share <= 1:
+        raise AssertionError(f"{what}: the check passed a control ({share:.3f}"
+                             " of the limit)")
+    log(f"[kernel] {what}: refused, worst row at {share:.1f} of its limit")
 
 
 def check_qhist(gen, results):
@@ -625,6 +643,13 @@ def check_qhist(gen, results):
                        f"nvq={c.n_v_quant})"))
         if fill == LFILL:
             timed = (c, qcfg, args, kw, qg)
+            # control: the kernel's own state without the history's first
+            # 64-position chunk (the kernel at a left pad of 64)
+            ctrl = FE.flash_extend_qhist(*args, **dict(kw, pad_len=torch.full(
+                (1,), 64, device="cuda", dtype=torch.int32)))
+            _refused(max(TOL.state_shares(ctrl, want, TOL.QHIST_RTOL)
+                         .values()), f"{name} history={fill}: control that "
+                     "skips the first 64-position chunk")
     c, qcfg, args, kw, qg = timed
     nkq, nvq = c.n_k_quant, c.n_v_quant
     k, v = _deq_kv(c, qcfg, nkq)
@@ -653,8 +678,9 @@ def check_split_routes(gen, crossover: list):
     Decode: the split route (qk_dequant_matmul, torch softmax,
     pv_dequant_matmul) vs fused_decode_attention_wide; extend (T1 = 128):
     the qhist route (flash_extend_qhist + torch merge) vs
-    flash_extend_attention.  Both pairs compute one function in f32, so
-    the tolerance is the kernels' (ATT_RTOL, ATT_ATOL)."""
+    flash_extend_attention.  The decode pair computes one function in
+    f32 (ATT_RTOL); the qhist kernel rounds its operands to bf16, so the
+    extend pair is held per query row to QHIST_RTOL."""
     from kivi_tpu_torch.config import QuantConfig
     from kivi_tpu_torch.core import attention as TA
     from kivi_tpu_torch.kernels import flash_extend as FE
@@ -700,8 +726,9 @@ def check_split_routes(gen, crossover: list):
         torch.cuda.synchronize()
         _att_err(full, eplain, f"flash_extend_attention {geo} T1={T1} "
                                f"history={fill} vs its plain version")
-        _att_err(routed, full, f"qhist extend route vs flash_extend_"
-                               f"attention, {geo} T1={T1} history={fill}")
+        _rows_err(routed, full, f"qhist extend route vs flash_extend_"
+                                f"attention, {geo} T1={T1} history={fill}",
+                  TOL.QHIST_RTOL)
         ext = (cuda_ms(lambda: FE.flash_extend_attention(*eargs, **ekw)),
                cuda_ms(qhist_route))
         crossover.append(dict(fill=fill, decode_fused_ms=dec[0],
@@ -793,17 +820,7 @@ def check_flash(gen, results):
         if got.dtype != torch.bfloat16:
             raise AssertionError(f"{name}: output {got.dtype}, not bf16")
         what = f"{name} T={t} Hkv={heads} window={sw} pad={pad}"
-        # the kernel rounds its f32 result to bf16 once: one bf16 ulp
-        # (2^-8 relative) of the largest output, plus summation order
-        err = (got.float() - want).abs().max().item()
-        scale = want.abs().max().item()
-        if not (torch.isfinite(got).all() and err <= 2.0 ** -8 * scale
-                + 1e-5):
-            raise AssertionError(f"{what}: max|kernel - plain| = "
-                                 f"{err:.3e} > 2^-8 * {scale:.3e} + 1e-5")
-        log(f"[kernel] {what}: max|kernel - plain| = {err:.3e} "
-            f"(max|plain| {scale:.3e})")
-        worst = max(worst, err)
+        worst = max(worst, _rows_err(got, want, what, TOL.FLASH_RTOL))
         if pad_len is not None:
             # padded query rows (t < pad) come out exactly 0
             rows = torch.arange(t, device="cuda")[None, :] < pad_len[:, None]
@@ -817,8 +834,16 @@ def check_flash(gen, results):
             if err_v > 2.0 ** -8 * v.abs().max():
                 raise AssertionError(f"{what}: last row != its own V")
         if (t, heads, sw, pad) == (T, H, None, None):
-            timed = (q, k, v)
-    q, k, v = timed
+            timed = (q, k, v, got, want)
+    q, k, v, got, want = timed
+    # control: the last 128 rows without their first 128-key chunk (taken
+    # from the kernel itself at a left pad of 128)
+    ctrl = got.clone()
+    ctrl[:, :, -128:] = FL.flash_attention(q, k, v, pad_len=torch.full(
+        (B,), 128, device="cuda", dtype=torch.int32))[:, :, -128:]
+    _refused(TOL.row_share(ctrl, want, TOL.FLASH_RTOL).max().item(),
+             f"{name} T={T}: control that skips the first chunk in the "
+             "last 128 rows")
     nbytes = 4 * q.numel() * 2                       # q, k, v, out bf16
     bms, by = bound(nbytes, 4 * B * H * D * T * (T + 1) // 2)
     results[name] = dict(
@@ -828,6 +853,21 @@ def check_flash(gen, results):
         library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=True)))
     log(f"[kernel] {name} timed at B={B}, H={H}, T={T}, D={D}, causal")
+
+
+def check_wgmma_tile(gen):
+    """The tensor-core tile of csrc/attn_wgmma.cuh alone, every shape the
+    two kernels use, against torch.matmul (TF32 off): exact bf16 products
+    summed in f32 in another order, so ATT_RTOL."""
+    from kivi_tpu_torch.kernels import flash as FL
+    for mode, n in (("qk", 16), ("qk", 64), ("qk", 128), ("pv", 64),
+                    ("pv", 128)):
+        a = _randn(gen, (64, D if mode == "qk" else n))
+        b = _randn(gen, (n, D))
+        got = FL.wgmma_tile(a, b, mode)
+        torch.cuda.synchronize()
+        _att_err(got, FL.wgmma_tile_plain(a, b, mode),
+                 f"wgmma tile {mode} n={n}")
 
 
 def check_fp_decode(gen, results):
@@ -925,6 +965,7 @@ def phase_kernels():
     check_decode(gen, results)
     check_fused_decode_rows(gen, results)
     check_extend(gen, results)
+    check_wgmma_tile(gen)
     check_flash(gen, results)
     check_fp_decode(gen, results)
     check_qk_pv(gen, results)

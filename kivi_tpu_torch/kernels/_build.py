@@ -85,6 +85,8 @@ SIGNATURES = {
         # q, k, v, pad, out, B, Hq, Hkv, T, D, sliding_window, sm_scale,
         # stream
         "kivi_flash_prefill": [_P] * 5 + [_I] * 6 + [_F, _P],
+        # a, b, out, n, mode, stream
+        "kivi_wgmma_tile": [_P] * 3 + [_I] * 2 + [_P],
     },
     "fp_decode": {
         # q, k, v, pad, lens, out, B, H, r, D, Tmax, length,
@@ -187,6 +189,14 @@ def check_tensors(name: str, device, spec: dict) -> None:
                 f"{name}: {key} must be a contiguous {dt} tensor of shape "
                 f"{tuple(shape)} on {device}, got {t.dtype} "
                 f"{tuple(t.shape)} on {t.device}")
+
+
+def check_aligned(name: str, *tensors) -> None:
+    """Raise unless every tensor starts on a 16-byte boundary (the
+    kernels that stage with 16-byte cp.async copies)."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: tensors must be 16-byte aligned")
 
 
 def stream_handle(device) -> int:

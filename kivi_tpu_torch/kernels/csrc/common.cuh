@@ -2,8 +2,9 @@
 // kivi_tpu_torch/core/quant.py, scalar loads of the storage types, a
 // block-wide reduction (the decode kernels), the KIVI decode body of one
 // (row, KV head) (the two KIVI decode kernels and, with ablations, the
-// decode probe) and the tiled attention
-// step (the extend and prefill kernels).
+// decode probe) and the tiled f32 attention step (the extend kernel;
+// the prefill and qhist kernels run on the tensor-core tile of
+// attn_wgmma.cuh).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -339,9 +340,10 @@ __device__ __forceinline__ void attend(
 }  // namespace kdec
 
 // ---------------------------------------------------------------------------
-// Tiled attention of a block of query rows against chunks of keys, shared
-// by flash_extend.cu (the causal self block plus the cached history) and
-// flash.cu (one-shot causal prefill).  A block of NT = 256 threads owns
+// Tiled attention of a block of query rows against chunks of keys, used
+// by flash_extend.cu alone (the causal self block plus the cached
+// history; flash.cu and flash_extend_qhist.cu run on the tensor-core
+// tile of attn_wgmma.cuh).  A block of NT = 256 threads owns
 // QT = 64 query rows and walks the keys in chunks of CK = 64 staged in
 // shared memory; products and the online softmax run in f32 on the CUDA
 // cores.  Thread (ty, tx) = (tid / 16, tid % 16) owns rows ty + 16*a

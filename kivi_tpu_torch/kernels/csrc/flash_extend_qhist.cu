@@ -1,5 +1,5 @@
 // Partial flash state of extend queries over the quantized history, split
-// over T.
+// over T, on Hopper's tensor cores.
 //
 // Replaces the TPU kernel `flash_extend_qhist` of
 // kivi_tpu/kernels/flash_extend.py (body `_kernel`).  Contract:
@@ -14,41 +14,162 @@
 // neutral element (0, -1e30, 0).  The caller merges it with the window
 // and causal self logits (core.attention._extend_attention_qhist).
 //
+// Rounding, as the Pallas kernel at its default compute_dtype=bf16
+// (kivi_tpu/kernels/flash_extend.py:72-77, 132-157): the products take
+// bf16 operands with f32 accumulation.  K's operand is code * scale
+// rounded to bf16 once; its zero point stays apart, q . mn added to the
+// f32 logits per group row (folding mn into the bf16 operand would round
+// it with the far larger code*scale + mn).  q . mn is a product of its
+// own whose mn operand is split into two bf16 terms (hi + lo), so it
+// keeps f32-class accuracy for f32 scales too.  V's operand is
+// code * scale + mn (or the v_win row) rounded to bf16 once; p is rounded
+// to bf16 before PV.  m, l and the merge stay f32.
+//
 // Bound on the H100: operations at the slice's shapes.  At batch 1, 8 KV
 // heads, R = 4*128 rows, D = 128 and 12K cached tokens the products are
 // 4*R*12K*D per head, ~25 GFLOP, ~26 us at the bf16 tensor-core rate,
-// against ~9 MB of live store (~3 us at 3.35 TB/s).  This first version,
-// like the full extend kernel, runs them in f32 on the CUDA cores.
+// against ~9 MB of live store (~3 us at 3.35 TB/s).  The f32 CUDA-core
+// version (67 TFLOP/s peak) ran 86x this bound.
 //
-// Design: the full extend kernel (flash_extend.cu) gives one block to a
-// (64-row query tile, batch * KV head) and walks the whole history in it;
-// at batch 1 with 8 KV heads that is 64 blocks on 132 SMs.  Here a third
-// grid axis splits the history into SPLIT positions, so a 12K history
-// runs ~24x more blocks.  Each block walks its split in chunks of 64 with
-// the `tile` helpers of common.cuh (shared with flash.cu and
-// flash_extend.cu) and writes its (acc, m, l); a split wholly below every
-// row's lower bound exits at once with l = 0.  A second kernel merges the
-// splits of each row in order: m = max m_s over splits with l_s > 0,
-// l = sum l_s exp(m_s - m), acc = sum acc_s exp(m_s - m).
+// Design (attn_wgmma.cuh): blocks over (128-row query tiles, batch * KV
+// head, SPLIT-position splits of the history); a split wholly below
+// every row's lower bound exits at once with l = 0.  A block of 256
+// threads is two warpgroups of 64 rows (the registers of the two f32
+// accumulators bound the rows a block can hold, so each of the R/128
+// query tiles of a split dequantizes the split again: 4x at the slice).
+// It walks its split in chunks of CK = 64 positions.  Chunk n+1's packed
+// K/V words and scales are in flight (cp.async into the second of two
+// raw buffers) while chunk n is dequantized by the block's threads into
+// bf16 operand tiles (K: code*scale; V: code*scale + mn below
+// n_v_quant, v_win rows above; zeros past n_k_quant; the zero-point
+// rows hi/lo) and multiplied: S = Q K^T and Z = Q mn^T by wgmma, the
+// groups' q . mn added to S in registers (a quad shuffle), the online
+// softmax on the fragment, O += P V with V read transposed.  A second
+// kernel merges the splits of each row in order: m = max m_s over splits
+// with l_s > 0, l = sum l_s exp(m_s - m), acc = sum acc_s exp(m_s - m)
+// (bit-reproducible runs).
 
 #include <limits.h>
 
-#include "common.cuh"
+#include "attn_wgmma.cuh"
 
 namespace {
 
-using tile::CA;
-using tile::CK;
-using tile::DA;
-using tile::NT;
-using tile::QT;
-using tile::RA;
-
 constexpr int SPLIT = 512;     // history positions per block (multiple of CK)
+constexpr int CK = 64;         // positions per chunk
+constexpr int QROWS = 128;     // query rows per block: two warpgroups
+constexpr int NT = 256;
+constexpr int DP = 128;       // tile columns (D <= 128 zero-padded)
 constexpr int MERGE_ROWS = 4;  // rows per merge block, one warp each
 
+// Byte offsets of one raw staging buffer: a chunk's packed words, its
+// ngk K scale/min rows (ngk, D) and its V scale/min columns (Dg, CK).
+// Every offset is a multiple of 16 (D % 16 == 0, CK * sb >= 128).
+struct Raw {
+    int kw, vw, ks, km, vs, vm, bytes;
+};
+
+__host__ __device__ inline Raw raw_layout(int KDw, int VDw, int ngk, int D,
+                                          int Dg, int sb) {
+    Raw r;
+    r.kw = 0;
+    r.vw = r.kw + KDw * CK * 4;
+    r.ks = r.vw + VDw * CK * 4;
+    r.km = r.ks + ngk * D * sb;
+    r.vs = r.km + ngk * D * sb;
+    r.vm = r.vs + Dg * CK * sb;
+    r.bytes = r.vm + Dg * CK * sb;
+    return r;
+}
+
+constexpr int tiles_bytes() {   // Q (QROWS), K^ and V^ (CK), Z (16 rows)
+    return (QROWS + 2 * CK + 16) * DP * 2;
+}
+
+// Dequantize a chunk's K words into K^ (code * scale, rounded once; zero
+// past n_k_quant) and its V words below n_v_quant into V^ (code * scale
+// + mn, rounded once), at BITS bits.  Word (pos, w) goes to lane
+// (pos % 8, w % 4) of a warp, so a warp's stores fill one 8-row core
+// matrix without bank conflicts.  Scale rows: sc (ngk, D) for K, whose
+// row for chunk position kj is (c0 % gs + kj) >> gsh; (Dg, CK) columns
+// for V.
+__device__ __forceinline__ void word_task(int idx, int* kj, int* w) {
+    const int rest = idx >> 5;
+    *kj = (rest % (CK / 8)) * 8 + (idx & 7);
+    *w = (rest / (CK / 8)) * 4 + ((idx >> 3) & 3);
+}
+
+template <int BITS, typename ST>
+__device__ __forceinline__ void dequant_k(uint8_t* __restrict__ tile,
+                                          const uint32_t* __restrict__ kw_s,
+                                          const ST* __restrict__ ks_s,
+                                          int c0, int nkq, int D, int gsh) {
+    const int Dw = D / (32 / BITS), cmod = c0 & ((1 << gsh) - 1);
+    for (int idx = threadIdx.x; idx < ((Dw + 3) & ~3) * CK; idx += NT) {
+        int kj, w;
+        word_task(idx, &kj, &w);
+        if (w >= Dw) continue;
+        const bool in = c0 + kj < nkq;
+        const uint32_t word = in ? kw_s[w * CK + kj] : 0u;
+        const ST* const sr = ks_s + ((cmod + kj) >> gsh) * D;
+        if (BITS == 8) {
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+                const int d = j * Dw + w;
+                *(__nv_bfloat16*)(tile + wg::tile_off<DP>(kj, d)) =
+                    __float2bfloat16((float)((word >> (8 * j)) & 255u)
+                                     * to_f(sr[d]));
+            }
+        } else {
+            constexpr uint32_t mask = (1u << BITS) - 1u;
+#pragma unroll
+            for (int j = 0; j < 16 / BITS; ++j) {
+                const int d = j * 2 * Dw + 2 * w;
+                *(uint32_t*)(tile + wg::tile_off<DP>(kj, d)) = wg::pack_bf16(
+                    (float)((word >> (BITS * j)) & mask) * to_f(sr[d]),
+                    (float)((word >> (16 + BITS * j)) & mask)
+                        * to_f(sr[d + 1]));
+            }
+        }
+    }
+}
+
+template <int BITS, typename ST>
+__device__ __forceinline__ void dequant_v(uint8_t* __restrict__ tile,
+                                          const uint32_t* __restrict__ vw_s,
+                                          const ST* __restrict__ vs_s,
+                                          const ST* __restrict__ vm_s,
+                                          int c0, int nvq, int D, int gsh) {
+    const int Dw = D / (32 / BITS);
+    for (int idx = threadIdx.x; idx < ((Dw + 3) & ~3) * CK; idx += NT) {
+        int kj, w;
+        word_task(idx, &kj, &w);
+        if (w >= Dw || c0 + kj >= nvq) continue;
+        const uint32_t word = vw_s[w * CK + kj];
+        if (BITS == 8) {
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+                const int d = j * Dw + w, g = ((d >> gsh) * CK) + kj;
+                *(__nv_bfloat16*)(tile + wg::tile_off<DP>(kj, d)) =
+                    __float2bfloat16(fmaf((float)((word >> (8 * j)) & 255u),
+                                          to_f(vs_s[g]), to_f(vm_s[g])));
+            }
+        } else {
+            constexpr uint32_t mask = (1u << BITS) - 1u;
+#pragma unroll
+            for (int j = 0; j < 16 / BITS; ++j) {
+                const int d = j * 2 * Dw + 2 * w, g = ((d >> gsh) * CK) + kj;
+                const float sc = to_f(vs_s[g]), mn = to_f(vm_s[g]);
+                *(uint32_t*)(tile + wg::tile_off<DP>(kj, d)) = wg::pack_bf16(
+                    fmaf((float)((word >> (BITS * j)) & mask), sc, mn),
+                    fmaf((float)((word >> (16 + BITS * j)) & mask), sc, mn));
+            }
+        }
+    }
+}
+
 template <typename ST>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(NT, 1)
 qhist_split_kernel(const __nv_bfloat16* __restrict__ q,
                    const uint32_t* __restrict__ k_codes,
                    const ST* __restrict__ k_scale,
@@ -62,130 +183,240 @@ qhist_split_kernel(const __nv_bfloat16* __restrict__ q,
                    float* __restrict__ part_l, int H, int R, int T1, int D,
                    int Tmax, int W, int gs, int k_bits, int v_bits, int nkq,
                    int nvq, int t0tot, int sw, int nsplit, float sm_scale) {
-    extern __shared__ float sm[];
-    const tile::Smem sh = tile::carve(sm, D);
-    float* const Qs = sh.Qs;
-    float* const Ks = sh.Ks;
-    float* const Vs = sh.Vs;
+    extern __shared__ __align__(128) uint8_t smem[];
     __shared__ int range_lo;
+    constexpr int SB = sizeof(ST);
+    uint8_t* const p_q = smem;
+    uint8_t* const p_k = p_q + QROWS * DP * 2;
+    uint8_t* const p_v = p_k + CK * DP * 2;
+    uint8_t* const p_z = p_v + CK * DP * 2;
+    uint8_t* const p_raw = p_z + 16 * DP * 2;
 
+    const int tid = threadIdx.x, lane = tid & 31, wgi = tid >> 7;
     const int bh = blockIdx.y, b = bh / H, sp = blockIdx.z;
-    const int row0 = blockIdx.x * QT;
-    const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+    const int row0 = blockIdx.x * QROWS;
     const int s0 = sp * SPLIT, s1 = min(s0 + SPLIT, nkq);
     const int KDw = D / (32 / k_bits), VDw = D / (32 / v_bits);
-    const int Tg = Tmax / gs, Dg = D / gs;
+    const int gsh = __ffs(gs) - 1;   // gs is a power of two
+    const int Tg = Tmax >> gsh, Dg = D >> gsh, ngk = max(1, CK >> gsh);
     const int pad = pad_ptr ? pad_ptr[b] : 0;
     const long long prow = ((long long)bh * nsplit + sp) * R;
+    const Raw rl = raw_layout(KDw, VDw, ngk, D, Dg, SB);
 
+    // this thread's two rows and their lower bounds
+    int row[2], rlo[2];
+    bool live[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        row[h] = row0 + 64 * wgi + wg::frag_row(2 * h);
+        live[h] = row[h] < R;
+        int lo = max(pad, 0);
+        if (sw > 0) lo = max(lo, t0tot + row[h] % T1 - (sw - 1));
+        rlo[h] = lo;
+    }
     if (tid == 0) range_lo = INT_MAX;
     __syncthreads();
-    // Per-row lower bound of this thread's rows ty + 16*a.
-    int rlo[RA];
-    bool live[RA];
 #pragma unroll
-    for (int a = 0; a < RA; ++a) {
-        const int row = row0 + ty + 16 * a;
-        live[a] = row < R;
-        int lo = max(pad, 0);
-        if (sw > 0) lo = max(lo, t0tot + row % T1 - (sw - 1));
-        rlo[a] = lo;
-        if (live[a] && tx == 0) atomicMin(&range_lo, lo);
-    }
+    for (int h = 0; h < 2; ++h)
+        if (live[h] && (lane & 3) == 0) atomicMin(&range_lo, rlo[h]);
     __syncthreads();
     const int c_begin = max(s0, (range_lo / CK) * CK);
     if (c_begin >= s1) {   // no row of the tile sees this split
 #pragma unroll
-        for (int a = 0; a < RA; ++a) {
-            if (live[a] && tx == 0) {
-                part_m[prow + row0 + ty + 16 * a] = KIVI_NEG_INF;
-                part_l[prow + row0 + ty + 16 * a] = 0.f;
+        for (int h = 0; h < 2; ++h) {
+            if (live[h] && (lane & 3) == 0) {
+                part_m[prow + row[h]] = KIVI_NEG_INF;
+                part_l[prow + row[h]] = 0.f;
             }
         }
         return;
     }
 
-    for (int i = tid; i < QT * D; i += NT) {
-        const int lr = i / D, d = i % D;
-        const int row = row0 + lr;
-        Qs[d * (QT + 1) + lr] =
-            row < R ? to_f(q[((long long)bh * R + row) * D + d]) : 0.f;
+    // ---- raw staging of chunk c0 into buffer buf (cp.async) ----
+    auto stage_raw = [&](int c0, int buf) {
+        const uint32_t base = wg::smem_addr(p_raw) + buf * rl.bytes;
+        const char* const kc = (const char*)k_codes;
+        const char* const vc = (const char*)v_codes;
+        for (int i = tid; i < KDw * (CK / 4); i += NT) {   // 4 words a copy
+            const int w = i / (CK / 4), c = i % (CK / 4), pos = c0 + 4 * c;
+            const bool ok = pos < nkq;
+            const long long o = (((long long)bh * KDw + w) * Tmax + pos) * 4;
+            wg::cp16(base + rl.kw + (w * CK + 4 * c) * 4, ok ? kc + o : kc,
+                     ok);
+        }
+        for (int i = tid; i < VDw * (CK / 4); i += NT) {
+            const int w = i / (CK / 4), c = i % (CK / 4), pos = c0 + 4 * c;
+            const bool ok = pos < nvq;
+            const long long o = (((long long)bh * VDw + w) * Tmax + pos) * 4;
+            wg::cp16(base + rl.vw + (w * CK + 4 * c) * 4, ok ? vc + o : vc,
+                     ok);
+        }
+        const char* const ks = (const char*)k_scale;
+        const char* const km = (const char*)k_mn;
+        const int rowc = D * SB / 16;          // copies per K scale row
+        for (int i = tid; i < ngk * rowc; i += NT) {
+            const int gi = i / rowc, c = i % rowc, g = (c0 >> gsh) + gi;
+            const bool ok = g < Tg && (g << gsh) < nkq;
+            const long long o = ((long long)bh * Tg + g) * D * SB + c * 16;
+            const uint32_t so = gi * D * SB + c * 16;
+            wg::cp16(base + rl.ks + so, ok ? ks + o : ks, ok);
+            wg::cp16(base + rl.km + so, ok ? km + o : km, ok);
+        }
+        const char* const vs = (const char*)v_scale;
+        const char* const vm = (const char*)v_mn;
+        const int colc = CK * SB / 16;         // copies per V scale row
+        for (int i = tid; i < Dg * colc; i += NT) {
+            const int g = i / colc, c = i % colc, pos = c0 + c * (16 / SB);
+            const bool ok = pos < nvq;
+            const long long o = (((long long)bh * Dg + g) * Tmax + pos) * SB;
+            const uint32_t so = g * CK * SB + c * 16;
+            wg::cp16(base + rl.vs + so, ok ? vs + o : vs, ok);
+            wg::cp16(base + rl.vm + so, ok ? vm + o : vm, ok);
+        }
+    };
+
+    // ---- dequantize raw buffer buf into the bf16 operand tiles ----
+    auto dequant = [&](int c0, int buf) {
+        const uint8_t* const raw = p_raw + buf * rl.bytes;
+        const uint32_t* const kw_s = (const uint32_t*)(raw + rl.kw);
+        const uint32_t* const vw_s = (const uint32_t*)(raw + rl.vw);
+        const ST* const ks_s = (const ST*)(raw + rl.ks);
+        const ST* const km_s = (const ST*)(raw + rl.km);
+        const ST* const vs_s = (const ST*)(raw + rl.vs);
+        const ST* const vm_s = (const ST*)(raw + rl.vm);
+        if (k_bits == 2)
+            dequant_k<2>(p_k, kw_s, ks_s, c0, nkq, D, gsh);
+        else if (k_bits == 4)
+            dequant_k<4>(p_k, kw_s, ks_s, c0, nkq, D, gsh);
+        else
+            dequant_k<8>(p_k, kw_s, ks_s, c0, nkq, D, gsh);
+        if (v_bits == 2)
+            dequant_v<2>(p_v, vw_s, vs_s, vm_s, c0, nvq, D, gsh);
+        else if (v_bits == 4)
+            dequant_v<4>(p_v, vw_s, vs_s, vm_s, c0, nvq, D, gsh);
+        else
+            dequant_v<8>(p_v, vw_s, vs_s, vm_s, c0, nvq, D, gsh);
+        // V^ at and above n_v_quant: v_win rows, zeros past n_k_quant
+        const int wlo = min(max(c0, nvq) - c0, CK);
+        for (int idx = tid; idx < (CK - wlo) * (D / 8); idx += NT) {
+            const int kj = wlo + idx / (D / 8), cc = idx % (D / 8);
+            const int pos = c0 + kj;
+            uint4 x = make_uint4(0u, 0u, 0u, 0u);
+            if (pos < nkq)
+                x = *(const uint4*)(v_win + ((long long)bh * W + pos - nvq) * D
+                                    + cc * 8);
+            *(uint4*)(p_v + wg::tile_off<DP>(kj, cc * 8)) = x;
+        }
+        // Z: the chunk's K min rows, hi (rows 0-7) and lo (rows 8-15)
+        for (int idx = tid; idx < 8 * DP; idx += NT) {
+            const int gi = idx / DP, d = idx % DP;
+            if (d >= D) continue;
+            const float x = gi < ngk ? to_f(km_s[gi * D + d]) : 0.f;
+            const __nv_bfloat16 hi = __float2bfloat16(x);
+            *(__nv_bfloat16*)(p_z + wg::tile_off<DP>(gi, d)) = hi;
+            *(__nv_bfloat16*)(p_z + wg::tile_off<DP>(gi + 8, d)) =
+                __float2bfloat16(x - __bfloat162float(hi));
+        }
+    };
+
+    wg::stage_rows<DP>(wg::smem_addr(p_q),
+                       q + ((long long)bh * R + row0) * D, QROWS, R - row0,
+                       D, tid, NT);
+    stage_raw(c_begin, 0);
+    wg::cp_commit();
+    // the operand tiles' columns past D stay 0
+    for (int i = tid; i < (2 * CK + 16) * DP * 2 / 16; i += NT)
+        *(uint4*)(p_k + 16 * i) = make_uint4(0u, 0u, 0u, 0u);
+
+    const uint32_t t_q = wg::smem_addr(p_q) + wgi * 64 * DP * 2;
+    const uint32_t t_k = wg::smem_addr(p_k), t_v = wg::smem_addr(p_v);
+    const uint32_t t_z = wg::smem_addr(p_z);
+    float m[2] = {KIVI_NEG_INF, KIVI_NEG_INF}, l[2] = {0.f, 0.f};
+    float o[DP / 2];
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
+
+    int it = 0;
+    for (int c0 = c_begin; c0 < s1; c0 += CK, ++it) {
+        wg::cp_wait_all();
+        __syncthreads();   // raw chunk it landed; chunk it - 1's products done
+        if (c0 + CK < s1) stage_raw(c0 + CK, (it + 1) & 1);
+        wg::cp_commit();
+        dequant(c0, it & 1);
+        wg::fence_async_smem();
+        __syncthreads();   // operand tiles written
+
+        float s[CK / 2], z[8];
+        wg::fence_regs(s);
+        wg::fence_regs(z);
+        wg::arrive();
+        wg::qk<DP, CK>(s, t_q, t_k);
+        wg::qk<DP, 16>(z, t_q, t_z);
+        wg::commit();
+        wg::wait_all();
+        wg::fence_regs(s);
+        wg::fence_regs(z);
+
+        // q . mn of group g, row h sits in lane (lane & ~3) | g / 2 of the
+        // quad, as z[2h + g % 2] + z[4 + 2h + g % 2]
+        float zs[2][2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+                zs[h][e] = z[2 * h + e] + z[4 + 2 * h + e];
+        const int cmod = c0 & (gs - 1);
+#pragma unroll
+        for (int j = 0; j < CK / 8; ++j) {
+            const int g = (cmod + 8 * j) >> gsh;    // warp-uniform, < 8
+            const int src = (lane & ~3) | (g >> 1);
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                const float zz = __shfl_sync(
+                    0xffffffffu, (g & 1) ? zs[h][1] : zs[h][0], src);
+                s[4 * j + 2 * h] += zz;
+                s[4 * j + 2 * h + 1] += zz;
+            }
+        }
+
+        auto ok = [&](int i) {
+            const int h = (i >> 1) & 1, pos = c0 + wg::frag_col(i);
+            return live[h] && pos < s1 && pos >= rlo[h];
+        };
+        const bool full = __all_sync(
+            0xffffffffu, live[0] && live[1] && c0 + CK <= s1
+                             && c0 >= max(rlo[0], rlo[1]));
+        uint32_t pf[CK / 4];
+        if (full)
+            wg::softmax_step<CK, DP / 2, false>(s, ok, sm_scale, m, l, o, pf);
+        else
+            wg::softmax_step<CK, DP / 2, true>(s, ok, sm_scale, m, l, o, pf);
+
+        wg::fence_regs(o);
+        wg::arrive();
+        wg::pv<DP, CK>(o, pf, t_v);
+        wg::commit();
+        wg::wait_all();
+        wg::fence_regs(o);
     }
 
-    float m[RA], l[RA], acc[RA][DA];
-    tile::init(m, l, acc);
-
-    for (int c0 = c_begin; c0 < s1; c0 += CK) {
-        __syncthreads();   // previous chunk's readers are done
-        // ---- K chunk -> Ks[d][kj]; zeros past n_k_quant ----
-        for (int i = tid; i < KDw * CK; i += NT) {
-            const int w = i / CK, kj = i % CK, pos = c0 + kj;
-            if (pos >= nkq) {
-                for (int k = 0; k < 32 / k_bits; ++k)
-                    Ks[slot_channel(w, k, KDw, k_bits) * (CK + 1) + kj] = 0.f;
-                continue;
-            }
-            const uint32_t word =
-                k_codes[((long long)bh * KDw + w) * Tmax + pos];
-            const long long srow = ((long long)bh * Tg + pos / gs) * D;
-            for (int k = 0; k < 32 / k_bits; ++k) {
-                const int d = slot_channel(w, k, KDw, k_bits);
-                Ks[d * (CK + 1) + kj] =
-                    code_at(word, slot_shift(k, k_bits), k_bits)
-                    * to_f(k_scale[srow + d]) + to_f(k_mn[srow + d]);
-            }
-        }
-        // ---- V chunk -> Vs[kj][d]: store below n_v_quant, window above ----
-        for (int i = tid; i < VDw * CK; i += NT) {
-            const int w = i / CK, kj = i % CK, pos = c0 + kj;
-            if (pos >= nvq) continue;
-            const uint32_t word =
-                v_codes[((long long)bh * VDw + w) * Tmax + pos];
-            for (int k = 0; k < 32 / v_bits; ++k) {
-                const int d = slot_channel(w, k, VDw, v_bits);
-                const long long so = ((long long)bh * Dg + d / gs) * Tmax + pos;
-                Vs[kj * (D + 1) + d] =
-                    code_at(word, slot_shift(k, v_bits), v_bits)
-                    * to_f(v_scale[so]) + to_f(v_mn[so]);
-            }
-        }
-        for (int i = tid; i < CK * D; i += NT) {
-            const int kj = i / D, d = i % D, pos = c0 + kj;
-            if (pos < nvq) continue;
-            Vs[kj * (D + 1) + d] =
-                pos < nkq
-                    ? to_f(v_win[((long long)bh * W + pos - nvq) * D + d])
-                    : 0.f;
-        }
-        __syncthreads();
-
-        float s[RA][CA];
-        tile::qk(sh, D, ty, tx, s);
-        bool ok[RA][CA];
+    float lq[2];
 #pragma unroll
-        for (int a = 0; a < RA; ++a)
+    for (int h = 0; h < 2; ++h) lq[h] = wg::quad_sum(l[h]);
 #pragma unroll
-            for (int c = 0; c < CA; ++c) {
-                const int pos = c0 + tx + 16 * c;
-                ok[a][c] = live[a] && pos < s1 && pos >= rlo[a];
-            }
-        tile::softmax_step(sh, s, ok, sm_scale, m, l, acc, ty, tx);
-        __syncthreads();
-        tile::pv(sh, D, ty, tx, acc);
+    for (int i = 0; i < DP / 2; i += 2) {
+        const int h = (i >> 1) & 1, col = wg::frag_col(i);
+        if (live[h] && col < D)
+            *(float2*)(part_acc + (prow + row[h]) * D + col) =
+                make_float2(o[i], o[i + 1]);
     }
-
+    if ((lane & 3) == 0) {
 #pragma unroll
-    for (int a = 0; a < RA; ++a) {
-        if (!live[a]) continue;
-        const long long row = prow + row0 + ty + 16 * a;
-#pragma unroll
-        for (int e = 0; e < DA; ++e) {
-            const int d = tx + 16 * e;
-            if (d < D) part_acc[row * D + d] = acc[a][e];
-        }
-        if (tx == 0) {
-            part_m[row] = m[a];
-            part_l[row] = l[a];
+        for (int h = 0; h < 2; ++h) {
+            if (!live[h]) continue;
+            // nothing admitted: m may have left -1e30 by a scaled max
+            part_m[prow + row[h]] = lq[h] > 0.f ? m[h] : KIVI_NEG_INF;
+            part_l[prow + row[h]] = lq[h];
         }
     }
 }
@@ -208,9 +439,9 @@ qhist_merge_kernel(const float* __restrict__ part_acc,
         const long long i = (bh * nsplit + sp) * R + row;
         if (part_l[i] > 0.f) M = fmaxf(M, part_m[i]);
     }
-    float L = 0.f, a[tile::DMAX / 32];
+    float L = 0.f, a[DP / 32];
 #pragma unroll
-    for (int e = 0; e < tile::DMAX / 32; ++e) a[e] = 0.f;
+    for (int e = 0; e < DP / 32; ++e) a[e] = 0.f;
     for (int sp = 0; sp < nsplit; ++sp) {
         const long long i = (bh * nsplit + sp) * R + row;
         const float ls = part_l[i];
@@ -218,14 +449,14 @@ qhist_merge_kernel(const float* __restrict__ part_acc,
         const float c = expf(part_m[i] - M);
         L += ls * c;
 #pragma unroll
-        for (int e = 0; e < tile::DMAX / 32; ++e) {
+        for (int e = 0; e < DP / 32; ++e) {
             const int d = lane + 32 * e;
             if (d < D) a[e] += part_acc[i * D + d] * c;
         }
     }
     const long long o = bh * R + row;
 #pragma unroll
-    for (int e = 0; e < tile::DMAX / 32; ++e) {
+    for (int e = 0; e < DP / 32; ++e) {
         const int d = lane + 32 * e;
         if (d < D) acc[o * D + d] = a[e];
     }
@@ -244,21 +475,22 @@ int launch(const void* q, const void* kc, const void* ks, const void* km,
            float sm_scale, cudaStream_t stream) {
     const int nsplit = (nkq + SPLIT - 1) / SPLIT;
     if (nsplit > 0) {
-        const size_t smem = tile::smem_bytes(D);
+        const Raw rl = raw_layout(D / (32 / kb), D / (32 / vb),
+                                  CK / gs > 1 ? CK / gs : 1, D, D / gs,
+                                  (int)sizeof(ST));
+        const int smem = tiles_bytes() + 2 * rl.bytes;
         auto kern = qhist_split_kernel<ST>;
-        if (smem > 48 * 1024) {
-            cudaError_t e = cudaFuncSetAttribute(
-                kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-            if (e != cudaSuccess) return (int)e;
-        }
-        dim3 grid((R + QT - 1) / QT, B * H, nsplit);
+        cudaError_t e = cudaFuncSetAttribute(
+            kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        if (e != cudaSuccess) return (int)e;
+        dim3 grid((R + QROWS - 1) / QROWS, B * H, nsplit);
         kern<<<grid, NT, smem, stream>>>(
             (const __nv_bfloat16*)q, (const uint32_t*)kc, (const ST*)ks,
             (const ST*)km, (const uint32_t*)vc, (const ST*)vs, (const ST*)vm,
             (const __nv_bfloat16*)vw, (const int*)pad, (float*)pacc,
             (float*)pm, (float*)pl, H, R, T1, D, Tmax, W, gs, kb, vb, nkq, nvq,
             t0tot, sw, nsplit, sm_scale);
-        cudaError_t e = cudaGetLastError();
+        e = cudaGetLastError();
         if (e != cudaSuccess) return (int)e;
     }
     dim3 grid((R + MERGE_ROWS - 1) / MERGE_ROWS, B * H);
@@ -278,16 +510,15 @@ extern "C" int kivi_flash_extend_qhist(
         int R, int T1, int D, int Tmax, int W, int gs, int k_bits, int v_bits,
         int n_k_quant, int n_v_quant, int seq_len, int sliding_window,
         int scale_is_f32, float sm_scale, void* stream) {
+    if (D > DP || D % 16 || gs < 8 || (gs & (gs - 1)) || Tmax % gs)
+        return (int)cudaErrorInvalidValue;
     cudaStream_t st = (cudaStream_t)stream;
-    if (scale_is_f32)
-        return launch<float>(q, k_codes, k_scale, k_mn, v_codes, v_scale, v_mn,
-                             v_win, pad, part_acc, part_m, part_l, acc, m, l,
-                             B, H, R, T1, D, Tmax, W, gs, k_bits, v_bits,
-                             n_k_quant, n_v_quant, seq_len, sliding_window,
-                             sm_scale, st);
-    return launch<__nv_bfloat16>(q, k_codes, k_scale, k_mn, v_codes, v_scale,
-                                 v_mn, v_win, pad, part_acc, part_m, part_l,
-                                 acc, m, l, B, H, R, T1, D, Tmax, W, gs,
-                                 k_bits, v_bits, n_k_quant, n_v_quant,
-                                 seq_len, sliding_window, sm_scale, st);
+#define KIVI_QHIST(ST_)                                                       \
+    return launch<ST_>(q, k_codes, k_scale, k_mn, v_codes, v_scale, v_mn,    \
+                       v_win, pad, part_acc, part_m, part_l, acc, m, l, B, H, \
+                       R, T1, D, Tmax, W, gs, k_bits, v_bits, n_k_quant,      \
+                       n_v_quant, seq_len, sliding_window, sm_scale, st)
+    if (scale_is_f32) KIVI_QHIST(float);
+    KIVI_QHIST(__nv_bfloat16);
+#undef KIVI_QHIST
 }

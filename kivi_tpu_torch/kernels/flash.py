@@ -10,9 +10,10 @@ the causal diagonal for them).
 
 The plain version is the JAX package's `impl="jnp"` prefill attention
 (`kivi_tpu/core/attention.py:465-488`), all in f32, and returns f32.
-The kernel accumulates in f32 and rounds its output to bf16 once, as the
-Pallas kernel does (`kivi_tpu/kernels/flash.py:197-199`); the model casts
-the attention output to bf16 next, so nothing is lost.
+The kernel runs both products on the tensor cores with bf16 operands and
+f32 accumulation, rounding p to bf16 before PV as the Pallas kernel does
+(`kivi_tpu/kernels/flash.py:100-103`), and rounds its output to bf16
+once (`:197-199`); the model casts the attention output to bf16 next.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel
 or raises.
@@ -64,20 +65,22 @@ def flash_attention(q, k, v, *, sliding_window: Optional[int] = None,
                     pad_len: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Causal prefill attention; see flash_attention_plain for the
     contract.  Returns f32 on the CPU (plain version) and bf16 on CUDA
-    (the kernel: q, k, v contiguous bf16, D <= 128, Hq % Hkv == 0)."""
+    (the kernel: q, k, v contiguous bf16 16-byte aligned, D <= 128 a
+    multiple of 16, Hq % Hkv == 0)."""
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, sliding_window=sliding_window,
                                      pad_len=pad_len)
     name = "flash_attention"
     B, Hq, T, D = q.shape
     Hkv = k.shape[1]
-    if D > 128 or Hkv == 0 or Hq % Hkv:
+    if D > 128 or D % 16 or Hkv == 0 or Hq % Hkv:
         raise ValueError(f"{name}: unsupported D={D} Hq={Hq} Hkv={Hkv}")
     _build.check_tensors(name, q.device, {
         "q": (q, (B, Hq, T, D), torch.bfloat16),
         "k": (k, (B, Hkv, T, D), torch.bfloat16),
         "v": (v, (B, Hkv, T, D), torch.bfloat16),
     })
+    _build.check_aligned(name, q, k, v)
     if pad_len is not None:
         pad_len = pad_len.to(device=q.device, dtype=torch.int32)
         pad_len = pad_len.reshape(B).contiguous()
@@ -87,6 +90,41 @@ def flash_attention(q, k, v, *, sliding_window: Optional[int] = None,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _build.ptr(pad_len),
         out.data_ptr(), B, Hq, Hkv, T, D, int(sliding_window or 0),
         1.0 / math.sqrt(D), _build.stream_handle(q.device))
+    _build.check(err, name)
+    _build.LAUNCHES[name] += 1
+    return out
+
+
+def wgmma_tile_plain(a, b, mode: str) -> torch.Tensor:
+    """mode "qk": a (64, 128) @ b (n, 128).T; "pv": a (64, n) @ b (n,
+    128).  f32."""
+    return a.float() @ (b.float().T if mode == "qk" else b.float())
+
+
+def wgmma_tile(a, b, mode: str) -> torch.Tensor:
+    """The tensor-core tile of `csrc/attn_wgmma.cuh` alone, for a card
+    test, at every shape the two kernels give it: one warpgroup computes
+    S = Q K^T (mode "qk": a (64, 128), b (n, 128), n in 16/64/128, both
+    from shared memory) or O = P V (mode "pv": a (64, n) taken through the
+    accumulator fragment into the A registers as P is, b (n, 128) read
+    transposed, n in 64/128); bf16 operands, f32 out.  A CPU tensor takes
+    the plain version."""
+    if not a.is_cuda:
+        return wgmma_tile_plain(a, b, mode)
+    name = "wgmma_tile"
+    n, dp = b.shape
+    if mode not in ("qk", "pv") or dp != 128 or n not in (
+            (16, 64, 128) if mode == "qk" else (64, 128)):
+        raise ValueError(f"{name}: unsupported mode={mode} b "
+                         f"{tuple(b.shape)}")
+    _build.check_tensors(name, a.device, {
+        "a": (a, (64, dp) if mode == "qk" else (64, n), torch.bfloat16),
+        "b": (b, (n, dp), torch.bfloat16)})
+    out = torch.empty((64, n if mode == "qk" else dp), dtype=torch.float32,
+                      device=a.device)
+    err = _build.library("flash").kivi_wgmma_tile(
+        a.data_ptr(), b.data_ptr(), out.data_ptr(), n,
+        0 if mode == "qk" else 1, _build.stream_handle(a.device))
     _build.check(err, name)
     _build.LAUNCHES[name] += 1
     return out

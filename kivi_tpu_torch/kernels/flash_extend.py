@@ -239,9 +239,12 @@ def flash_extend_qhist(
         pad_len: Optional[torch.Tensor] = None):
     """(acc, m, l) of the suffix queries over the quantized history; see
     flash_extend_qhist_plain for the contract.  On CUDA: qg and v_win
-    bf16, scales bf16 or f32, D <= 128; blocks over (64-row query tiles,
-    B*H, QHIST_SPLIT-position splits of [0, n_k_quant)), merged by a
-    second pass in split order."""
+    bf16, scales bf16 or f32, all 16-byte aligned, D <= 128 a multiple
+    of 16, group_size a power of two >= 8; blocks over (128-row query
+    tiles, B*H, QHIST_SPLIT-position splits of [0, n_k_quant)) on the
+    tensor cores (bf16 operands, f32 accumulation, as the Pallas kernel
+    at its default compute_dtype), merged by a second pass in split
+    order."""
     if not qg.is_cuda:
         return flash_extend_qhist_plain(
             qg, k_codes, k_scale, k_mn, v_codes, v_scale, v_mn, v_win,
@@ -252,9 +255,10 @@ def flash_extend_qhist(
     B, H, R, D = qg.shape
     Tmax, W, gs = k_codes.shape[-1], v_win.shape[2], group_size
     sdt = k_scale.dtype
-    if R % t1 or D > 128 or D % 16 or D % gs:
+    if (R % t1 or D > 128 or D % 16 or D % gs or gs < 8 or gs & (gs - 1)
+            or Tmax % gs):
         raise ValueError(f"{name}: unsupported R={R} t1={t1} D={D} "
-                         f"gs={gs}")
+                         f"gs={gs} Tmax={Tmax}")
     if k_bits not in (2, 4, 8) or v_bits not in (2, 4, 8):
         raise ValueError(f"{name}: bits must be 2, 4 or 8")
     if sdt not in (torch.bfloat16, torch.float32):
@@ -275,6 +279,8 @@ def flash_extend_qhist(
         "v_mn": (v_mn, (B, H, D // gs, Tmax), sdt),
         "v_win": (v_win, (B, H, W, D), torch.bfloat16),
     })
+    _build.check_aligned(name, qg, k_codes, k_scale, k_mn, v_codes,
+                         v_scale, v_mn, v_win)
     if pad_len is not None:
         pad_len = pad_len.to(device=qg.device, dtype=torch.int32)
         pad_len = pad_len.reshape(B).contiguous()

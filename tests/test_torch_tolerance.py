@@ -1,0 +1,141 @@
+"""The per-row tolerances of the tensor-core kernels (utils.tolerance).
+
+The kernels themselves run only on the card (tests/test_torch_kernels_cuda
+.py, chip_smoke.py).  Here their rounding is modelled on the CPU from the
+plain versions' inputs (bf16 p with the running max of 128-key or 64-key
+chunks, a bf16 output; for qhist bf16 K^ = code * scale with the zero
+point added in f32, and bf16 V^) and held within half of each limit, and
+a control that drops one chunk of keys must be refused.
+"""
+
+import math
+
+import pytest
+import torch
+
+from kivi_tpu_torch.cache import kivi_cache as KC
+from kivi_tpu_torch.config import QuantConfig
+from kivi_tpu_torch.core import quant as Q
+from kivi_tpu_torch.kernels import flash as FL
+from kivi_tpu_torch.kernels import flash_extend as FE
+from kivi_tpu_torch.utils import tolerance as TOL
+
+
+def _bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+def _online_p(s, valid, ck):
+    """p as the kernels pass it to PV: exp(s - m_run) rounded to bf16,
+    m_run the running max after each ck-key chunk, rescaled to the final
+    max in f32; l from the unrounded p."""
+    s = s.masked_fill(~valid, TOL.NEG_INF)
+    m = s.amax(-1, keepdim=True)
+    shape = s.shape[:-1] + (s.shape[-1] // ck, ck)
+    run = torch.cummax(s.reshape(shape).amax(-1), -1).values
+    run = run.repeat_interleave(ck, -1)
+    p = torch.where(valid, torch.exp(s - run), 0.0)
+    f = torch.exp(run - m)
+    return _bf16(p) * f, (p * f).sum(-1), m[..., 0]
+
+
+def _flash_model(q, k, v, valid):
+    s = q.float() @ k.float().transpose(-1, -2) / math.sqrt(q.shape[-1])
+    p, l, _ = _online_p(s, valid, 128)
+    out = (p @ v.float()) / l.clamp_min(1e-30)[..., None]
+    return _bf16(torch.where(valid.any(-1, keepdim=True), out, 0.0))
+
+
+@pytest.mark.parametrize("sw,pad", [(None, None), (100, None),
+                                    (None, (0, 37)), (300, (200, 511))])
+def test_flash_rounding_within_half_the_limit(sw, pad):
+    gen = torch.Generator().manual_seed(sw or 0)
+    B, H, T, D = 2, 4, 512, 128
+    q, k, v = (torch.randn(B, H, T, D, generator=gen).to(torch.bfloat16)
+               for _ in range(3))
+    pad_len = None if pad is None else torch.tensor(pad)
+    want = FL.flash_attention_plain(q, k, v, sliding_window=sw,
+                                    pad_len=pad_len)
+    pos = torch.arange(T)
+    valid = (pos[None, :] <= pos[:, None]).expand(B, 1, T, T)
+    if sw:
+        valid = valid & (pos[None, :] > pos[:, None] - sw)
+    if pad_len is not None:
+        valid = valid & (pos >= pad_len.reshape(B, 1, 1, 1))
+    _, share = TOL.check_rows(_flash_model(q, k, v, valid), want,
+                              TOL.FLASH_RTOL, "flash model")
+    assert share <= 0.5
+    # control: the last 128 rows without their first 128-key chunk
+    ctrl = want.clone()
+    ctrl[:, :, -128:] = FL.flash_attention_plain(
+        q, k, v, sliding_window=sw,
+        pad_len=torch.full((B,), 128))[:, :, -128:]
+    if sw is None or sw > T - 128:
+        assert TOL.row_share(ctrl, want, TOL.FLASH_RTOL).max() > 1
+
+
+def _qhist_case(bits, fill, r=4, t1=32, H=2, D=128, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    qcfg = QuantConfig(bits, bits, 32, 32, v_flush=32)
+    c = KC.init_layer_cache(1, H, D, 4096, qcfg, device="cpu")
+    KC.prefill_ingest(
+        c, torch.randn(1, H, fill, D, generator=gen).to(torch.bfloat16),
+        torch.randn(1, H, fill, D, generator=gen).to(torch.bfloat16), qcfg)
+    qg = torch.randn(1, H, r * t1, D, generator=gen).to(torch.bfloat16)
+    args = (qg, c.k_codes, c.k_scale, c.k_mn, c.v_codes, c.v_scale, c.v_mn,
+            c.v_win, c.n_k_quant, c.n_v_quant, c.seq_len)
+    kw = dict(group_size=32, k_bits=bits, v_bits=bits, t1=t1)
+    return c, args, kw
+
+
+def _qhist_model(c, qg, bits):
+    """The kernel's state over the whole history (no pad, no window)."""
+    nkq, nvq = c.n_k_quant, c.n_v_quant
+    zero = torch.zeros_like(c.k_mn)
+    k = _bf16(Q.dequantize_k(c.k_codes, c.k_scale, zero, 32, bits))
+    k = k + Q.dequantize_k(c.k_codes * 0, c.k_scale, c.k_mn, 32, bits)
+    v = _bf16(Q.dequantize_v(c.v_codes, c.v_scale, c.v_mn, 32, bits))
+    v[:, :, nvq:nkq] = c.v_win[:, :, :nkq - nvq].float()
+    s = qg.float() @ k[..., :nkq] / math.sqrt(qg.shape[-1])
+    n = -(-nkq // 64) * 64                     # whole 64-position chunks
+    s = torch.nn.functional.pad(s, (0, n - nkq))
+    valid = torch.arange(n) < nkq
+    p, l, m = _online_p(s, valid.expand(s.shape), 64)
+    return p[..., :nkq] @ v[:, :, :nkq], m, l
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+def test_qhist_rounding_within_half_the_limit(bits):
+    c, args, kw = _qhist_case(bits, 1500, seed=bits)
+    want = FE.flash_extend_qhist_plain(*args, **kw)
+    _, share, empty = TOL.check_state(_qhist_model(c, args[0], bits), want,
+                                      TOL.QHIST_RTOL, f"qhist model {bits}")
+    assert share <= 0.5 and empty == 0
+    # control: the history without its first 64-position chunk
+    ctrl = FE.flash_extend_qhist_plain(*args, **kw,
+                                       pad_len=torch.tensor([64]))
+    assert max(TOL.state_shares(ctrl, want, TOL.QHIST_RTOL).values()) > 1
+
+
+def test_check_state_empty_rows_exact():
+    c, args, kw = _qhist_case(2, 300)
+    pad = torch.tensor([400])                   # no row sees the history
+    want = FE.flash_extend_qhist_plain(*args, **kw, pad_len=pad)
+    assert TOL.check_state(want, want, TOL.QHIST_RTOL, "empty")[2] == \
+        want[1].numel()
+    acc, m, l = (t.clone() for t in want)
+    l[0, 0, 0] = 1e-3                           # an empty row with mass
+    with pytest.raises(AssertionError, match="empty rows"):
+        TOL.check_state((acc, m, l), want, TOL.QHIST_RTOL, "empty")
+
+
+def test_check_rows_holds_each_row_to_its_own_scale():
+    want = torch.tensor([[4.0, -2.0], [0.05, 0.01]])
+    # 1% of the small row: within 4 * 2^-8 of the whole tensor, not of
+    # the row's own max
+    got = want + torch.tensor([[0.0, 0.0], [0.01, 0.0]])
+    with pytest.raises(AssertionError, match="row 1"):
+        TOL.check_rows(got, want, TOL.FLASH_RTOL, "rows")
+    assert TOL.check_rows(want, want, TOL.FLASH_RTOL, "rows")[1] == 0
+    with pytest.raises(AssertionError, match="non-finite"):
+        TOL.check_rows(want * float("nan"), want, TOL.FLASH_RTOL, "rows")
