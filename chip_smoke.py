@@ -8,13 +8,15 @@ Phases (any failure raises; the exit code is then non-zero):
   2. build: compile every CUDA kernel from kivi_tpu_torch/kernels/csrc;
   3. kernels vs their plain PyTorch versions on the card, at the main
      path's shapes and edge cases, timed with CUDA events beside their
-     bound and a one-call PyTorch yardstick (the two tensor-core
+     bound and a one-call PyTorch yardstick (the three tensor-core
      kernels per query row at utils.tolerance's limits, beside a control
      that drops one chunk of keys and must be refused, and their wgmma
-     tile alone against torch.matmul); the split routes (split
-     decode, qhist extend) against the fused kernels on the same inputs
-     at the long slice's geometry, timed at fills of 1K, 4K and 12K (the
-     crossover behind core.attention.SPLIT_MIN_HISTORY); the probe
+     tile alone against torch.matmul; the split fp decode kernel also
+     bit-equal across two runs); the split routes (split decode against
+     the fused kernel, the qhist extend route and the fused extend
+     kernel against the plain extend) on the same inputs at the long
+     slice's geometry, timed at histories of 1K-12K (the crossover behind
+     core.attention.SPLIT_MIN_HISTORY); the probe
      path's kernels by the profiler's checker (profile_wide_32k.check):
      every variant of the decode ablation probe (kernels/trimmed.py),
      the wide kernel and the split decode route, at small shapes and at
@@ -82,14 +84,15 @@ except ModuleNotFoundError as e:
 
 # Attention tolerance on the card: max|kernel - plain| <= ATT_RTOL *
 # max|plain| + ATT_ATOL.  Tighter than bf16 rounding on purpose: every
-# kernel but flash_attention and flash_extend_qhist and its plain version
-# both dequantize and compute in f32 from the same bf16 inputs (TF32
-# off), so they differ only in summation order and fused multiply-adds,
-# about 1e-7 relative.  Those two run their products on the tensor cores
-# with bf16 operands, as the Pallas kernels do, and are held per query
-# row to utils.tolerance's FLASH_RTOL and QHIST_RTOL (the reasons are
-# there); so is the qhist extend route against the f32
-# flash_extend_attention.
+# kernel but the three tensor-core ones and its plain version both
+# dequantize and compute in f32 from the same bf16 inputs (TF32 off), so
+# they differ only in summation order and fused multiply-adds, about
+# 1e-7 relative.  flash_attention, flash_extend_attention and
+# flash_extend_qhist run their products on the tensor cores with bf16
+# operands, as the Pallas kernels do, and are held per query row to
+# utils.tolerance's FLASH_RTOL, EXTEND_RTOL and QHIST_RTOL (the reasons
+# are there); so is the qhist extend route, against the f32
+# flash_extend_attention_plain.
 ATT_RTOL, ATT_ATOL = 1e-5, 1e-5
 B, H, D, TMAX, T1 = 8, 32, 128, 4096, 128
 # per-slot fills of the per-row decode checks: divergent, 0 = empty slot
@@ -462,11 +465,20 @@ def check_extend(gen, results):
         got = FE.flash_extend_attention(*args, **kw)
         want = FE.flash_extend_attention_plain(*args, **kw)
         torch.cuda.synchronize()
-        worst = max(worst, _att_err(
-            got, want, f"{name} fill={fill} pad={pad} window={sw} "
-                       f"Hkv={heads} r={r} bits={bits} vf={vf}"))
+        what = (f"{name} fill={fill} pad={pad} window={sw} Hkv={heads} "
+                f"r={r} bits={bits} vf={vf} (nkq={c.n_k_quant} "
+                f"nvq={c.n_v_quant})")
+        worst = max(worst, _rows_err(got, want, what, TOL.EXTEND_RTOL))
         if (fill, pad, sw, r) == (896, None, 0, 1):
             timed = (c, args, kw, q, kn, vn)
+            # control: the kernel's own output without the history's
+            # first 64 positions (the kernel at a left pad of 64)
+            ctrl = FE.flash_extend_attention(*args, **dict(
+                kw, pad_len=torch.full((B,), 64, device="cuda",
+                                       dtype=torch.int32)))
+            _refused(TOL.row_share(ctrl, want, TOL.EXTEND_RTOL).max().item(),
+                     f"{name} fill={fill}: control that drops the first 64 "
+                     "history positions")
     qcfg = QuantConfig(2, 2, 32, 128, v_flush=128)
     c, args, kw, q, kn, vn = timed
     T0 = c.seq_len
@@ -676,11 +688,12 @@ def check_split_routes(gen, crossover: list):
     geometry with W = 32, v_flush = 32 (the reference's example
     configuration), left pad 32; both timed at each of CROSS_FILLS.
     Decode: the split route (qk_dequant_matmul, torch softmax,
-    pv_dequant_matmul) vs fused_decode_attention_wide; extend (T1 = 128):
-    the qhist route (flash_extend_qhist + torch merge) vs
-    flash_extend_attention.  The decode pair computes one function in
-    f32 (ATT_RTOL); the qhist kernel rounds its operands to bf16, so the
-    extend pair is held per query row to QHIST_RTOL."""
+    pv_dequant_matmul) vs fused_decode_attention_wide; the pair computes
+    one function in f32 (ATT_RTOL).  Extend (T1 = 128): the qhist route
+    (flash_extend_qhist + torch merge) and flash_extend_attention each
+    against flash_extend_attention_plain, per query row: both round
+    their operands to bf16, so neither is the other's reference; the
+    route at QHIST_RTOL, the fused kernel at EXTEND_RTOL."""
     from kivi_tpu_torch.config import QuantConfig
     from kivi_tpu_torch.core import attention as TA
     from kivi_tpu_torch.kernels import flash_extend as FE
@@ -703,8 +716,12 @@ def check_split_routes(gen, crossover: list):
                                f"{c.seq_len} vs its plain version")
         _att_err(split, fused, f"split decode route vs fused_decode_"
                                f"attention_wide, {geo} fill={c.seq_len}")
-        dec = (cuda_ms(lambda: FD.fused_decode_attention_wide(*args, **kw)),
-               cuda_ms(lambda: TA._decode_attention_split(q, c, qcfg, pad)))
+        # the crossover is set by the routes' host launches: timed as a
+        # host-bound caller sees them (no hold)
+        dec = (cuda_ms(lambda: FD.fused_decode_attention_wide(*args, **kw),
+                       hold=False),
+               cuda_ms(lambda: TA._decode_attention_split(q, c, qcfg, pad),
+                       hold=False))
 
         ce = _ingested_cache(gen, qcfg, fill)
         qe = _randn(gen, (LB, LH, LR * T1, D))
@@ -724,13 +741,15 @@ def check_split_routes(gen, crossover: list):
         eplain = FE.flash_extend_attention_plain(*eargs, **ekw)
         routed = qhist_route().reshape(full.shape)
         torch.cuda.synchronize()
-        _att_err(full, eplain, f"flash_extend_attention {geo} T1={T1} "
-                               f"history={fill} vs its plain version")
-        _rows_err(routed, full, f"qhist extend route vs flash_extend_"
-                                f"attention, {geo} T1={T1} history={fill}",
-                  TOL.QHIST_RTOL)
-        ext = (cuda_ms(lambda: FE.flash_extend_attention(*eargs, **ekw)),
-               cuda_ms(qhist_route))
+        _rows_err(full, eplain, f"flash_extend_attention {geo} T1={T1} "
+                                f"history={fill} vs its plain version",
+                  TOL.EXTEND_RTOL)
+        _rows_err(routed, eplain, f"qhist extend route vs flash_extend_"
+                                  f"attention_plain, {geo} T1={T1} "
+                                  f"history={fill}", TOL.QHIST_RTOL)
+        ext = (cuda_ms(lambda: FE.flash_extend_attention(*eargs, **ekw),
+                       hold=False),
+               cuda_ms(qhist_route, hold=False))
         crossover.append(dict(fill=fill, decode_fused_ms=dec[0],
                               decode_split_ms=dec[1],
                               extend_fused_ms=ext[0],
@@ -877,9 +896,13 @@ def check_fp_decode(gen, results):
     from kivi_tpu_torch.kernels import fp_decode as FD
     name = "fp_decode_attention_kernel"
     worst = 0.0
-    # (fill, KV heads, query rows per KV head, mask)
-    cases = [(1, H, 1, None), (1081, H, 1, None), (TMAX, H, 1, None),
-             (1081, 8, 4, None), (1081, H, 1, "pad"), (1081, H, 1, "swa")]
+    S = FD.SPLIT
+    # (fill, KV heads, query rows per KV head, mask): fills at the edges
+    # of the kernel's splits too
+    cases = [(fill, H, 1, None) for fill in (1, S - 1, S, S + 1, 1081,
+                                             TMAX)]
+    cases += [(1081, 8, 4, None), (1081, H, 1, "pad"), (1081, H, 1, "swa"),
+              (TMAX, 8, 4, "swa")]         # splits from the window's bound
     timed = None
     for fill, heads, r, mask in cases:
         c = FC.init_fp_cache(B, heads, D, TMAX, device="cuda")
@@ -896,10 +919,13 @@ def check_fp_decode(gen, results):
             kw["sliding_window"] = 1000
         got = FD.fp_decode_attention_kernel(q, c.k, c.v, fill, **kw)
         want = FD.fp_decode_attention_plain(q, c.k, c.v, fill, **kw)
+        again = FD.fp_decode_attention_kernel(q, c.k, c.v, fill, **kw)
         torch.cuda.synchronize()
-        worst = max(worst, _att_err(
-            got, want, f"{name} fill={fill} Hkv={heads} r={r} "
-                       f"mask={mask}"))
+        what = f"{name} fill={fill} Hkv={heads} r={r} mask={mask}"
+        if not torch.equal(got, again):
+            raise AssertionError(f"{what}: two runs differ")
+        worst = max(worst, _att_err(got, want, f"{what} (two runs "
+                                               "bit-equal)"))
         if (fill, r, mask) == (1081, 1, None):
             timed = (c, q)
     # per-row lengths (the continuous batcher's slot caches): each row
@@ -921,10 +947,14 @@ def check_fp_decode(gen, results):
             kw["sliding_window"] = 1000
         got = FD.fp_decode_attention_kernel(q, c.k, c.v, c.length, **kw)
         want = FD.fp_decode_attention_plain(q, c.k, c.v, c.length, **kw)
+        again = FD.fp_decode_attention_kernel(q, c.k, c.v, c.length, **kw)
         torch.cuda.synchronize()
         what = (f"{name} per-row lengths {FILLS} Hkv={heads} r={r} "
                 f"mask={mask}")
-        worst = max(worst, _att_err(got, want, what))
+        if not torch.equal(got, again):
+            raise AssertionError(f"{what}: two runs differ")
+        worst = max(worst, _att_err(got, want, f"{what} (two runs "
+                                               "bit-equal)"))
         if got[FILLS.index(0)].abs().max() != 0:
             raise AssertionError(f"{what}: the empty row is not 0")
         if (heads, mask) == (H, None):
@@ -935,9 +965,18 @@ def check_fp_decode(gen, results):
     rows_bms, _ = bound(rows_bytes, 4 * H * sum(FILLS) * D)
     rows_ms = cuda_ms(lambda: FD.fp_decode_attention_kernel(
         q_rows, c_rows.k, c_rows.v, c_rows.length))
+    # yardstick: SDPA over the live K/V of the longest fill, a per-row
+    # boolean mask
+    L = max(FILLS)
+    k_rows = c_rows.k[..., :L].transpose(-1, -2).contiguous()
+    v_rows = c_rows.v[:, :, :L].contiguous()
+    rmask = (torch.arange(L, device="cuda")[None, :]
+             < lens[:, None])[:, None, None]
+    rows_lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q_rows, k_rows, v_rows, attn_mask=rmask))
     log(f"[kernel] {name} per-row lengths {FILLS}: {rows_ms:.4f} ms, bound "
-        f"{rows_bms:.4f} ms")
-    del c_rows, rows
+        f"{rows_bms:.4f} ms, library (SDPA, per-row mask) {rows_lib:.4f} ms")
+    del c_rows, rows, k_rows, v_rows
 
     c, q = timed
     fill = c.length
@@ -953,7 +992,7 @@ def check_fp_decode(gen, results):
                                                               fill)),
         bound_ms=bms, bound_by=by,
         library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
-        rows_ms=rows_ms, rows_bound_ms=rows_bms)
+        rows_ms=rows_ms, rows_bound_ms=rows_bms, rows_library_ms=rows_lib)
     log(f"[kernel] {name} timed at fill {fill}, B={B}, H={H}, r=1")
 
 
@@ -1587,7 +1626,9 @@ def main():
                     "scripts/profile_wide_32k.py:243"),
     }
     yardstick = {"flash_attention": "SDPA, causal",
-                 "fp_decode_attention_kernel": "SDPA over the live K/V",
+                 "fp_decode_attention_kernel": "SDPA over the live K/V; "
+                                               "per-row: with a per-row "
+                                               "mask",
                  "fused_decode_attention": "SDPA, per-row mask, over the "
                                            "cache dequantized to bf16",
                  "qk_dequant_matmul": "torch.matmul over the K store "

@@ -71,7 +71,7 @@ from kivi_tpu_torch.kernels.qk_pv import pv_dequant_matmul, qk_dequant_matmul
 # of host launches, flat in the history; the fused kernels grow with it.
 SPLIT_BLOCKS = 132          # SMs of an H100 SXM
 SPLIT_MIN_HISTORY = 2048    # quantized tokens from which the split wins
-EXTEND_ROWS = 64            # query rows per block of the extend kernel
+EXTEND_ROWS = 128           # query rows per block of the extend kernel
 
 
 def use_split(blocks: int, n_k_quant) -> bool:

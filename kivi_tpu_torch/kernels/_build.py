@@ -89,9 +89,9 @@ SIGNATURES = {
         "kivi_wgmma_tile": [_P] * 3 + [_I] * 2 + [_P],
     },
     "fp_decode": {
-        # q, k, v, pad, lens, out, B, H, r, D, Tmax, length,
-        # sliding_window, sm_scale, stream
-        "kivi_fp_decode": [_P] * 6 + [_I] * 7 + [_F, _P],
+        # q, k, v, pad, lens, out, part_acc, part_ml, tickets, B, H, r, D,
+        # Tmax, length, sliding_window, sm_scale, stream
+        "kivi_fp_decode": [_P] * 9 + [_I] * 7 + [_F, _P],
     },
     "trimmed": {
         # q, k_codes, k_scale, k_mn, v_codes, v_scale, v_mn, out, B, H, r,

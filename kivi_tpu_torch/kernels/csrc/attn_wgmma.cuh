@@ -351,6 +351,11 @@ __device__ __forceinline__ void cp_commit() {
 __device__ __forceinline__ void cp_wait_all() {
     asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
+// Wait until at most N of this thread's committed groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 // Make this thread's shared-memory writes (plain stores, landed cp.async)
 // visible to the async proxy wgmma reads through; a barrier follows.
 __device__ __forceinline__ void fence_async_smem() {

@@ -1,10 +1,9 @@
 // Shared helpers for the port's CUDA kernels: the packed word layout of
 // kivi_tpu_torch/core/quant.py, scalar loads of the storage types, a
-// block-wide reduction (the decode kernels), the KIVI decode body of one
-// (row, KV head) (the two KIVI decode kernels and, with ablations, the
-// decode probe) and the tiled f32 attention step (the extend kernel;
-// the prefill and qhist kernels run on the tensor-core tile of
-// attn_wgmma.cuh).
+// block-wide reduction (the decode kernels) and the KIVI decode body of
+// one (row, KV head) (the two KIVI decode kernels and, with ablations,
+// the decode probe).  The prefill and the two extend kernels run on the
+// tensor-core tile of attn_wgmma.cuh.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -338,137 +337,3 @@ __device__ __forceinline__ void attend(
 }
 
 }  // namespace kdec
-
-// ---------------------------------------------------------------------------
-// Tiled attention of a block of query rows against chunks of keys, used
-// by flash_extend.cu alone (the causal self block plus the cached
-// history; flash.cu and flash_extend_qhist.cu run on the tensor-core
-// tile of attn_wgmma.cuh).  A block of NT = 256 threads owns
-// QT = 64 query rows and walks the keys in chunks of CK = 64 staged in
-// shared memory; products and the online softmax run in f32 on the CUDA
-// cores.  Thread (ty, tx) = (tid / 16, tid % 16) owns rows ty + 16*a
-// (a < RA), logit columns tx + 16*c (c < CA) and output channels
-// tx + 16*e (e < DA); the 16 lanes of a half-warp share a row.
-// ---------------------------------------------------------------------------
-namespace tile {
-
-constexpr int NT = 256, QT = 64, CK = 64, DMAX = 128;
-constexpr int RA = QT / 16, CA = CK / 16, DA = DMAX / 16;
-
-// Shared memory (floats), padded by one column against bank conflicts.
-struct Smem {
-    float* Qs;   // (D, QT+1)  transposed queries
-    float* Ks;   // (D, CK+1)  transposed keys of the chunk
-    float* Vs;   // (CK, D+1)  values of the chunk
-    float* Ps;   // (QT, CK+1) probabilities of the chunk
-};
-
-inline size_t smem_bytes(int D) {
-    return sizeof(float) * (size_t)(D * (QT + 1) + D * (CK + 1)
-                                    + CK * (D + 1) + QT * (CK + 1));
-}
-
-__device__ __forceinline__ Smem carve(float* sm, int D) {
-    Smem s;
-    s.Qs = sm;
-    s.Ks = s.Qs + D * (QT + 1);
-    s.Vs = s.Ks + D * (CK + 1);
-    s.Ps = s.Vs + CK * (D + 1);
-    return s;
-}
-
-__device__ __forceinline__ void init(float (&m)[RA], float (&l)[RA],
-                                     float (&acc)[RA][DA]) {
-#pragma unroll
-    for (int a = 0; a < RA; ++a) {
-        m[a] = KIVI_NEG_INF;
-        l[a] = 0.f;
-#pragma unroll
-        for (int e = 0; e < DA; ++e) acc[a][e] = 0.f;
-    }
-}
-
-// s = Q K^T (unscaled) on this thread's RA x CA patch.
-__device__ __forceinline__ void qk(const Smem& sh, int D, int ty, int tx,
-                                   float (&s)[RA][CA]) {
-#pragma unroll
-    for (int a = 0; a < RA; ++a)
-#pragma unroll
-        for (int c = 0; c < CA; ++c) s[a][c] = 0.f;
-    for (int d = 0; d < D; ++d) {
-        float qv[RA], kv[CA];
-#pragma unroll
-        for (int a = 0; a < RA; ++a)
-            qv[a] = sh.Qs[d * (QT + 1) + ty + 16 * a];
-#pragma unroll
-        for (int c = 0; c < CA; ++c)
-            kv[c] = sh.Ks[d * (CK + 1) + tx + 16 * c];
-#pragma unroll
-        for (int a = 0; a < RA; ++a)
-#pragma unroll
-            for (int c = 0; c < CA; ++c) s[a][c] += qv[a] * kv[c];
-    }
-}
-
-// One online-softmax step over the chunk: scale the logits, take the
-// running max over the entries `ok` admits, rescale l and acc, and write
-// p to Ps.  p is zeroed by the mask itself: on a row with nothing
-// admitted so far m == KIVI_NEG_INF, so exp(s - m) would be 1.  Such a
-// row keeps l == 0.
-__device__ __forceinline__ void softmax_step(const Smem& sh,
-                                             float (&s)[RA][CA],
-                                             const bool (&ok)[RA][CA],
-                                             float sm_scale, float (&m)[RA],
-                                             float (&l)[RA],
-                                             float (&acc)[RA][DA], int ty,
-                                             int tx) {
-#pragma unroll
-    for (int a = 0; a < RA; ++a) {
-        float rmax = KIVI_NEG_INF;
-#pragma unroll
-        for (int c = 0; c < CA; ++c) {
-            s[a][c] *= sm_scale;
-            if (ok[a][c]) rmax = fmaxf(rmax, s[a][c]);
-        }
-        for (int o = 8; o > 0; o >>= 1)
-            rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, o));
-        const float m_new = fmaxf(m[a], rmax);
-        const float alpha = expf(m[a] - m_new);
-        float rsum = 0.f;
-#pragma unroll
-        for (int c = 0; c < CA; ++c) {
-            const float p = ok[a][c] ? expf(s[a][c] - m_new) : 0.f;
-            sh.Ps[(ty + 16 * a) * (CK + 1) + tx + 16 * c] = p;
-            rsum += p;
-        }
-        for (int o = 8; o > 0; o >>= 1)
-            rsum += __shfl_xor_sync(0xffffffffu, rsum, o);
-        l[a] = l[a] * alpha + rsum;
-        m[a] = m_new;
-#pragma unroll
-        for (int e = 0; e < DA; ++e) acc[a][e] *= alpha;
-    }
-}
-
-// acc += P V on this thread's RA x DA patch (after a barrier that makes
-// Ps visible).
-__device__ __forceinline__ void pv(const Smem& sh, int D, int ty, int tx,
-                                   float (&acc)[RA][DA]) {
-    for (int kj = 0; kj < CK; ++kj) {
-        float pv_[RA], vv[DA];
-#pragma unroll
-        for (int a = 0; a < RA; ++a)
-            pv_[a] = sh.Ps[(ty + 16 * a) * (CK + 1) + kj];
-#pragma unroll
-        for (int e = 0; e < DA; ++e) {
-            const int d = tx + 16 * e;
-            vv[e] = d < D ? sh.Vs[kj * (D + 1) + d] : 0.f;
-        }
-#pragma unroll
-        for (int a = 0; a < RA; ++a)
-#pragma unroll
-            for (int e = 0; e < DA; ++e) acc[a][e] += pv_[a] * vv[e];
-    }
-}
-
-}  // namespace tile

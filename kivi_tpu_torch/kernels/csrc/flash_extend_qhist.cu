@@ -40,9 +40,10 @@
 // It walks its split in chunks of CK = 64 positions.  Chunk n+1's packed
 // K/V words and scales are in flight (cp.async into the second of two
 // raw buffers) while chunk n is dequantized by the block's threads into
-// bf16 operand tiles (K: code*scale; V: code*scale + mn below
-// n_v_quant, v_win rows above; zeros past n_k_quant; the zero-point
-// rows hi/lo) and multiplied: S = Q K^T and Z = Q mn^T by wgmma, the
+// bf16 operand tiles (hist_tile.cuh, shared with the full extend kernel:
+// K: code*scale; V: code*scale + mn below n_v_quant, here v_win rows
+// above and zeros past n_k_quant; the zero-point rows hi/lo) and
+// multiplied: S = Q K^T and Z = Q mn^T by wgmma, the
 // groups' q . mn added to S in registers (a quad shuffle), the online
 // softmax on the fragment, O += P V with V read transposed.  A second
 // kernel merges the splits of each row in order: m = max m_s over splits
@@ -51,121 +52,19 @@
 
 #include <limits.h>
 
-#include "attn_wgmma.cuh"
+#include "hist_tile.cuh"
 
 namespace {
 
+using hq::DP;
+using hq::NT;
 constexpr int SPLIT = 512;     // history positions per block (multiple of CK)
 constexpr int CK = 64;         // positions per chunk
 constexpr int QROWS = 128;     // query rows per block: two warpgroups
-constexpr int NT = 256;
-constexpr int DP = 128;       // tile columns (D <= 128 zero-padded)
 constexpr int MERGE_ROWS = 4;  // rows per merge block, one warp each
-
-// Byte offsets of one raw staging buffer: a chunk's packed words, its
-// ngk K scale/min rows (ngk, D) and its V scale/min columns (Dg, CK).
-// Every offset is a multiple of 16 (D % 16 == 0, CK * sb >= 128).
-struct Raw {
-    int kw, vw, ks, km, vs, vm, bytes;
-};
-
-__host__ __device__ inline Raw raw_layout(int KDw, int VDw, int ngk, int D,
-                                          int Dg, int sb) {
-    Raw r;
-    r.kw = 0;
-    r.vw = r.kw + KDw * CK * 4;
-    r.ks = r.vw + VDw * CK * 4;
-    r.km = r.ks + ngk * D * sb;
-    r.vs = r.km + ngk * D * sb;
-    r.vm = r.vs + Dg * CK * sb;
-    r.bytes = r.vm + Dg * CK * sb;
-    return r;
-}
 
 constexpr int tiles_bytes() {   // Q (QROWS), K^ and V^ (CK), Z (16 rows)
     return (QROWS + 2 * CK + 16) * DP * 2;
-}
-
-// Dequantize a chunk's K words into K^ (code * scale, rounded once; zero
-// past n_k_quant) and its V words below n_v_quant into V^ (code * scale
-// + mn, rounded once), at BITS bits.  Word (pos, w) goes to lane
-// (pos % 8, w % 4) of a warp, so a warp's stores fill one 8-row core
-// matrix without bank conflicts.  Scale rows: sc (ngk, D) for K, whose
-// row for chunk position kj is (c0 % gs + kj) >> gsh; (Dg, CK) columns
-// for V.
-__device__ __forceinline__ void word_task(int idx, int* kj, int* w) {
-    const int rest = idx >> 5;
-    *kj = (rest % (CK / 8)) * 8 + (idx & 7);
-    *w = (rest / (CK / 8)) * 4 + ((idx >> 3) & 3);
-}
-
-template <int BITS, typename ST>
-__device__ __forceinline__ void dequant_k(uint8_t* __restrict__ tile,
-                                          const uint32_t* __restrict__ kw_s,
-                                          const ST* __restrict__ ks_s,
-                                          int c0, int nkq, int D, int gsh) {
-    const int Dw = D / (32 / BITS), cmod = c0 & ((1 << gsh) - 1);
-    for (int idx = threadIdx.x; idx < ((Dw + 3) & ~3) * CK; idx += NT) {
-        int kj, w;
-        word_task(idx, &kj, &w);
-        if (w >= Dw) continue;
-        const bool in = c0 + kj < nkq;
-        const uint32_t word = in ? kw_s[w * CK + kj] : 0u;
-        const ST* const sr = ks_s + ((cmod + kj) >> gsh) * D;
-        if (BITS == 8) {
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                const int d = j * Dw + w;
-                *(__nv_bfloat16*)(tile + wg::tile_off<DP>(kj, d)) =
-                    __float2bfloat16((float)((word >> (8 * j)) & 255u)
-                                     * to_f(sr[d]));
-            }
-        } else {
-            constexpr uint32_t mask = (1u << BITS) - 1u;
-#pragma unroll
-            for (int j = 0; j < 16 / BITS; ++j) {
-                const int d = j * 2 * Dw + 2 * w;
-                *(uint32_t*)(tile + wg::tile_off<DP>(kj, d)) = wg::pack_bf16(
-                    (float)((word >> (BITS * j)) & mask) * to_f(sr[d]),
-                    (float)((word >> (16 + BITS * j)) & mask)
-                        * to_f(sr[d + 1]));
-            }
-        }
-    }
-}
-
-template <int BITS, typename ST>
-__device__ __forceinline__ void dequant_v(uint8_t* __restrict__ tile,
-                                          const uint32_t* __restrict__ vw_s,
-                                          const ST* __restrict__ vs_s,
-                                          const ST* __restrict__ vm_s,
-                                          int c0, int nvq, int D, int gsh) {
-    const int Dw = D / (32 / BITS);
-    for (int idx = threadIdx.x; idx < ((Dw + 3) & ~3) * CK; idx += NT) {
-        int kj, w;
-        word_task(idx, &kj, &w);
-        if (w >= Dw || c0 + kj >= nvq) continue;
-        const uint32_t word = vw_s[w * CK + kj];
-        if (BITS == 8) {
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                const int d = j * Dw + w, g = ((d >> gsh) * CK) + kj;
-                *(__nv_bfloat16*)(tile + wg::tile_off<DP>(kj, d)) =
-                    __float2bfloat16(fmaf((float)((word >> (8 * j)) & 255u),
-                                          to_f(vs_s[g]), to_f(vm_s[g])));
-            }
-        } else {
-            constexpr uint32_t mask = (1u << BITS) - 1u;
-#pragma unroll
-            for (int j = 0; j < 16 / BITS; ++j) {
-                const int d = j * 2 * Dw + 2 * w, g = ((d >> gsh) * CK) + kj;
-                const float sc = to_f(vs_s[g]), mn = to_f(vm_s[g]);
-                *(uint32_t*)(tile + wg::tile_off<DP>(kj, d)) = wg::pack_bf16(
-                    fmaf((float)((word >> (BITS * j)) & mask), sc, mn),
-                    fmaf((float)((word >> (16 + BITS * j)) & mask), sc, mn));
-            }
-        }
-    }
 }
 
 template <typename ST>
@@ -201,7 +100,7 @@ qhist_split_kernel(const __nv_bfloat16* __restrict__ q,
     const int Tg = Tmax >> gsh, Dg = D >> gsh, ngk = max(1, CK >> gsh);
     const int pad = pad_ptr ? pad_ptr[b] : 0;
     const long long prow = ((long long)bh * nsplit + sp) * R;
-    const Raw rl = raw_layout(KDw, VDw, ngk, D, Dg, SB);
+    const hq::Raw rl = hq::raw_layout<CK>(KDw, VDw, ngk, D, Dg, SB);
 
     // this thread's two rows and their lower bounds
     int row[2], rlo[2];
@@ -234,68 +133,15 @@ qhist_split_kernel(const __nv_bfloat16* __restrict__ q,
 
     // ---- raw staging of chunk c0 into buffer buf (cp.async) ----
     auto stage_raw = [&](int c0, int buf) {
-        const uint32_t base = wg::smem_addr(p_raw) + buf * rl.bytes;
-        const char* const kc = (const char*)k_codes;
-        const char* const vc = (const char*)v_codes;
-        for (int i = tid; i < KDw * (CK / 4); i += NT) {   // 4 words a copy
-            const int w = i / (CK / 4), c = i % (CK / 4), pos = c0 + 4 * c;
-            const bool ok = pos < nkq;
-            const long long o = (((long long)bh * KDw + w) * Tmax + pos) * 4;
-            wg::cp16(base + rl.kw + (w * CK + 4 * c) * 4, ok ? kc + o : kc,
-                     ok);
-        }
-        for (int i = tid; i < VDw * (CK / 4); i += NT) {
-            const int w = i / (CK / 4), c = i % (CK / 4), pos = c0 + 4 * c;
-            const bool ok = pos < nvq;
-            const long long o = (((long long)bh * VDw + w) * Tmax + pos) * 4;
-            wg::cp16(base + rl.vw + (w * CK + 4 * c) * 4, ok ? vc + o : vc,
-                     ok);
-        }
-        const char* const ks = (const char*)k_scale;
-        const char* const km = (const char*)k_mn;
-        const int rowc = D * SB / 16;          // copies per K scale row
-        for (int i = tid; i < ngk * rowc; i += NT) {
-            const int gi = i / rowc, c = i % rowc, g = (c0 >> gsh) + gi;
-            const bool ok = g < Tg && (g << gsh) < nkq;
-            const long long o = ((long long)bh * Tg + g) * D * SB + c * 16;
-            const uint32_t so = gi * D * SB + c * 16;
-            wg::cp16(base + rl.ks + so, ok ? ks + o : ks, ok);
-            wg::cp16(base + rl.km + so, ok ? km + o : km, ok);
-        }
-        const char* const vs = (const char*)v_scale;
-        const char* const vm = (const char*)v_mn;
-        const int colc = CK * SB / 16;         // copies per V scale row
-        for (int i = tid; i < Dg * colc; i += NT) {
-            const int g = i / colc, c = i % colc, pos = c0 + c * (16 / SB);
-            const bool ok = pos < nvq;
-            const long long o = (((long long)bh * Dg + g) * Tmax + pos) * SB;
-            const uint32_t so = g * CK * SB + c * 16;
-            wg::cp16(base + rl.vs + so, ok ? vs + o : vs, ok);
-            wg::cp16(base + rl.vm + so, ok ? vm + o : vm, ok);
-        }
+        hq::stage_raw<CK>(wg::smem_addr(p_raw) + buf * rl.bytes, rl, k_codes,
+                          k_scale, k_mn, v_codes, v_scale, v_mn, bh, c0, KDw,
+                          VDw, D, Dg, Tmax, Tg, ngk, gsh, nkq, nvq);
     };
 
     // ---- dequantize raw buffer buf into the bf16 operand tiles ----
     auto dequant = [&](int c0, int buf) {
-        const uint8_t* const raw = p_raw + buf * rl.bytes;
-        const uint32_t* const kw_s = (const uint32_t*)(raw + rl.kw);
-        const uint32_t* const vw_s = (const uint32_t*)(raw + rl.vw);
-        const ST* const ks_s = (const ST*)(raw + rl.ks);
-        const ST* const km_s = (const ST*)(raw + rl.km);
-        const ST* const vs_s = (const ST*)(raw + rl.vs);
-        const ST* const vm_s = (const ST*)(raw + rl.vm);
-        if (k_bits == 2)
-            dequant_k<2>(p_k, kw_s, ks_s, c0, nkq, D, gsh);
-        else if (k_bits == 4)
-            dequant_k<4>(p_k, kw_s, ks_s, c0, nkq, D, gsh);
-        else
-            dequant_k<8>(p_k, kw_s, ks_s, c0, nkq, D, gsh);
-        if (v_bits == 2)
-            dequant_v<2>(p_v, vw_s, vs_s, vm_s, c0, nvq, D, gsh);
-        else if (v_bits == 4)
-            dequant_v<4>(p_v, vw_s, vs_s, vm_s, c0, nvq, D, gsh);
-        else
-            dequant_v<8>(p_v, vw_s, vs_s, vm_s, c0, nvq, D, gsh);
+        hq::dequant_chunk<CK, ST>(p_k, p_v, p_z, p_raw + buf * rl.bytes, rl,
+                                  c0, nkq, nvq, D, ngk, gsh, k_bits, v_bits);
         // V^ at and above n_v_quant: v_win rows, zeros past n_k_quant
         const int wlo = min(max(c0, nvq) - c0, CK);
         for (int idx = tid; idx < (CK - wlo) * (D / 8); idx += NT) {
@@ -306,16 +152,6 @@ qhist_split_kernel(const __nv_bfloat16* __restrict__ q,
                 x = *(const uint4*)(v_win + ((long long)bh * W + pos - nvq) * D
                                     + cc * 8);
             *(uint4*)(p_v + wg::tile_off<DP>(kj, cc * 8)) = x;
-        }
-        // Z: the chunk's K min rows, hi (rows 0-7) and lo (rows 8-15)
-        for (int idx = tid; idx < 8 * DP; idx += NT) {
-            const int gi = idx / DP, d = idx % DP;
-            if (d >= D) continue;
-            const float x = gi < ngk ? to_f(km_s[gi * D + d]) : 0.f;
-            const __nv_bfloat16 hi = __float2bfloat16(x);
-            *(__nv_bfloat16*)(p_z + wg::tile_off<DP>(gi, d)) = hi;
-            *(__nv_bfloat16*)(p_z + wg::tile_off<DP>(gi + 8, d)) =
-                __float2bfloat16(x - __bfloat162float(hi));
         }
     };
 
@@ -357,27 +193,7 @@ qhist_split_kernel(const __nv_bfloat16* __restrict__ q,
         wg::fence_regs(s);
         wg::fence_regs(z);
 
-        // q . mn of group g, row h sits in lane (lane & ~3) | g / 2 of the
-        // quad, as z[2h + g % 2] + z[4 + 2h + g % 2]
-        float zs[2][2];
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-#pragma unroll
-            for (int e = 0; e < 2; ++e)
-                zs[h][e] = z[2 * h + e] + z[4 + 2 * h + e];
-        const int cmod = c0 & (gs - 1);
-#pragma unroll
-        for (int j = 0; j < CK / 8; ++j) {
-            const int g = (cmod + 8 * j) >> gsh;    // warp-uniform, < 8
-            const int src = (lane & ~3) | (g >> 1);
-#pragma unroll
-            for (int h = 0; h < 2; ++h) {
-                const float zz = __shfl_sync(
-                    0xffffffffu, (g & 1) ? zs[h][1] : zs[h][0], src);
-                s[4 * j + 2 * h] += zz;
-                s[4 * j + 2 * h + 1] += zz;
-            }
-        }
+        hq::add_qmn<CK>(s, z, c0, gs, gsh);
 
         auto ok = [&](int i) {
             const int h = (i >> 1) & 1, pos = c0 + wg::frag_col(i);
@@ -475,9 +291,9 @@ int launch(const void* q, const void* kc, const void* ks, const void* km,
            float sm_scale, cudaStream_t stream) {
     const int nsplit = (nkq + SPLIT - 1) / SPLIT;
     if (nsplit > 0) {
-        const Raw rl = raw_layout(D / (32 / kb), D / (32 / vb),
-                                  CK / gs > 1 ? CK / gs : 1, D, D / gs,
-                                  (int)sizeof(ST));
+        const hq::Raw rl = hq::raw_layout<CK>(
+            D / (32 / kb), D / (32 / vb), CK / gs > 1 ? CK / gs : 1, D,
+            D / gs, (int)sizeof(ST));
         const int smem = tiles_bytes() + 2 * rl.bytes;
         auto kern = qhist_split_kernel<ST>;
         cudaError_t e = cudaFuncSetAttribute(

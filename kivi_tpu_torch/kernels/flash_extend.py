@@ -6,8 +6,13 @@
 T1 suffix queries attend the full cached history (quantized stores + fp
 windows) plus themselves causally.  The plain version is the JAX
 package's `impl="jnp"` extend attention (`kivi_tpu/core/attention.py:
-277-364`); the kernel computes the same function with an online softmax
-and never materializes the O(T1 * Tmax) logits.
+277-364`), in f32; the kernel computes the same function with an online
+softmax and never materializes the O(T1 * Tmax) logits.  Both kernels
+run their products on the tensor cores with bf16 operands and f32
+accumulation, as the Pallas kernels do at their default
+compute_dtype=bf16, and share the history's dequantization
+(`csrc/hist_tile.cuh`); `utils/tolerance.py` holds them to the plain
+versions per query row.
 
 `flash_extend_qhist` computes the quantized-history part alone, as an
 unnormalized flash state split over T, for the caller to merge with the
@@ -134,8 +139,11 @@ def flash_extend_attention(
         pad_len: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Full extend attention (history + windows + causal self block),
     normalized.  See flash_extend_attention_plain for the contract.  On
-    CUDA: qg, windows and k_new/v_new bf16, scales bf16 or f32,
-    D <= 128."""
+    CUDA: qg, windows and k_new/v_new bf16, scales bf16 or f32, all
+    16-byte aligned, D <= 128 a multiple of 16, group_size a power of two
+    >= 8 dividing n_k_quant; blocks over (128-row query tiles, B*H) on the
+    tensor cores (bf16 operands, f32 accumulation, as the Pallas kernel
+    at its default compute_dtype), 64 positions a step."""
     if not qg.is_cuda:
         return flash_extend_attention_plain(
             qg, k_codes, k_scale, k_mn, v_codes, v_scale, v_mn, k_win,
@@ -146,13 +154,19 @@ def flash_extend_attention(
     B, H, R, D = qg.shape
     Tmax, W, gs = k_codes.shape[-1], k_win.shape[2], group_size
     sdt = k_scale.dtype
-    if R % t1 or D > 128 or D % 16 or D % gs:
+    if (R % t1 or D > 128 or D % 16 or D % gs or gs < 8 or gs & (gs - 1)
+            or Tmax % gs):
         raise ValueError(f"{name}: unsupported R={R} t1={t1} D={D} "
-                         f"gs={gs}")
+                         f"gs={gs} Tmax={Tmax}")
     if k_bits not in (2, 4, 8) or v_bits not in (2, 4, 8):
         raise ValueError(f"{name}: bits must be 2, 4 or 8")
     if sdt not in (torch.bfloat16, torch.float32):
         raise TypeError(f"{name}: scales must be bf16 or f32, got {sdt}")
+    nkq, nkw, nvq = int(n_k_quant), int(n_k_win), int(n_v_quant)
+    if not (0 <= nvq <= nkq + nkw <= Tmax and 0 <= nkw <= W
+            and nkq + nkw - nvq <= W and nkq % gs == 0):
+        raise ValueError(f"{name}: counters n_k_quant={nkq} n_k_win={nkw} "
+                         f"n_v_quant={nvq} W={W} Tmax={Tmax} gs={gs}")
     _build.check_tensors(name, qg.device, {
         "qg": (qg, (B, H, R, D), torch.bfloat16),
         "k_codes": (k_codes, (B, H, Q.num_words(D, k_bits), Tmax),
@@ -168,6 +182,8 @@ def flash_extend_attention(
         "k_new": (k_new, (B, H, t1, D), torch.bfloat16),
         "v_new": (v_new, (B, H, t1, D), torch.bfloat16),
     })
+    _build.check_aligned(name, qg, k_codes, k_scale, k_mn, v_codes,
+                         v_scale, v_mn, k_win, v_win, k_new, v_new)
     if pad_len is not None:
         pad_len = pad_len.to(device=qg.device, dtype=torch.int32)
         pad_len = pad_len.reshape(B).contiguous()
@@ -179,8 +195,7 @@ def flash_extend_attention(
         v_mn.data_ptr(), k_win.data_ptr(), v_win.data_ptr(),
         k_new.data_ptr(), v_new.data_ptr(), _build.ptr(pad_len),
         out.data_ptr(), B, H, R, t1, D, Tmax, W, gs, k_bits, v_bits,
-        int(n_k_quant), int(n_k_win), int(n_v_quant),
-        int(sliding_window or 0), int(sdt == torch.float32),
+        nkq, nkw, nvq, int(sliding_window or 0), int(sdt == torch.float32),
         1.0 / math.sqrt(D), _build.stream_handle(qg.device))
     _build.check(err, name)
     _build.LAUNCHES[name] += 1

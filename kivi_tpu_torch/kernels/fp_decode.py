@@ -24,6 +24,7 @@ or raises.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -33,6 +34,19 @@ from kivi_tpu_torch.kernels import _build
 
 NEG_INF = -1e30
 _ROWS = (1, 2, 4, 8)  # query rows per KV head the kernel is built for
+SPLIT = 256           # positions per block of the kernel (csrc S)
+
+
+@functools.lru_cache(maxsize=16)
+def _workspace(device, BH: int, r: int, D: int, Tmax: int):
+    """The kernel's per-split partials (acc (BH * nsplit * r * D), (m, l)
+    pairs) and its per-head tickets (zero; every launch leaves them
+    zero), for at most ceil(Tmax / SPLIT) splits: allocated once per
+    device and shape, reused by every call (one stream)."""
+    n = BH * -(-Tmax // SPLIT) * r
+    f32 = dict(dtype=torch.float32, device=device)
+    return (torch.empty(n * D, **f32), torch.empty(2 * n, **f32),
+            torch.zeros(BH, dtype=torch.int32, device=device))
 
 
 def fp_decode_attention_plain(qg, k, v, length, *,
@@ -79,10 +93,12 @@ def fp_decode_attention_kernel(qg, k, v, length, *,
                                pad_len: Optional[torch.Tensor] = None
                                ) -> torch.Tensor:
     """Flash-decode over the fp cache; see fp_decode_attention_plain for
-    the contract.  On CUDA: qg, k and v contiguous bf16, r in
-    (1, 2, 4, 8), D <= 128; a host-int length in [1, Tmax], or a (B,)
-    int tensor on the device read per row by the kernel (no host sync;
-    the kernel clamps each row into [0, Tmax])."""
+    the contract.  On CUDA: qg, k and v contiguous bf16, 16-byte
+    aligned, r in (1, 2, 4, 8), D <= 128 and Tmax multiples of 8; a
+    host-int length in [1, Tmax], or a (B,) int tensor on the device read
+    per row by the kernel (no host sync; the kernel clamps each row into
+    [0, Tmax]).  One launch: blocks over (SPLIT-position splits, B*H),
+    the last block of each head merging its splits in order."""
     if not qg.is_cuda:
         return fp_decode_attention_plain(qg, k, v, length,
                                          sliding_window=sliding_window,
@@ -98,8 +114,8 @@ def fp_decode_attention_kernel(qg, k, v, length, *,
                              f"shape ({B},), got {tuple(lens.shape)}")
         length = 0
     length = int(length)
-    if r not in _ROWS or D > 128 or (lens is None
-                                     and not 1 <= length <= Tmax):
+    if r not in _ROWS or D > 128 or D % 8 or Tmax % 8 or (
+            lens is None and not 1 <= length <= Tmax):
         raise ValueError(f"{name}: unsupported r={r} D={D} "
                          f"length={length} Tmax={Tmax}")
     _build.check_tensors(name, qg.device, {
@@ -107,14 +123,17 @@ def fp_decode_attention_kernel(qg, k, v, length, *,
         "k": (k, (B, H, D, Tmax), torch.bfloat16),
         "v": (v, (B, H, Tmax, D), torch.bfloat16),
     })
+    _build.check_aligned(name, qg, k, v)
     if pad_len is not None:
         pad_len = pad_len.to(device=qg.device, dtype=torch.int32)
         pad_len = pad_len.reshape(B).contiguous()
     out = torch.empty((B, H, r, D), dtype=torch.float32, device=qg.device)
+    part_acc, part_ml, tickets = _workspace(qg.device, B * H, r, D, Tmax)
     lib = _build.library("fp_decode")
     err = lib.kivi_fp_decode(
         qg.data_ptr(), k.data_ptr(), v.data_ptr(), _build.ptr(pad_len),
-        _build.ptr(lens), out.data_ptr(), B, H, r, D, Tmax, length,
+        _build.ptr(lens), out.data_ptr(), part_acc.data_ptr(),
+        part_ml.data_ptr(), tickets.data_ptr(), B, H, r, D, Tmax, length,
         int(sliding_window or 0), 1.0 / math.sqrt(D),
         _build.stream_handle(qg.device))
     _build.check(err, name)

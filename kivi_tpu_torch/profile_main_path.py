@@ -61,7 +61,7 @@ OURS = {"quantize_pack_kernel": "quantize_pack_k/v",
         "fused_decode_rows_kernel": "fused_decode_attention",
         "flash_extend_kernel": "flash_extend_attention",
         "flash_prefill_kernel": "flash_attention",
-        "fp_decode_kernel": "fp_decode_attention_kernel",
+        "fp_decode_split_kernel": "fp_decode_attention_kernel",
         "qk_kernel": "qk_dequant_matmul",
         "pv_split_kernel": "pv_dequant_matmul",
         "pv_reduce_kernel": "pv_dequant_matmul",

@@ -13,7 +13,8 @@ host or the card.  On CUDA the runs are timed by CUDA events, on the CPU
 
 `cuda_ms` is the kernel timer of `chip_smoke.py`'s table: the median of
 single calls by CUDA events, each finding the L2 cache holding other
-data.  `bound` is the least time the H100 could take for some work.
+data, with the host's enqueue kept out of the device time.  `bound` is
+the least time the H100 could take for some work.
 """
 
 from __future__ import annotations
@@ -94,12 +95,23 @@ def bench_fn(fn: Callable, *args, iters: int = 50, repeats: int = 3) -> float:
                       repeats=repeats)
 
 
-def cuda_ms(fn: Callable, iters: int = 20, warmup: int = 3) -> float:
+HOLD_CYCLES = 1_000_000   # ~0.5 ms of the SM clock: the host's head start
+
+
+def cuda_ms(fn: Callable, iters: int = 20, warmup: int = 3,
+            hold: bool = True) -> float:
     """Median milliseconds of fn() by CUDA events.  Each timed call finds
     the 50 MB L2 holding other, clean data, as on the main path, where a
     layer's weights pass through L2 between two calls of the same kernel
     (reading the scrub buffer, not writing it, leaves no dirty lines to
-    write back during the timed call)."""
+    write back during the timed call).  With `hold`, the device is then
+    held busy for HOLD_CYCLES (torch.cuda._sleep) before the start event,
+    so that fn's launches are enqueued before the device reaches it: the
+    time between the events is the device's, not the host's enqueue (a
+    wrapper's checks and its ctypes call take tens of microseconds, as
+    long as a small kernel).  Without it, a call whose host enqueue
+    outlasts its device work (a route of many small launches) is timed at
+    its enqueue, as a host-bound caller sees it."""
     scrub = torch.ones(64 << 20, dtype=torch.int8, device="cuda")
     for _ in range(warmup):
         fn()
@@ -107,6 +119,8 @@ def cuda_ms(fn: Callable, iters: int = 20, warmup: int = 3) -> float:
     times = []
     for _ in range(iters):
         scrub.amax()
+        if hold:
+            torch.cuda._sleep(HOLD_CYCLES)
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()

@@ -1,12 +1,13 @@
 """How the tensor-core attention kernels are held to their plain versions.
 
-`flash_attention` and `flash_extend_qhist` run their products with bf16
-operands and f32 accumulation, as the Pallas kernels do; their plain
-versions compute in f32.  Each query row is held to its own scale, never
-to the largest value of the whole output: a row's output is a weighted
-mean of values, and rows that average many keys come out an order of
-magnitude smaller than a row that sees a handful, so a whole-tensor scale
-would let a late row lose a chunk of its keys unseen.
+`flash_attention`, `flash_extend_attention` and `flash_extend_qhist` run
+their products with bf16 operands and f32 accumulation, as the Pallas
+kernels do; their plain versions compute in f32.  Each query row is held
+to its own scale, never to the largest value of the whole output: a
+row's output is a weighted mean of values, and rows that average many
+keys come out an order of magnitude smaller than a row that sees a
+handful, so a whole-tensor scale would let a late row lose a chunk of
+its keys unseen.
 
 Per row: max over d |got - want| <= rtol * max over d |want| + ATOL.
 
@@ -23,6 +24,14 @@ once.  The kernel's state is rescaled to the plain version's max before
 acc and l are compared (the pair (acc, l) is defined up to the factor
 exp(m)); m, an absolute logit, is held to the largest |m| of the output.
 
+EXTEND_RTOL: the full extend kernel rounds as qhist does over the
+history (K^ = code * scale with q . mn apart, V^ = code * scale + mn, p),
+and over the fp window and its own causal block only p (k, v and q are
+bf16 already); its output is normalized in f32 and not rounded.  So the
+same 8 * 2^-8 of each row's largest value, for the same reasons: the
+dequantized operands' rounding, relative to the group's whole range,
+dominates a row that attends the history.
+
 tests/test_torch_tolerance.py models the kernels' rounding on the CPU
 and holds it within half of each limit, and checks that a control which
 drops one chunk of keys is refused.
@@ -34,6 +43,7 @@ import torch
 
 FLASH_RTOL = 4 * 2.0 ** -8
 QHIST_RTOL = 8 * 2.0 ** -8
+EXTEND_RTOL = 8 * 2.0 ** -8
 ATOL = 1e-5
 NEG_INF = -1e30
 

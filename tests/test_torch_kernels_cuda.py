@@ -12,19 +12,25 @@ Tolerances (chip_smoke.py's):
     inputs, summed in another order);
   * the one tensor-core tile: 1e-5 relative (exact bf16 products, f32
     sums in another order);
-  * the tensor-core kernels flash_attention and flash_extend_qhist
-    against their f32 plain versions: each query row within
-    utils.tolerance.FLASH_RTOL / QHIST_RTOL of its own largest value
-    (the reasons are in that module).
+  * the tensor-core kernels flash_attention, flash_extend_attention and
+    flash_extend_qhist against their f32 plain versions: each query row
+    within utils.tolerance.FLASH_RTOL / EXTEND_RTOL / QHIST_RTOL of its
+    own largest value (the reasons are in that module);
+  * fp_decode_attention_kernel (f32 on the CUDA cores, split over T):
+    max|kernel - plain| <= 1e-5 * max|plain| + 1e-5, and two runs
+    bit-equal.
 """
 
 import pytest
 import torch
 
 from kivi_tpu_torch import profile_wide_32k as PW
+from kivi_tpu_torch.cache import fp_cache as FC
+from kivi_tpu_torch.cache import kivi_cache as KC
 from kivi_tpu_torch.config import QuantConfig
 from kivi_tpu_torch.kernels import flash as FL
 from kivi_tpu_torch.kernels import flash_extend as FE
+from kivi_tpu_torch.kernels import fp_decode as FD
 from kivi_tpu_torch.utils import tolerance as TOL
 
 
@@ -133,7 +139,6 @@ def test_flash_extend_qhist_matches_plain(cuda, fill, pads, sw, bits, W,
     long slice's geometry (8 KV heads, r = 4, T1 = 128, a 16K cache),
     each row within QHIST_RTOL: rows that see nothing exactly (0, -1e30,
     0)."""
-    from kivi_tpu_torch.cache import kivi_cache as KC
     qcfg = QuantConfig(bits, bits, 32, W, v_flush=vf)
     batch = 1 if pads is None else len(pads)
     gen = torch.Generator(device="cuda")
@@ -153,3 +158,132 @@ def test_flash_extend_qhist_matches_plain(cuda, fill, pads, sw, bits, W,
                     FE.flash_extend_qhist_plain(*args, **kw), TOL.QHIST_RTOL,
                     f"qhist history={fill} pads={pads} sw={sw} bits={bits} "
                     f"D={d}")
+
+
+# (history, pads of the two batch rows, sliding window, KV heads, r, bits,
+# v_flush, scale dtype, D): chip_smoke.check_extend's main-path fills and
+# the kernel's edge cases
+EXTEND_CASES = [
+    (0, None, 0, 32, 1, 2, 128, "bfloat16", 128),
+    (128, None, 0, 32, 1, 2, 128, "bfloat16", 128),
+    (896, None, 0, 32, 1, 2, 128, "bfloat16", 128),
+    (3000, None, 0, 32, 1, 2, 128, "bfloat16", 128),
+    # n_v_quant 96 < n_k_quant 128: window V rows [96, 200) read v_win,
+    # the first 32 of them beside quantized K
+    (200, None, 0, 32, 1, 2, 32, "bfloat16", 128),
+    (896, (64, 64), 0, 32, 1, 2, 128, "bfloat16", 128),   # padded 1st chunk
+    (128, (0, 200), 0, 32, 1, 2, 128, "bfloat16", 128),   # pad past history
+    (1000, None, 300, 32, 1, 4, 32, "bfloat16", 128),     # sliding window
+    (384, (0, 150), 0, 8, 4, 8, 32, "bfloat16", 128),     # GQA, 8-bit
+    (896, (0, 37), 0, 32, 1, 2, 128, "float32", 128),     # f32 scales
+    (500, (0, 37), 200, 8, 2, 4, 32, "bfloat16", 64),     # D = 64
+]
+
+
+@pytest.mark.parametrize("fill,pads,sw,heads,r,bits,vf,sdt,d", EXTEND_CASES)
+def test_flash_extend_attention_matches_plain(cuda, fill, pads, sw, heads,
+                                              r, bits, vf, sdt, d):
+    """Row 3 on the tensor cores against its f32 plain version (B = 2,
+    T1 = 128, a 4K cache), each query row within EXTEND_RTOL of its own
+    largest value; and bit-equal across two runs."""
+    B, t1 = 2, 128
+    qcfg = QuantConfig(bits, bits, 32, 128, v_flush=vf, scale_dtype=sdt)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(fill + bits + d + heads)
+    c = KC.init_layer_cache(B, heads, d, 4096, qcfg, device="cuda")
+    if fill:
+        KC.prefill_ingest(c, _randn(gen, (B, heads, fill, d)),
+                          _randn(gen, (B, heads, fill, d)), qcfg)
+    q = _randn(gen, (B, heads, r * t1, d))
+    kn, vn = _randn(gen, (B, heads, t1, d)), _randn(gen, (B, heads, t1, d))
+    pad_len = (None if pads is None else
+               torch.tensor(pads, device="cuda", dtype=torch.int32))
+    args = (q, c.k_codes, c.k_scale, c.k_mn, c.v_codes, c.v_scale, c.v_mn,
+            c.k_win, c.v_win, kn, vn, c.n_k_quant, c.n_k_win, c.n_v_quant)
+    kw = dict(group_size=32, k_bits=bits, v_bits=bits, t1=t1,
+              sliding_window=sw, pad_len=pad_len)
+    got = FE.flash_extend_attention(*args, **kw)
+    TOL.check_rows(got, FE.flash_extend_attention_plain(*args, **kw),
+                   TOL.EXTEND_RTOL,
+                   f"extend fill={fill} pads={pads} sw={sw} Hkv={heads} "
+                   f"r={r} bits={bits} vf={vf} {sdt} D={d} (nkq="
+                   f"{c.n_k_quant} nvq={c.n_v_quant})")
+    assert torch.equal(got, FE.flash_extend_attention(*args, **kw))
+
+
+FP_TMAX = 4096
+FP_FILLS = (1, 137, 640, 1081, 2048, 3000, 4000, 0)   # chip_smoke.FILLS
+
+
+def _fp_cache(gen, batch, heads, lens):
+    """An fp cache whose whole buffer is random (positions past a row's
+    length must not count), holding `lens` (an int, or per-row)."""
+    if isinstance(lens, int):
+        c = FC.init_fp_cache(batch, heads, 128, FP_TMAX, device="cuda")
+        c.length = lens
+    else:
+        c = FC.init_fp_slot_cache(batch, heads, 128, FP_TMAX, device="cuda")
+        c.length.copy_(torch.tensor(lens, device="cuda", dtype=torch.int32))
+    c.k.copy_(_randn(gen, c.k.shape))
+    c.v.copy_(_randn(gen, c.v.shape))
+    return c
+
+
+def _fp_check(got, want, what):
+    err = (got - want).abs().max().item()
+    assert torch.isfinite(got).all(), what
+    assert err <= 1e-5 * want.abs().max().item() + 1e-5, (what, err)
+
+
+S = FD.SPLIT
+
+
+@pytest.mark.parametrize("fill", [1, S - 1, S, S + 1, 1081, FP_TMAX])
+@pytest.mark.parametrize("heads,r,mask", [(32, 1, None), (8, 4, "pad"),
+                                          (32, 1, "swa")])
+def test_fp_decode_matches_plain(cuda, fill, heads, r, mask):
+    """Row 9 (split over T) against its plain version at host-int fills
+    around the split size, with a left pad, a sliding window and GQA;
+    two runs bit-equal."""
+    B = 4
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(fill + r)
+    c = _fp_cache(gen, B, heads, fill)
+    q = _randn(gen, (B, heads, r, 128))
+    kw = {}
+    if mask == "pad":
+        kw["pad_len"] = torch.tensor([0, 37, 300, fill], device="cuda",
+                                     dtype=torch.int32)
+    elif mask == "swa":
+        kw["sliding_window"] = 300
+    got = FD.fp_decode_attention_kernel(q, c.k, c.v, fill, **kw)
+    _fp_check(got, FD.fp_decode_attention_plain(q, c.k, c.v, fill, **kw),
+              f"fp decode fill={fill} Hkv={heads} r={r} {mask}")
+    assert torch.equal(got, FD.fp_decode_attention_kernel(q, c.k, c.v, fill,
+                                                          **kw))
+    if mask == "pad":                  # row 3 padded past its length
+        assert (got[3] == 0).all()
+
+
+@pytest.mark.parametrize("heads,r,mask", [(32, 1, None), (8, 4, "pad"),
+                                          (32, 1, "swa"), (8, 8, None)])
+def test_fp_decode_rows_match_plain(cuda, heads, r, mask):
+    """Per-row lengths (the batcher's slot caches) at chip_smoke's fills,
+    0 for an empty slot: within the tolerance, the empty row exactly 0,
+    two runs bit-equal."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(r)
+    c = _fp_cache(gen, len(FP_FILLS), heads, FP_FILLS)
+    q = _randn(gen, (len(FP_FILLS), heads, r, 128))
+    kw = {}
+    if mask == "pad":
+        kw["pad_len"] = torch.tensor([0, 0, 37, 300, 1000, 5, 3999, 0],
+                                     device="cuda", dtype=torch.int32)
+    elif mask == "swa":
+        kw["sliding_window"] = 1000
+    got = FD.fp_decode_attention_kernel(q, c.k, c.v, c.length, **kw)
+    _fp_check(got, FD.fp_decode_attention_plain(q, c.k, c.v, c.length, **kw),
+              f"fp decode per-row Hkv={heads} r={r} {mask}")
+    assert (got[FP_FILLS.index(0)] == 0).all()
+    assert torch.equal(got, FD.fp_decode_attention_kernel(q, c.k, c.v,
+                                                          c.length, **kw))

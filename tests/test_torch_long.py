@@ -160,7 +160,7 @@ def test_slice_flush_schedule_matches_jax():
 
 def test_split_rule_keeps_the_fused_paths():
     """The rule at full size: the engine main path (Llama-2 MHA, batch
-    8: 256 decode blocks, 512 extend blocks of 128-token chunks) and the
+    8: 256 decode blocks, 256 extend blocks of 128-token chunks) and the
     batcher (per-row device counters) keep the fused kernels; the long
     slice (batch 1, 8 KV heads, r = 4) splits once its history passes
     SPLIT_MIN_HISTORY."""

@@ -3,9 +3,10 @@
 The kernels themselves run only on the card (tests/test_torch_kernels_cuda
 .py, chip_smoke.py).  Here their rounding is modelled on the CPU from the
 plain versions' inputs (bf16 p with the running max of 128-key or 64-key
-chunks, a bf16 output; for qhist bf16 K^ = code * scale with the zero
-point added in f32, and bf16 V^) and held within half of each limit, and
-a control that drops one chunk of keys must be refused.
+chunks, a bf16 output; for qhist and the full extend kernel bf16
+K^ = code * scale with the zero point added in f32, and bf16 V^) and held
+within half of each limit, and a control that drops one chunk of keys
+must be refused.
 """
 
 import math
@@ -115,6 +116,74 @@ def test_qhist_rounding_within_half_the_limit(bits):
     ctrl = FE.flash_extend_qhist_plain(*args, **kw,
                                        pad_len=torch.tensor([64]))
     assert max(TOL.state_shares(ctrl, want, TOL.QHIST_RTOL).values()) > 1
+
+
+def _extend_case(bits, fill, vf, r=2, t1=32, H=2, D=128, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    qcfg = QuantConfig(bits, bits, 32, 128, v_flush=vf)
+    c = KC.init_layer_cache(2, H, D, 1024, qcfg, device="cpu")
+    rnd = lambda *shape: torch.randn(*shape, generator=gen).to(torch.bfloat16)
+    KC.prefill_ingest(c, rnd(2, H, fill, D), rnd(2, H, fill, D), qcfg)
+    qg, kn, vn = rnd(2, H, r * t1, D), rnd(2, H, t1, D), rnd(2, H, t1, D)
+    args = (qg, c.k_codes, c.k_scale, c.k_mn, c.v_codes, c.v_scale, c.v_mn,
+            c.k_win, c.v_win, kn, vn, c.n_k_quant, c.n_k_win, c.n_v_quant)
+    return c, args, dict(group_size=32, k_bits=bits, v_bits=bits, t1=t1)
+
+
+def _extend_model(c, qg, kn, vn, bits, t1, sw, pad):
+    """The full extend kernel's output: K^ = code * scale rounded to bf16
+    with the zero point added in f32, V^ = code * scale + mn rounded to
+    bf16 below n_v_quant, then the v_win rows up to T0 and the new rows;
+    p rounded to bf16 with the running max of 64-position chunks."""
+    nkq, nkw, nvq = c.n_k_quant, c.n_k_win, c.n_v_quant
+    T0 = nkq + nkw
+    B, H, R, D = qg.shape
+    zero = torch.zeros_like(c.k_mn)
+    k = _bf16(Q.dequantize_k(c.k_codes, c.k_scale, zero, 32, bits))
+    k = k + Q.dequantize_k(c.k_codes * 0, c.k_scale, c.k_mn, 32, bits)
+    k = torch.cat([k.transpose(-1, -2)[:, :, :nkq],
+                   c.k_win[:, :, :nkw].float(), kn.float()], 2)
+    v = _bf16(Q.dequantize_v(c.v_codes, c.v_scale, c.v_mn, 32, bits))
+    v = torch.cat([v[:, :, :nvq], c.v_win[:, :, :T0 - nvq].float(),
+                   vn.float()], 2)
+    q5 = qg.float().reshape(B, H, R // t1, t1, D)
+    s = q5 @ k[:, :, None].transpose(-1, -2) / math.sqrt(D)
+    pos = torch.arange(T0 + t1)
+    qpos = T0 + torch.arange(t1)[:, None]
+    lo = torch.zeros((B, 1, 1, 1, 1), dtype=torch.long)
+    if pad is not None:
+        lo = pad.reshape(B, 1, 1, 1, 1)
+    if sw:
+        lo = torch.maximum(lo, qpos - (sw - 1))
+    valid = (pos <= qpos) & ((pos >= lo) | (pos == qpos))
+    n = -(-(T0 + t1) // 64) * 64               # whole 64-position chunks
+    s = torch.nn.functional.pad(s, (0, n - T0 - t1))
+    valid = torch.nn.functional.pad(valid.expand(s.shape[:-1] + (T0 + t1,)),
+                                    (0, n - T0 - t1))
+    p, l, _ = _online_p(s, valid, 64)
+    out = p[..., :T0 + t1] @ v[:, :, None] / l[..., None]
+    return out.reshape(B, H, R, D)
+
+
+@pytest.mark.parametrize("bits,fill,vf,sw,pad", [
+    (2, 500, 128, 0, None), (4, 200, 32, 0, (0, 37)),
+    (8, 460, 32, 150, None), (2, 330, 32, 100, (64, 0)),
+    (2, 100, 32, 0, (0, 200))])                 # rows padded past T0
+def test_extend_rounding_within_half_the_limit(bits, fill, vf, sw, pad):
+    c, args, kw = _extend_case(bits, fill, vf, seed=bits + fill)
+    pad_len = None if pad is None else torch.tensor(pad)
+    want = FE.flash_extend_attention_plain(*args, **kw, sliding_window=sw,
+                                           pad_len=pad_len)
+    model = _extend_model(c, args[0], args[9], args[10], bits, kw["t1"], sw,
+                          pad_len)
+    _, share = TOL.check_rows(model, want, TOL.EXTEND_RTOL,
+                              f"extend model {bits} {fill}")
+    assert share <= 0.5
+    # control: the history without its first 64 positions
+    if pad is None and not sw:
+        ctrl = FE.flash_extend_attention_plain(*args, **kw,
+                                               pad_len=torch.full((2,), 64))
+        assert TOL.row_share(ctrl, want, TOL.EXTEND_RTOL).max() > 1
 
 
 def test_check_state_empty_rows_exact():
