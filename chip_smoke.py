@@ -11,8 +11,10 @@ Phases (any failure raises; the exit code is then non-zero):
      bound and a one-call PyTorch yardstick (the three tensor-core
      kernels per query row at utils.tolerance's limits, beside a control
      that drops one chunk of keys and must be refused, and their wgmma
-     tile alone against torch.matmul; the split fp decode kernel also
-     bit-equal across two runs); the split routes (split decode against
+     tile alone against torch.matmul; the three split decode kernels (fp,
+     and the KIVI body of rows 4 and 6) also bit-equal across two runs,
+     the KIVI ones beside a control that drops the first split and must
+     be refused); the split routes (split decode against
      the fused kernel, the qhist extend route and the fused extend
      kernel against the plain extend) on the same inputs at the long
      slice's geometry, timed at histories of 1K-12K (the crossover behind
@@ -186,16 +188,16 @@ def check_quant(gen, results):
 
 
 def _filled_cache(gen, qcfg, fill: int, heads: int = H, batch: int = B,
-                  tmax: int = TMAX):
-    """A (batch, heads, D, tmax) cache holding `fill` tokens, the last one
+                  tmax: int = TMAX, d: int = D):
+    """A (batch, heads, d, tmax) cache holding `fill` tokens, the last one
     just appended by decode_append (the state decode attention reads)."""
     from kivi_tpu_torch.cache import kivi_cache as KC
-    c = KC.init_layer_cache(batch, heads, D, tmax, qcfg, device="cuda")
+    c = KC.init_layer_cache(batch, heads, d, tmax, qcfg, device="cuda")
     if fill > 1:
-        KC.prefill_ingest(c, _randn(gen, (batch, heads, fill - 1, D)),
-                          _randn(gen, (batch, heads, fill - 1, D)), qcfg)
-    KC.decode_append(c, _randn(gen, (batch, heads, 1, D)),
-                     _randn(gen, (batch, heads, 1, D)), qcfg)
+        KC.prefill_ingest(c, _randn(gen, (batch, heads, fill - 1, d)),
+                          _randn(gen, (batch, heads, fill - 1, d)), qcfg)
+    KC.decode_append(c, _randn(gen, (batch, heads, 1, d)),
+                     _randn(gen, (batch, heads, 1, d)), qcfg)
     return c
 
 
@@ -251,28 +253,78 @@ def _att_err(got, want, what):
     return err
 
 
+def _control_refused(ctrl, want, what):
+    """A control (a kernel's output without its first split) must miss
+    the plain version by more than the attention tolerance."""
+    err = (ctrl - want).abs().max().item()
+    limit = ATT_RTOL * want.abs().max().item() + ATT_ATOL
+    if err <= limit:
+        raise AssertionError(f"{what}: the check passed a control without "
+                             "the first split")
+    log(f"[kernel] {what}: control without the first split refused, "
+        f"max|diff| {err:.3e} = {err / limit:.1f}x the limit")
+
+
+def _twice(fn, what):
+    """Run a kernel twice: the two outputs must be bit-equal."""
+    got = fn()
+    again = fn()
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError(f"{what}: two runs differ")
+    return got
+
+
 def check_decode(gen, results):
+    """Row 4 (split over T in SPLIT-position splits) against its plain
+    version: fills around the split size, 1081 (the main path) and Tmax
+    at bits 2/4/8; n_v_quant < n_k_quant; a window across two splits
+    with a first split straddling n_v_quant < n_k_quant ("span"); left
+    pads ("pad", rows 0-259; "padx", rows 0-1050, whole splits dead) and
+    a sliding window; r 1/4/8, f32 scales, D = 64; every case bit-equal
+    across two runs; a control without the first split refused."""
     import torch.nn.functional as F
 
+    from kivi_tpu_torch import profile_wide_32k as PW
     from kivi_tpu_torch.config import QuantConfig
     from kivi_tpu_torch.kernels import fused_decode_wide as FD
     name = "fused_decode_attention_wide"
+    S = FD.SPLIT
     worst = 0.0
-    # (bits, v_flush, fill, mask, KV heads, query rows per KV head)
-    cases = [(bits, 128, fill, None, H, 1) for bits in (2, 4, 8)
+    # (bits, v_flush, fill, mask, KV heads, query rows per KV head, scale
+    # dtype, D)
+    bf, f32 = "bfloat16", "float32"
+    cases = [(bits, 128, fill, None, H, 1, bf, D) for bits in (2, 4, 8)
              for fill in (1, 1024 + 57, TMAX)]
-    cases += [(2, 32, 1024 + 57, None, H, 1),     # n_v_quant < n_k_quant
-              (2, 128, 1024 + 57, "pad", H, 1),
-              (4, 32, 1024 + 57, "swa", H, 1),     # lo = seq_len - 1000
-              (2, 128, 1024 + 57, "pad", 8, 4)]    # Llama-3 GQA geometry
+    cases += [(2, 128, fill, None, H, 1, bf, D)
+              for fill in (S - 1, S, S + 1, 2 * S + 57)]
+    cases += [(2, 32, 1024 + 57, None, H, 1, bf, D),  # n_v_quant < n_k_quant
+              (2, 128, 1024 + 57, "pad", H, 1, bf, D),
+              (4, 32, 1024 + 57, "swa", H, 1, bf, D),   # lo = seq_len - 1000
+              (2, 128, 1024 + 57, "pad", 8, 4, bf, D),  # Llama-3 GQA geometry
+              (2, 128, 1024 + 57, "padx", H, 1, bf, D),
+              (2, 128, "span", None, H, 1, bf, D),
+              (4, 128, "span", "pad", 8, 4, bf, D),
+              (8, 32, 1024 + 57, "padx", 8, 8, f32, D),
+              (4, 32, 2 * S + 57, "pad", 8, 4, f32, 64)]
     timed = None
-    for bits, vf, fill, mask, heads, r in cases:
-        qcfg = QuantConfig(bits, bits, 32, 128, v_flush=vf)
-        c = _filled_cache(gen, qcfg, fill, heads)
-        q = _randn(gen, (B, heads, r, D))
+    for bits, vf, fill, mask, heads, r, sdt, d in cases:
+        if fill == "span":
+            # n_k_quant 200, n_k_win 100, n_v_quant 180 (W 128): the
+            # window spans splits 0 and 1, split 0 straddles n_v_quant
+            q, c = PW.make_cache(B, TMAX, 200, heads=heads, r=r, bits=bits,
+                                 seed=bits + r, data="normal")
+            c.n_k_win, c.n_v_quant, c.n_v_win = 100, 180, 120
+        else:
+            qcfg = QuantConfig(bits, bits, 32, 128, v_flush=vf,
+                               scale_dtype=sdt)
+            c = _filled_cache(gen, qcfg, fill, heads, d=d)
+            q = _randn(gen, (B, heads, r, d))
         lo = None
         if mask == "pad":
             lo = torch.arange(B, device="cuda", dtype=torch.int32) * 37
+        elif mask == "padx":
+            lo = torch.arange(B, device="cuda", dtype=torch.int32) * 150
         elif mask == "swa":
             lo = torch.full((B,), c.seq_len - 1000, device="cuda",
                             dtype=torch.int32)
@@ -280,16 +332,24 @@ def check_decode(gen, results):
                 c.v_mn, c.k_win, c.v_win, c.n_k_quant, c.n_k_win,
                 c.n_v_quant)
         kw = dict(group_size=32, k_bits=bits, v_bits=bits, lo=lo)
-        got = FD.fused_decode_attention_wide(*args, **kw)
+        what = (f"{name} bits={bits} vf={vf} fill={fill} mask={mask} "
+                f"Hkv={heads} r={r} {sdt} D={d} (nkq={c.n_k_quant} "
+                f"nkw={c.n_k_win} nvq={c.n_v_quant})")
+        got = _twice(lambda: FD.fused_decode_attention_wide(*args, **kw),
+                     what)
         want = FD.fused_decode_attention_wide_plain(*args, **kw)
         torch.cuda.synchronize()
-        worst = max(worst, _att_err(
-            got, want, f"{name} bits={bits} vf={vf} fill={fill} "
-                       f"mask={mask} Hkv={heads} r={r} "
-                       f"(nkq={c.n_k_quant} nvq={c.n_v_quant})"))
+        worst = max(worst, _att_err(got, want, what + " (two runs "
+                                                      "bit-equal)"))
         if (bits, vf, fill, mask, r) == (2, 128, 1024 + 57, None, 1):
-            timed = (c, qcfg, args, kw, q)
-    c, qcfg, args, kw, q = timed
+            timed = (c, qcfg, args, kw, q, want)
+    c, qcfg, args, kw, q, want = timed
+    # control: the kernel's own output without its first split (a lower
+    # bound at the split size) must be refused
+    first = torch.full((B,), S, device="cuda", dtype=torch.int32)
+    _control_refused(
+        FD.fused_decode_attention_wide(*args, **{**kw, "lo": first}), want,
+        f"{name} fill {c.seq_len}")
     k, v = _deq_kv(c, qcfg, c.seq_len)
     nbytes = _cache_bytes(c, qcfg) + q.numel() * 2 + B * H * D * 4
     bms, by = bound(nbytes, 4 * B * H * c.seq_len * D)
@@ -329,6 +389,11 @@ def _row_counts(c):
 
 
 def check_fused_decode_rows(gen, results):
+    """Row 6 (per-row device counters, split over T) at FILLS, one slot
+    empty: bits 2/4/8, r 1/4/8, bf16 and f32 scales, pads and each row's
+    own sliding window; within the tolerance, the empty row exactly 0,
+    every case bit-equal across two runs; a control without the first
+    split refused; at counters equal on every row, row 4's function."""
     import torch.nn.functional as F
 
     from kivi_tpu_torch.config import QuantConfig
@@ -340,15 +405,17 @@ def check_fused_decode_rows(gen, results):
     S = len(FILLS)
     pad = torch.tensor([0, 0, 37, 300, 1000, 5, 3999, 0], device="cuda",
                        dtype=torch.int32)
-    # (bits, v_flush, KV heads, query rows per KV head, lower bound); the
-    # batcher's main path runs the first
-    cases = [(2, 128, H, 1, None)]
-    cases += [(bits, 32, heads, r, "pad") for bits in (2, 4, 8)
+    # (bits, v_flush, KV heads, query rows per KV head, lower bound, scale
+    # dtype); the batcher's main path runs the first
+    cases = [(2, 128, H, 1, None, "bfloat16")]
+    cases += [(bits, 32, heads, r, "pad", "bfloat16") for bits in (2, 4, 8)
               for heads, r in ((H, 1), (8, 4))]
-    cases += [(4, 32, H, 1, "swa"), (8, 128, 8, 4, "swa")]
+    cases += [(4, 32, H, 1, "swa", "bfloat16"),
+              (8, 128, 8, 4, "swa", "bfloat16"),
+              (2, 32, 8, 8, "pad", "bfloat16"), (4, 32, H, 1, None, "float32")]
     timed = None
-    for bits, vf, heads, r, mask in cases:
-        qcfg = QuantConfig(bits, bits, 32, 128, v_flush=vf)
+    for bits, vf, heads, r, mask, sdt in cases:
+        qcfg = QuantConfig(bits, bits, 32, 128, v_flush=vf, scale_dtype=sdt)
         c = _slot_cache(gen, qcfg, heads)
         rows = _row_counts(c)
         if vf < 128 and not any(nkq > nvq for nkq, _, nvq, _ in rows):
@@ -364,18 +431,19 @@ def check_fused_decode_rows(gen, results):
         args = (q, c.k_codes, c.k_scale, c.k_mn, c.v_codes, c.v_scale,
                 c.v_mn, c.k_win, c.v_win, counts)
         kw = dict(group_size=32, k_bits=bits, v_bits=bits, lo=lo)
-        got = FR.fused_decode_attention(*args, **kw)
+        what = (f"{name} bits={bits} vf={vf} Hkv={heads} r={r} mask={mask}"
+                f" {sdt} fills={FILLS}")
+        got = _twice(lambda: FR.fused_decode_attention(*args, **kw), what)
         want = FR.fused_decode_attention_plain(*args, **kw)
         torch.cuda.synchronize()
-        what = (f"{name} bits={bits} vf={vf} Hkv={heads} r={r} mask={mask}"
-                f" fills={FILLS}")
-        worst = max(worst, _att_err(got, want, what))
+        worst = max(worst, _att_err(got, want, what + " (two runs "
+                                                      "bit-equal)"))
         if got[FILLS.index(0)].abs().max() != 0:
             raise AssertionError(f"{what}: the empty row is not 0")
         log(f"[kernel] {what}: empty row exactly 0; (n_k_quant, n_k_win, "
             f"n_v_quant) per row {[x[:3] for x in rows]}")
         if (bits, vf, r, mask) == (2, 128, 1, None):
-            timed = (c, qcfg, args, kw, q, rows)
+            timed = (c, qcfg, args, kw, q, rows, want)
     # at counters equal on every row it is the wide kernel's function
     for bits in (2, 4, 8):
         qcfg = QuantConfig(bits, bits, 32, 128, v_flush=32)
@@ -394,7 +462,11 @@ def check_fused_decode_rows(gen, results):
         _att_err(got, want, f"{name} bits={bits} uniform fill 1081 vs "
                             "fused_decode_attention_wide")
 
-    c, qcfg, args, kw, q, rows = timed
+    c, qcfg, args, kw, q, rows, want = timed
+    # control: every row without its first split must be refused
+    first = torch.full((S,), FD.SPLIT, device="cuda", dtype=torch.int32)
+    _control_refused(FR.fused_decode_attention(*args, **{**kw, "lo": first}),
+                     want, f"{name} fills {FILLS}")
     sb = c.k_scale.element_size()
     nbytes = (sum(H * _live_bytes(qcfg, sb, *x) for x in rows)
               + q.numel() * 2 + S * H * D * 4 + S * 3 * 4)

@@ -23,9 +23,10 @@ take the plain versions, CUDA tensors the kernels.
 
 Two routes each, chosen by `use_split`:
 
-  * fused: one kernel walks the whole history per (row, KV head) —
-    `fused_decode_attention_wide` / `fused_decode_attention` for decode,
-    `flash_extend_attention` for extend;
+  * fused: one kernel per call — `fused_decode_attention_wide` /
+    `fused_decode_attention` for decode (itself split over T in one
+    launch), `flash_extend_attention` for extend (one block walks the
+    whole history per (row, KV head, query tile));
   * split over T (flash-decoding), the JAX package's route for the
     geometries its fused kernels reject (`kivi_tpu/core/attention.py:
     156-216, 397-444`): decode through `qk_dequant_matmul`, a torch
@@ -55,20 +56,25 @@ from kivi_tpu_torch.kernels.fused_decode_wide import (
     NEG_INF, fused_decode_attention_wide)
 from kivi_tpu_torch.kernels.qk_pv import pv_dequant_matmul, qk_dequant_matmul
 
-# The split routes' rule.  A fused kernel gives one block to each (row,
-# KV head) — times ceil(r*T1 / EXTEND_ROWS) query tiles for extend — and
-# each block walks the quantized history chunk by chunk.  With fewer
-# blocks than the card has SMs, a long history leaves most SMs idle
-# while a few walk it in series; the split routes spread it over T at
-# the cost of a few more launches and an O(Tmax) logit pass in torch.
+# The split routes' rule.  The fused extend kernel gives one block to
+# each (row, KV head, query tile of EXTEND_ROWS rows), and each block
+# walks the quantized history chunk by chunk.  With fewer blocks than
+# the card has SMs, a long history leaves most SMs idle while a few walk
+# it in series; the split routes spread it over T at the cost of a few
+# more launches and an O(Tmax) logit pass in torch.  The fused decode
+# kernels split over T themselves (256-position splits, in one launch),
+# so at decode the split route only adds launches.
 #
 # SPLIT_MIN_HISTORY is the crossover that chip_smoke.py (phase 3) times
 # at batch 1, 8 KV heads, r = 4, KIVI-2 with W = 32, on an H100 80GB
-# HBM3 at 700 W (ms, split vs fused): history 1024, decode 0.295 vs
-# 0.137 and extend (T1 = 128) 1.040 vs 0.586; 2048, extend 0.866 vs
-# 0.996; 4096, decode 0.283 vs 0.507 and extend 0.876 vs 1.705.  The
-# split routes' torch part costs ~0.3 ms (decode) and ~0.9 ms (extend)
-# of host launches, flat in the history; the fused kernels grow with it.
+# HBM3 at 700 W (ms, split route vs fused kernel, the host's launch cost
+# included), histories 1024, 2048, 4096, 8192, 12032: decode 0.803,
+# 0.484, 0.775, 0.482, 0.511 vs 0.084, 0.073, 0.061, 0.076, 0.087 (the
+# fused kernel wins at every history, in a second run too); extend
+# (T1 = 128) 0.932, 0.831, 0.753, 0.918, 0.872 vs 0.152, 0.201, 0.390,
+# 0.692, 1.003 (the route wins at 12K).  The split routes' torch part
+# costs ~0.4-0.8 ms of host launches, flat in the history.  The
+# threshold is unchanged until the crossover is timed over more runs.
 SPLIT_BLOCKS = 132          # SMs of an H100 SXM
 SPLIT_MIN_HISTORY = 2048    # quantized tokens from which the split wins
 EXTEND_ROWS = 128           # query rows per block of the extend kernel

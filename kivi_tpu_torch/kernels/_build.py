@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -49,15 +50,17 @@ SIGNATURES = {
     },
     "fused_decode": {
         # q, k_codes, k_scale, k_mn, v_codes, v_scale, v_mn, k_win,
-        # v_win, lo, out, B, H, r, D, Tmax, W, gs, k_bits, v_bits,
-        # n_k_quant, n_k_win, n_v_quant, scale_is_f32, sm_scale, stream
-        "kivi_fused_decode": [_P] * 11 + [_I] * 13 + [_F, _P],
+        # v_win, lo, out, part_acc, part_ml, tickets, B, H, r, D, Tmax, W,
+        # gs, k_bits, v_bits, n_k_quant, n_k_win, n_v_quant, scale_is_f32,
+        # split, nsplit, sm_scale, stream
+        "kivi_fused_decode": [_P] * 14 + [_I] * 15 + [_F, _P],
     },
     "fused_decode_rows": {
         # q, k_codes, k_scale, k_mn, v_codes, v_scale, v_mn, k_win,
-        # v_win, counts, lo, out, B, H, r, D, Tmax, W, gs, k_bits,
-        # v_bits, scale_is_f32, sm_scale, stream
-        "kivi_fused_decode_rows": [_P] * 12 + [_I] * 10 + [_F, _P],
+        # v_win, counts, lo, out, part_acc, part_ml, tickets, B, H, r, D,
+        # Tmax, W, gs, k_bits, v_bits, scale_is_f32, split, nsplit,
+        # sm_scale, stream
+        "kivi_fused_decode_rows": [_P] * 15 + [_I] * 12 + [_F, _P],
     },
     "flash_extend": {
         # q, k_codes, k_scale, k_mn, v_codes, v_scale, v_mn, k_win,
@@ -94,9 +97,10 @@ SIGNATURES = {
         "kivi_fp_decode": [_P] * 9 + [_I] * 7 + [_F, _P],
     },
     "trimmed": {
-        # q, k_codes, k_scale, k_mn, v_codes, v_scale, v_mn, out, B, H, r,
-        # D, Tmax, gs, k_bits, v_bits, n_quant, variant, sm_scale, stream
-        "kivi_trimmed": [_P] * 8 + [_I] * 10 + [_F, _P],
+        # q, k_codes, k_scale, k_mn, v_codes, v_scale, v_mn, out,
+        # part_acc, part_ml, tickets, B, H, r, D, Tmax, gs, k_bits, v_bits,
+        # n_quant, variant, split, nsplit, sm_scale, stream
+        "kivi_trimmed": [_P] * 11 + [_I] * 12 + [_F, _P],
     },
 }
 
@@ -168,6 +172,19 @@ def build_all() -> dict:
             _LIBS[name] = lib
         BUILD_SECONDS = time.perf_counter() - t0
         return _LIBS
+
+
+@functools.lru_cache(maxsize=16)
+def workspace(device, BH: int, nsplit: int, r: int, D: int):
+    """The split kernels' per-split partials (acc (BH * nsplit * r * D)
+    and (m, l) pairs, f32) and per-head tickets (int32 zeros; every
+    launch leaves them zero), for at most `nsplit` splits: allocated once
+    per device and shape, reused by every call on the one stream."""
+    import torch
+    n = BH * nsplit * r
+    f32 = dict(dtype=torch.float32, device=device)
+    return (torch.empty(n * D, **f32), torch.empty(2 * n, **f32),
+            torch.zeros(BH, dtype=torch.int32, device=device))
 
 
 def library(name: str):

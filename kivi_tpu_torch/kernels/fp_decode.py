@@ -24,7 +24,6 @@ or raises.
 
 from __future__ import annotations
 
-import functools
 import math
 from typing import Optional
 
@@ -35,18 +34,6 @@ from kivi_tpu_torch.kernels import _build
 NEG_INF = -1e30
 _ROWS = (1, 2, 4, 8)  # query rows per KV head the kernel is built for
 SPLIT = 256           # positions per block of the kernel (csrc S)
-
-
-@functools.lru_cache(maxsize=16)
-def _workspace(device, BH: int, r: int, D: int, Tmax: int):
-    """The kernel's per-split partials (acc (BH * nsplit * r * D), (m, l)
-    pairs) and its per-head tickets (zero; every launch leaves them
-    zero), for at most ceil(Tmax / SPLIT) splits: allocated once per
-    device and shape, reused by every call (one stream)."""
-    n = BH * -(-Tmax // SPLIT) * r
-    f32 = dict(dtype=torch.float32, device=device)
-    return (torch.empty(n * D, **f32), torch.empty(2 * n, **f32),
-            torch.zeros(BH, dtype=torch.int32, device=device))
 
 
 def fp_decode_attention_plain(qg, k, v, length, *,
@@ -128,7 +115,8 @@ def fp_decode_attention_kernel(qg, k, v, length, *,
         pad_len = pad_len.to(device=qg.device, dtype=torch.int32)
         pad_len = pad_len.reshape(B).contiguous()
     out = torch.empty((B, H, r, D), dtype=torch.float32, device=qg.device)
-    part_acc, part_ml, tickets = _workspace(qg.device, B * H, r, D, Tmax)
+    part_acc, part_ml, tickets = _build.workspace(
+        qg.device, B * H, -(-Tmax // SPLIT), r, D)
     lib = _build.library("fp_decode")
     err = lib.kivi_fp_decode(
         qg.data_ptr(), k.data_ptr(), v.data_ptr(), _build.ptr(pad_len),

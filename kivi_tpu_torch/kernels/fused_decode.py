@@ -6,7 +6,9 @@ program per (row, KV head)) and its plain version.
 The continuous batcher's slot caches carry their four counters as (S,)
 int32 device tensors, one fill per slot.  The kernel reads each row's
 (n_k_quant, n_k_win, n_v_quant) from a (B, 3) int32 device tensor, so no
-counter passes through the host on the decode path.  A row with no live
+counter passes through the host on the decode path: it runs the split
+body of `fused_decode_wide` over all ceil(Tmax / SPLIT) splits, those
+outside a row's live positions exiting at once.  A row with no live
 position (an empty slot, seq_len 0) returns exact zeros.
 
 The plain version is the per-row form of the split two-half softmax of
@@ -25,6 +27,7 @@ from typing import Optional
 import torch
 
 from kivi_tpu_torch.kernels import _build
+from kivi_tpu_torch.kernels import fused_decode_wide as _wide
 from kivi_tpu_torch.kernels.fused_decode_wide import (
     _check_cuda, fused_decode_attention_wide_plain)
 
@@ -62,9 +65,12 @@ def fused_decode_attention(
     the counters of row b in counts[b] = (n_k_quant, n_k_win, n_v_quant).
 
     On CUDA: counts a (B, 3) and lo a (B,) int32 tensor on the device
-    (read there by each block, never by the host); qg and the windows
-    bf16, scales bf16 or f32, bits 2/4/8, r in (1, 2, 4, 8), D <= 128,
-    128 % group_size == 0."""
+    (read there by each block, never by the host; each row clamped into
+    a cache state); qg and the windows bf16, scales bf16 or f32, the
+    cache arrays 16-byte aligned, bits 2/4/8, r in (1, 2, 4, 8), D in
+    (8, 16, 32, 64, 128), an even group_size dividing D and 128.  One
+    launch: blocks over (ceil(Tmax / SPLIT) splits, B*Hkv), the last
+    block of each head merging its splits in order."""
     if not qg.is_cuda:
         return fused_decode_attention_plain(
             qg, k_codes, k_scale, k_mn, v_codes, v_scale, v_mn, k_win,
@@ -82,16 +88,21 @@ def fused_decode_attention(
         lo = lo.to(device=qg.device, dtype=torch.int32).contiguous()
         if lo.shape != (B,):
             raise ValueError(f"{name}: lo must have shape ({B},)")
+    Tmax = k_codes.shape[-1]
+    nsplit = _wide.split_plan(Tmax)
     out = torch.empty((B, H, r, D), dtype=torch.float32, device=qg.device)
+    part_acc, part_ml, tickets = _build.workspace(qg.device, B * H, nsplit,
+                                                  r, D)
     lib = _build.library("fused_decode_rows")
     err = lib.kivi_fused_decode_rows(
         qg.data_ptr(), k_codes.data_ptr(), k_scale.data_ptr(),
         k_mn.data_ptr(), v_codes.data_ptr(), v_scale.data_ptr(),
         v_mn.data_ptr(), k_win.data_ptr(), v_win.data_ptr(),
-        counts.data_ptr(), _build.ptr(lo), out.data_ptr(), B, H, r, D,
-        k_codes.shape[-1], k_win.shape[2], group_size, k_bits, v_bits,
-        int(k_scale.dtype == torch.float32), 1.0 / math.sqrt(D),
-        _build.stream_handle(qg.device))
+        counts.data_ptr(), _build.ptr(lo), out.data_ptr(),
+        part_acc.data_ptr(), part_ml.data_ptr(), tickets.data_ptr(), B, H,
+        r, D, Tmax, k_win.shape[2], group_size, k_bits, v_bits,
+        int(k_scale.dtype == torch.float32), _wide.SPLIT, nsplit,
+        1.0 / math.sqrt(D), _build.stream_handle(qg.device))
     _build.check(err, name)
     _build.LAUNCHES[name] += 1
     return out

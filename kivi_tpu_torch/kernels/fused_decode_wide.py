@@ -6,8 +6,9 @@ The plain version is the JAX package's split two-half softmax
 (`kivi_tpu/core/attention.py:156-216`): logits over the dequantized K
 store and the fp K window, one softmax over their concatenation, PV over
 the dequantized V store plus the fp V window with V routed by position
-(`_gather_v_window_probs`).  The kernel computes the same function in
-one pass with an online softmax.
+(`_gather_v_window_probs`).  The kernel computes the same function split
+over T (`csrc/kdec_split.cuh`): one exact softmax per SPLIT-position
+split, the partials (m, l, acc) merged in split order.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel
 or raises.
@@ -84,7 +85,15 @@ def fused_decode_attention_wide_plain(
 
 
 _CHUNK = 128          # positions per chunk of the CUDA kernel
+SPLIT = 256           # positions per block of the CUDA kernel (csrc S)
 _ROWS = (1, 2, 4, 8)  # query rows per KV head the kernel is built for
+
+
+def split_plan(n_end: int) -> int:
+    """Splits of the host-int kernel: SPLIT-position splits from position
+    0 (the lower bound `lo` lives on the device, so no split is skipped
+    by the host) up to n_end = n_k_quant + n_k_win, at least one."""
+    return max(1, -(-int(n_end) // SPLIT))
 
 
 def _check_cuda(name, qg, k_codes, k_scale, k_mn, v_codes, v_scale, v_mn,
@@ -93,8 +102,10 @@ def _check_cuda(name, qg, k_codes, k_scale, k_mn, v_codes, v_scale, v_mn,
     B, H, r, D = qg.shape
     Tmax, W, gs = k_codes.shape[-1], k_win.shape[2], group_size
     sdt = k_scale.dtype
-    if r not in _ROWS or D > 128 or D % gs or _CHUNK % gs:
-        raise ValueError(f"{name}: unsupported r={r} D={D} gs={gs}")
+    if (r not in _ROWS or D > 128 or D % 8 or 256 % D or D % gs
+            or _CHUNK % gs or gs % 2 or Tmax % 8 or Tmax % gs):
+        raise ValueError(f"{name}: unsupported r={r} D={D} gs={gs} "
+                         f"Tmax={Tmax}")
     if k_bits not in (2, 4, 8) or v_bits not in (2, 4, 8):
         raise ValueError(f"{name}: bits must be 2, 4 or 8")
     if sdt not in (torch.bfloat16, torch.float32):
@@ -112,6 +123,8 @@ def _check_cuda(name, qg, k_codes, k_scale, k_mn, v_codes, v_scale, v_mn,
         "k_win": (k_win, (B, H, W, D), torch.bfloat16),
         "v_win": (v_win, (B, H, W, D), torch.bfloat16),
     })
+    _build.check_aligned(name, k_codes, k_scale, k_mn, v_codes, v_scale,
+                         v_mn, k_win, v_win)
 
 
 def fused_decode_attention_wide(
@@ -121,10 +134,14 @@ def fused_decode_attention_wide(
         lo: Optional[torch.Tensor] = None) -> torch.Tensor:
     """qg (B, Hkv, r, D) + KiviLayerCache arrays -> (B, Hkv, r, D) f32.
 
-    Counters are host ints (n_v_quant <= n_k_quant, n_k_quant -
-    n_v_quant <= W); lo is an optional (B,) int32 lower position bound.
-    On CUDA: qg and the windows bf16, scales bf16 or f32, r in
-    (1, 2, 4, 8), D <= 128, 128 % group_size == 0."""
+    Counters are host ints of a cache state (0 <= n_k_win <= W,
+    n_k_quant + n_k_win <= Tmax, n_k_quant + n_k_win - W <= n_v_quant
+    <= n_k_quant); lo is an optional (B,) int32 lower position bound.
+    On CUDA: qg and the windows bf16, scales bf16 or f32, the cache
+    arrays 16-byte aligned, r in (1, 2, 4, 8), D in (8, 16, 32, 64, 128), an even
+    group_size dividing D and 128.  One launch: blocks over (split_plan
+    SPLIT-position splits, B*Hkv), the last block of each head merging
+    its splits in order."""
     if not qg.is_cuda:
         return fused_decode_attention_wide_plain(
             qg, k_codes, k_scale, k_mn, v_codes, v_scale, v_mn, k_win,
@@ -134,20 +151,31 @@ def fused_decode_attention_wide(
     _check_cuda(name, qg, k_codes, k_scale, k_mn, v_codes, v_scale, v_mn,
                 k_win, v_win, group_size, k_bits, v_bits)
     B, H, r, D = qg.shape
+    Tmax, W = k_codes.shape[-1], k_win.shape[2]
+    nkq, nkw, nvq = int(n_k_quant), int(n_k_win), int(n_v_quant)
+    if not (0 <= nkw <= W and 0 <= nkq and nkq + nkw <= Tmax
+            and max(nkq + nkw - W, 0) <= nvq <= nkq):
+        raise ValueError(f"{name}: counters (n_k_quant, n_k_win, "
+                         f"n_v_quant) = {(nkq, nkw, nvq)} are no cache "
+                         f"state of Tmax={Tmax}, W={W}")
     if lo is not None:
         lo = lo.to(device=qg.device, dtype=torch.int32).contiguous()
         if lo.shape != (B,):
             raise ValueError(f"{name}: lo must have shape ({B},)")
     out = torch.empty((B, H, r, D), dtype=torch.float32, device=qg.device)
+    part_acc, part_ml, tickets = _build.workspace(
+        qg.device, B * H, split_plan(Tmax), r, D)
     lib = _build.library("fused_decode")
     err = lib.kivi_fused_decode(
         qg.data_ptr(), k_codes.data_ptr(), k_scale.data_ptr(),
         k_mn.data_ptr(), v_codes.data_ptr(), v_scale.data_ptr(),
         v_mn.data_ptr(), k_win.data_ptr(), v_win.data_ptr(),
-        _build.ptr(lo), out.data_ptr(), B, H, r, D, k_codes.shape[-1],
-        k_win.shape[2], group_size, k_bits, v_bits, int(n_k_quant),
-        int(n_k_win), int(n_v_quant), int(k_scale.dtype == torch.float32),
-        1.0 / math.sqrt(D), _build.stream_handle(qg.device))
+        _build.ptr(lo), out.data_ptr(), part_acc.data_ptr(),
+        part_ml.data_ptr(), tickets.data_ptr(), B, H, r, D, Tmax, W,
+        group_size, k_bits, v_bits, nkq, nkw, nvq,
+        int(k_scale.dtype == torch.float32), SPLIT,
+        split_plan(nkq + nkw), 1.0 / math.sqrt(D),
+        _build.stream_handle(qg.device))
     _build.check(err, name)
     _build.LAUNCHES[name] += 1
     return out

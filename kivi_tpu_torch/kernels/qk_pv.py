@@ -7,7 +7,7 @@ T, `core.attention._decode_attention_split`): QK writes the logits of
 the quantized key store, torch takes the softmax over them and the fp
 window, and PV sums the probabilities against the quantized value store.
 Each kernel spreads the cache over T tiles, so a batch-1 decode fills
-the card where one block per (row, KV head) cannot.
+the card.
 
 Signatures and layouts are the JAX package's: qg (B, H, r, D), codes
 (B, H, Dw, T), K scales (B, H, T//gs, D) rows, V scales (B, H, D//gs, T),

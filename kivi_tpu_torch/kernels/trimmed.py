@@ -3,10 +3,11 @@
 `kivi_tpu/kernels/fused_decode_wide.py` under ablations) and its plain
 version.
 
-The kernel runs this port's decode body itself (`kdec::attend` of
-`csrc/common.cuh`, the body of `csrc/fused_decode.cu` and
-`csrc/fused_decode_rows.cu`): the walk over the quantized history at
-full fill, no fp windows, no lower bound.  The body's ablation switches
+The kernel runs this port's decode kernel itself (`kdec::decode_kernel`
+of `csrc/kdec_split.cuh`, the kernel of `csrc/fused_decode.cu` and
+`csrc/fused_decode_rows.cu`, on the wide kernel's grid of SPLIT-position
+splits and its in-order merge): the quantized history at full fill, no
+fp windows, no lower bound.  The body's ablation switches
 (`kdec::Ablation`; variant 0 is the body the decode kernels run) take
 out one part of the work at a time, so the time of the full body splits
 into loads, unpack, scale application, QK and PV
@@ -32,10 +33,11 @@ import torch
 
 from kivi_tpu_torch.core import quant as Q
 from kivi_tpu_torch.kernels import _build
+from kivi_tpu_torch.kernels import fused_decode_wide as _wide
 from kivi_tpu_torch.kernels.fused_decode_wide import _CHUNK, _ROWS, NEG_INF
 
 # (scales, do_qk, do_vpath, do_unpack) -> the kernel's variant (VAR of
-# kdec::Ablation in csrc/common.cuh).
+# kdec::Ablation in csrc/kdec_split.cuh).
 #   scales "element": q . (c * s + mn), the scale of each position's group;
 #          "fold":    sum_d (q_d * s_d) * c + sum_d q_d * mn_d, the scale
 #                     folded into the query rows once per group (the same
@@ -122,8 +124,8 @@ def trimmed(qg, k_codes, k_scale, k_mn, v_codes, v_scale, v_mn,
             do_vpath: bool = True, do_unpack: bool = True) -> torch.Tensor:
     """The probe over positions < n_quant -> (B, H, r, D) f32, the
     function `trimmed_plain` states with chunk = 128.  On CUDA: qg and
-    the scales bf16, bits 2 or 4, r in (1, 2, 4, 8), D <= 128,
-    128 % group_size == 0."""
+    the scales bf16, 16-byte aligned, bits 2 or 4, r in (1, 2, 4, 8), D
+    in (8, 16, 32, 64, 128), an even group_size dividing D and 128."""
     var = _variant(scales, do_qk, do_vpath, do_unpack)
     if not qg.is_cuda:
         return trimmed_plain(qg, k_codes, k_scale, k_mn, v_codes, v_scale,
@@ -134,7 +136,8 @@ def trimmed(qg, k_codes, k_scale, k_mn, v_codes, v_scale, v_mn,
     name = "trimmed"
     B, H, r, D = qg.shape
     T, gs = k_codes.shape[-1], group_size
-    if r not in _ROWS or D > 128 or D % gs or _CHUNK % gs or T % gs:
+    if (r not in _ROWS or D > 128 or D % 8 or 256 % D or D % gs
+            or _CHUNK % gs or gs % 2 or T % gs or T % 8):
         raise ValueError(f"{name}: unsupported r={r} D={D} gs={gs} T={T}")
     if k_bits not in (2, 4) or v_bits not in (2, 4):
         raise ValueError(f"{name}: bits must be 2 or 4")
@@ -151,12 +154,18 @@ def trimmed(qg, k_codes, k_scale, k_mn, v_codes, v_scale, v_mn,
         "v_scale": (v_scale, (B, H, D // gs, T), bf),
         "v_mn": (v_mn, (B, H, D // gs, T), bf),
     })
+    _build.check_aligned(name, k_codes, k_scale, k_mn, v_codes, v_scale,
+                         v_mn)
     out = torch.empty((B, H, r, D), dtype=torch.float32, device=qg.device)
+    part_acc, part_ml, tickets = _build.workspace(
+        qg.device, B * H, _wide.split_plan(T), r, D)
     err = _build.library("trimmed").kivi_trimmed(
         qg.data_ptr(), k_codes.data_ptr(), k_scale.data_ptr(),
         k_mn.data_ptr(), v_codes.data_ptr(), v_scale.data_ptr(),
-        v_mn.data_ptr(), out.data_ptr(), B, H, r, D, T, gs, k_bits, v_bits,
-        nq, var, 1.0 / math.sqrt(D), _build.stream_handle(qg.device))
+        v_mn.data_ptr(), out.data_ptr(), part_acc.data_ptr(),
+        part_ml.data_ptr(), tickets.data_ptr(), B, H, r, D, T, gs, k_bits,
+        v_bits, nq, var, _wide.SPLIT, _wide.split_plan(nq),
+        1.0 / math.sqrt(D), _build.stream_handle(qg.device))
     _build.check(err, name)
     _build.LAUNCHES[name] += 1
     return out

@@ -56,9 +56,11 @@ from kivi_tpu_torch.utils.device import card
 
 B, PROMPT, CHUNK, TMAX = 8, 1024, 128, 4096
 LONG_PROMPT, LONG_PAD, LONG_TMAX = 12032, 32, 16384
+# kernel name fragment -> wrapper; kdec::decode_kernel<R, ST, Ablation<V>,
+# ROWS> is the host-int (wide) kernel at ROWS false, the per-row one at true
 OURS = {"quantize_pack_kernel": "quantize_pack_k/v",
-        "fused_decode_kernel": "fused_decode_attention_wide",
-        "fused_decode_rows_kernel": "fused_decode_attention",
+        "Ablation<0>, false>": "fused_decode_attention_wide",
+        "Ablation<0>, true>": "fused_decode_attention",
         "flash_extend_kernel": "flash_extend_attention",
         "flash_prefill_kernel": "flash_attention",
         "fp_decode_split_kernel": "fp_decode_attention_kernel",

@@ -16,9 +16,10 @@ Tolerances (chip_smoke.py's):
     flash_extend_qhist against their f32 plain versions: each query row
     within utils.tolerance.FLASH_RTOL / EXTEND_RTOL / QHIST_RTOL of its
     own largest value (the reasons are in that module);
-  * fp_decode_attention_kernel (f32 on the CUDA cores, split over T):
-    max|kernel - plain| <= 1e-5 * max|plain| + 1e-5, and two runs
-    bit-equal.
+  * fp_decode_attention_kernel and the two KIVI decode kernels
+    fused_decode_attention_wide and fused_decode_attention (f32 on the
+    CUDA cores, split over T): max|kernel - plain| <= 1e-5 * max|plain|
+    + 1e-5, and two runs bit-equal.
 """
 
 import pytest
@@ -31,6 +32,8 @@ from kivi_tpu_torch.config import QuantConfig
 from kivi_tpu_torch.kernels import flash as FL
 from kivi_tpu_torch.kernels import flash_extend as FE
 from kivi_tpu_torch.kernels import fp_decode as FD
+from kivi_tpu_torch.kernels import fused_decode as FR
+from kivi_tpu_torch.kernels import fused_decode_wide as FW
 from kivi_tpu_torch.utils import tolerance as TOL
 
 
@@ -287,3 +290,176 @@ def test_fp_decode_rows_match_plain(cuda, heads, r, mask):
     assert (got[FP_FILLS.index(0)] == 0).all()
     assert torch.equal(got, FD.fp_decode_attention_kernel(q, c.k, c.v,
                                                           c.length, **kw))
+
+
+KS = FW.SPLIT
+
+
+def _kivi_cache(gen, batch, heads, d, fill, qcfg, tmax=FP_TMAX):
+    """A KIVI cache holding `fill` tokens (an int: a layer cache with
+    host-int counters; a tuple: a slot cache, one fill per row, 0 an
+    empty slot), the last token of each row appended by decode_append."""
+    def one(n, rows):
+        c = KC.init_layer_cache(rows, heads, d, tmax, qcfg, device="cuda")
+        if n > 1:
+            KC.prefill_ingest(c, _randn(gen, (rows, heads, n - 1, d)),
+                              _randn(gen, (rows, heads, n - 1, d)), qcfg)
+        if n:
+            KC.decode_append(c, _randn(gen, (rows, heads, 1, d)),
+                             _randn(gen, (rows, heads, 1, d)), qcfg)
+        return c
+    if isinstance(fill, int):
+        return one(fill, batch)
+    slots = KC.init_slot_cache(len(fill), heads, d, tmax, qcfg,
+                               device="cuda")
+    for s_, n in enumerate(fill):
+        KC.write_slot(slots, s_, one(n, 1))
+    return slots
+
+
+def _cache_arrays(c):
+    return (c.k_codes, c.k_scale, c.k_mn, c.v_codes, c.v_scale, c.v_mn,
+            c.k_win, c.v_win)
+
+
+# (fill, bits, v_flush, lower bound, KV heads, r, scale dtype, D): fills
+# at the edges of the kernel's splits and the main path's 1081 (B = 4);
+# "span" is a hand-set state (n_k_quant 200, n_k_win 100, n_v_quant 180,
+# W 128) whose window spans the first two splits and whose first split
+# straddles n_v_quant < n_k_quant
+WIDE_CASES = [(fill, 2, 128, None, 32, 1, "bfloat16", 128)
+              for fill in (1, KS - 1, KS, KS + 1, 1081, 2 * KS + 57,
+                           FP_TMAX)]
+WIDE_CASES += [
+    (1081, 4, 128, None, 32, 1, "bfloat16", 128),
+    (1081, 8, 128, None, 32, 1, "bfloat16", 128),
+    (2 * KS + 57, 2, 32, None, 32, 1, "bfloat16", 128),   # nvq < nkq
+    ("span", 2, 128, None, 32, 1, "bfloat16", 128),
+    ("span", 4, 128, "pad", 8, 4, "bfloat16", 128),
+    (1081, 2, 128, "pad", 32, 1, "bfloat16", 128),   # lo kills splits
+    (1081, 4, 32, "swa", 32, 1, "bfloat16", 128),
+    (1081, 2, 128, "pad", 8, 4, "bfloat16", 128),
+    (1081, 8, 32, None, 8, 8, "float32", 128),
+    (2 * KS + 57, 4, 32, "pad", 8, 4, "float32", 64),
+]
+
+
+def _lo(mask, batch, seq_len):
+    if mask == "pad":      # row 1 loses whole splits, row 3 everything
+        return torch.tensor([0, 600, 37, seq_len][:batch], device="cuda",
+                            dtype=torch.int32)
+    if mask == "swa":
+        return torch.full((batch,), max(seq_len - 300, 0), device="cuda",
+                          dtype=torch.int32)
+    return None
+
+
+@pytest.mark.parametrize("fill,bits,vf,mask,heads,r,sdt,d", WIDE_CASES)
+def test_fused_decode_wide_matches_plain(cuda, fill, bits, vf, mask, heads,
+                                         r, sdt, d):
+    """Row 4 (split over T) against its plain version at host-int fills
+    around the split size, a window across two splits, n_v_quant <
+    n_k_quant, left pads and windows that kill whole splits, bits
+    2/4/8, r 1/4/8, f32 scales and D = 64; two runs bit-equal, a row
+    padded past its last token exactly 0."""
+    B = 4
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(bits + r + d)
+    if fill == "span":
+        q, c = PW.make_cache(B, FP_TMAX, 200, heads=heads, r=r, bits=bits,
+                             seed=bits + r, data="normal")
+        c.n_k_win, c.n_v_quant, c.n_v_win = 100, 180, 120
+    else:
+        qcfg = QuantConfig(bits, bits, 32, 128, v_flush=vf,
+                           scale_dtype=sdt)
+        c = _kivi_cache(gen, B, heads, d, fill, qcfg)
+        q = _randn(gen, (B, heads, r, d))
+    args = (q, *_cache_arrays(c), c.n_k_quant, c.n_k_win, c.n_v_quant)
+    kw = dict(group_size=32, k_bits=bits, v_bits=bits,
+              lo=_lo(mask, B, c.seq_len))
+    got = FW.fused_decode_attention_wide(*args, **kw)
+    want = FW.fused_decode_attention_wide_plain(*args, **kw)
+    # a row whose bound lies past its last token sees nothing: the kernel
+    # writes zeros, where the plain version (the JAX split softmax) is
+    # undefined
+    live = (torch.ones(B, dtype=torch.bool, device="cuda") if kw["lo"] is None
+            else kw["lo"] < c.seq_len)
+    _fp_check(got[live], want[live],
+              f"wide fill={fill} bits={bits} vf={vf} {mask} Hkv={heads} "
+              f"r={r} {sdt} D={d} (nkq={c.n_k_quant} nkw={c.n_k_win} "
+              f"nvq={c.n_v_quant})")
+    assert torch.equal(got, FW.fused_decode_attention_wide(*args, **kw))
+    assert (got[~live] == 0).all()
+
+
+def test_fused_decode_wide_control_refused(cuda):
+    """A control: the kernel's own output without its first split (a
+    lower bound at the split size) must miss the plain version, so the
+    tolerance sees a missing split."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    c = _kivi_cache(gen, 4, 32, 128, 1081, QuantConfig(2, 2, 32, 128))
+    q = _randn(gen, (4, 32, 1, 128))
+    args = (q, *_cache_arrays(c), c.n_k_quant, c.n_k_win, c.n_v_quant)
+    kw = dict(group_size=32, k_bits=2, v_bits=2)
+    want = FW.fused_decode_attention_wide_plain(*args, **kw)
+    _fp_check(FW.fused_decode_attention_wide(*args, **kw), want, "wide")
+    ctrl = FW.fused_decode_attention_wide(*args, **kw, lo=torch.full(
+        (4,), KS, device="cuda", dtype=torch.int32))
+    err = (ctrl - want).abs().max().item()
+    assert err > 10 * (1e-5 * want.abs().max().item() + 1e-5), err
+
+
+# (bits, v_flush, KV heads, r, lower bound, scale dtype)
+ROWS_CASES = [(2, 128, 32, 1, None, "bfloat16"),
+              (2, 32, 32, 1, "pad", "bfloat16"),
+              (4, 32, 8, 4, "pad", "bfloat16"),
+              (8, 32, 8, 8, None, "bfloat16"),
+              (4, 32, 32, 1, "swa", "float32"),
+              (8, 128, 8, 4, "swa", "bfloat16")]
+
+
+@pytest.mark.parametrize("bits,vf,heads,r,mask,sdt", ROWS_CASES)
+def test_fused_decode_rows_match_plain(cuda, bits, vf, heads, r, mask,
+                                       sdt):
+    """Row 6 (per-row device counters, split over T) at chip_smoke's
+    FILLS: within the tolerance, the empty slot exactly 0, two runs
+    bit-equal."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(bits + r)
+    qcfg = QuantConfig(bits, bits, 32, 128, v_flush=vf, scale_dtype=sdt)
+    c = _kivi_cache(gen, 0, heads, 128, FP_FILLS, qcfg)
+    q = _randn(gen, (len(FP_FILLS), heads, r, 128))
+    lo = None
+    if mask == "pad":
+        lo = torch.tensor([0, 0, 37, 300, 1000, 5, 3999, 0], device="cuda",
+                          dtype=torch.int32)
+    elif mask == "swa":
+        lo = torch.clamp(c.seq_len - 1000, min=0)
+    counts = torch.stack([c.n_k_quant, c.n_k_win, c.n_v_quant], dim=1)
+    args = (q, *_cache_arrays(c), counts)
+    kw = dict(group_size=32, k_bits=bits, v_bits=bits, lo=lo)
+    got = FR.fused_decode_attention(*args, **kw)
+    _fp_check(got, FR.fused_decode_attention_plain(*args, **kw),
+              f"rows bits={bits} vf={vf} Hkv={heads} r={r} {mask} {sdt}")
+    assert (got[FP_FILLS.index(0)] == 0).all()
+    assert torch.equal(got, FR.fused_decode_attention(*args, **kw))
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+def test_fused_decode_rows_uniform_equal_wide(cuda, bits):
+    """At counters equal on every row, row 6 computes row 4's function."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(bits)
+    c = _kivi_cache(gen, 4, 32, 128, 1081,
+                    QuantConfig(bits, bits, 32, 128, v_flush=32))
+    q = _randn(gen, (4, 32, 1, 128))
+    kw = dict(group_size=32, k_bits=bits, v_bits=bits,
+              lo=torch.tensor([0, 37, 600, 0], device="cuda",
+                              dtype=torch.int32))
+    counts = torch.tensor([[c.n_k_quant, c.n_k_win, c.n_v_quant]] * 4,
+                          device="cuda", dtype=torch.int32)
+    got = FR.fused_decode_attention(q, *_cache_arrays(c), counts, **kw)
+    _fp_check(got, FW.fused_decode_attention_wide(
+        q, *_cache_arrays(c), c.n_k_quant, c.n_k_win, c.n_v_quant, **kw),
+        f"rows vs wide bits={bits}")
