@@ -14,7 +14,10 @@ Phases (any failure raises; the exit code is then non-zero):
      tile alone against torch.matmul; the three split decode kernels (fp,
      and the KIVI body of rows 4 and 6) also bit-equal across two runs,
      the KIVI ones beside a control that drops the first split and must
-     be refused); the split routes (split decode against
+     be refused; the split decode route's two kernels (rows 7 and 8) at
+     n_quant around their 256-position splits, bit-equal across two
+     runs, QK's masked positions exactly -1e30, beside a control each);
+     the split routes (split decode against
      the fused kernel, the qhist extend route and the fused extend
      kernel against the plain extend) on the same inputs at the long
      slice's geometry, timed at histories of 1K-12K (the crossover behind
@@ -253,15 +256,14 @@ def _att_err(got, want, what):
     return err
 
 
-def _control_refused(ctrl, want, what):
-    """A control (a kernel's output without its first split) must miss
-    the plain version by more than the attention tolerance."""
+def _control_refused(ctrl, want, what, how="without the first split"):
+    """A control (by default a kernel's output without its first split)
+    must miss the plain version by more than the attention tolerance."""
     err = (ctrl - want).abs().max().item()
     limit = ATT_RTOL * want.abs().max().item() + ATT_ATOL
     if err <= limit:
-        raise AssertionError(f"{what}: the check passed a control without "
-                             "the first split")
-    log(f"[kernel] {what}: control without the first split refused, "
+        raise AssertionError(f"{what}: the check passed a control {how}")
+    log(f"[kernel] {what}: control {how} refused, "
         f"max|diff| {err:.3e} = {err / limit:.1f}x the limit")
 
 
@@ -588,53 +590,74 @@ def _logit_err(got, want, nq: int, what: str) -> float:
 
 def check_qk_pv(gen, results):
     """Rows 7 and 8 at the long slice's geometry (batch 1, 8 KV heads, a
-    16K cache filled to 12K), bits 2/4/8, r 1/4/8, n_quant 0, partial,
-    the cache's and all of T; then timed at the slice's shapes."""
+    16K cache filled to 12K), bits 2/4/8, r 1/2/4/8, f32 scales, D = 64,
+    n_quant 0, around the split (1, 255, 256, 257), inside a group and a
+    split (5017), the cache's and all of T; each bit-equal across two
+    runs; controls (PV without p's first split, QK against keys changed
+    in the first split) refused; then timed at the slice's shapes.  The
+    contract's other edges (group sizes 1 to 128, D not a multiple of 8)
+    are tests/test_torch_kernels_cuda.py's."""
     from kivi_tpu_torch.config import QuantConfig
     from kivi_tpu_torch.core import quant as Q
     from kivi_tpu_torch.kernels import qk_pv as QP
+    S = QP.SPLIT
     worst = {"qk_dequant_matmul": 0.0, "pv_dequant_matmul": 0.0}
     pos = torch.arange(LTMAX, device="cuda")
+
+    def softmax_p(r, nq):
+        """p: a softmax over the first nq positions, exactly 0 past them."""
+        p = torch.zeros((LB, LH, r, LTMAX), device="cuda")
+        if nq:
+            p = torch.softmax(torch.randn(
+                p.shape, generator=gen, device="cuda").masked_fill(
+                    pos >= nq, float("-inf")), dim=-1)
+        return p
+
     timed = None
-    for bits, r in ((2, 4), (2, 1), (2, 8), (4, 4), (8, 4)):
-        qcfg = QuantConfig(bits, bits, 32, 32)
-        c = _filled_cache(gen, qcfg, LFILL + 1, LH, LB, LTMAX)
-        q = _randn(gen, (LB, LH, r, D))
+    for bits, r, sdt, d in ((2, 4, "bfloat16", D), (2, 1, "bfloat16", D),
+                            (2, 8, "bfloat16", D), (2, 2, "bfloat16", D),
+                            (4, 4, "bfloat16", D), (8, 4, "bfloat16", D),
+                            (2, 4, "float32", D), (4, 4, "bfloat16", 64)):
+        qcfg = QuantConfig(bits, bits, 32, 32, scale_dtype=sdt)
+        c = _filled_cache(gen, qcfg, LFILL + 1, LH, LB, LTMAX, d)
+        q = _randn(gen, (LB, LH, r, d))
         kargs = (c.k_codes, c.k_scale, c.k_mn, 32, bits)
         vargs = (c.v_codes, c.v_scale, c.v_mn, 32, bits)
-        for nq in (0, 5017, c.n_k_quant, LTMAX):
-            what = f"bits={bits} r={r} n_quant={nq}"
-            got = QP.qk_dequant_matmul(q, *kargs, n_quant=nq)
+        for nq in (0, 1, S - 1, S, S + 1, 5017, c.n_k_quant, LTMAX):
+            what = f"bits={bits} r={r} {sdt} D={d} n_quant={nq}"
             want = QP.qk_dequant_matmul_plain(q, *kargs, n_quant=nq)
-            torch.cuda.synchronize()
+            got = _twice(lambda: QP.qk_dequant_matmul(q, *kargs, n_quant=nq),
+                         f"qk_dequant_matmul {what}")
             worst["qk_dequant_matmul"] = max(
                 worst["qk_dequant_matmul"],
-                _logit_err(got, want, nq, f"qk_dequant_matmul {what}"))
-            # p: a softmax over the first nq positions, exactly 0 past them
-            p = torch.zeros((LB, LH, r, LTMAX), device="cuda")
-            if nq:
-                p = torch.softmax(torch.randn(
-                    p.shape, generator=gen, device="cuda").masked_fill(
-                        pos >= nq, float("-inf")), dim=-1)
-            got = QP.pv_dequant_matmul(p, *vargs, n_quant=nq)
+                _logit_err(got, want, nq, f"qk_dequant_matmul {what} (two "
+                                          "runs bit-equal)"))
+            p = softmax_p(r, nq)
+            got = _twice(lambda: QP.pv_dequant_matmul(p, *vargs, n_quant=nq),
+                         f"pv_dequant_matmul {what}")
             want = QP.pv_dequant_matmul_plain(p, *vargs, n_quant=nq)
-            again = QP.pv_dequant_matmul(p, *vargs, n_quant=nq)
-            torch.cuda.synchronize()
-            if not torch.equal(got, again):
-                raise AssertionError(f"pv_dequant_matmul {what}: two runs "
-                                     "differ")
             worst["pv_dequant_matmul"] = max(
                 worst["pv_dequant_matmul"],
                 _att_err(got, want, f"pv_dequant_matmul {what} (two runs "
                                     "bit-equal)"))
-        if (bits, r) == (2, LR):
+        if (bits, r, sdt, d) == (2, LR, "bfloat16", D):
             timed = (c, q, kargs, vargs)
 
     c, q, kargs, vargs = timed
     nkq, nvq = c.n_k_quant, c.n_v_quant
-    p = torch.softmax(torch.randn((LB, LH, LR, LTMAX), generator=gen,
-                                  device="cuda").masked_fill(
-        pos >= nkq, float("-inf")), dim=-1).masked_fill(pos >= nvq, 0.0)
+    p = softmax_p(LR, nkq).masked_fill(pos >= nvq, 0.0)
+    # controls: each must miss its plain version by more than the limit
+    moved = c.k_codes.clone()
+    moved[..., :S] ^= 0x55555555            # every code of the first split
+    want = QP.qk_dequant_matmul_plain(q, moved, *kargs[1:], n_quant=nkq)
+    _control_refused(QP.qk_dequant_matmul(q, *kargs, n_quant=nkq)[..., :nkq],
+                     want[..., :nkq], "qk_dequant_matmul",
+                     "against keys changed in the first split")
+    cut = p.clone()
+    cut[..., :S] = 0.0
+    _control_refused(QP.pv_dequant_matmul(cut, *vargs, n_quant=nvq),
+                     QP.pv_dequant_matmul_plain(p, *vargs, n_quant=nvq),
+                     "pv_dequant_matmul", "without p's first split")
     # yardsticks: one torch.matmul over the stores dequantized to bf16
     k_deq = Q.dequantize_k(*kargs)[..., :nkq].to(torch.bfloat16).contiguous()
     v_deq = Q.dequantize_v(*vargs)[:, :, :nvq].to(torch.bfloat16).contiguous()

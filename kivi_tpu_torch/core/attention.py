@@ -68,13 +68,16 @@ from kivi_tpu_torch.kernels.qk_pv import pv_dequant_matmul, qk_dequant_matmul
 # SPLIT_MIN_HISTORY is the crossover that chip_smoke.py (phase 3) times
 # at batch 1, 8 KV heads, r = 4, KIVI-2 with W = 32, on an H100 80GB
 # HBM3 at 700 W (ms, split route vs fused kernel, the host's launch cost
-# included), histories 1024, 2048, 4096, 8192, 12032: decode 0.803,
-# 0.484, 0.775, 0.482, 0.511 vs 0.084, 0.073, 0.061, 0.076, 0.087 (the
-# fused kernel wins at every history, in a second run too); extend
-# (T1 = 128) 0.932, 0.831, 0.753, 0.918, 0.872 vs 0.152, 0.201, 0.390,
-# 0.692, 1.003 (the route wins at 12K).  The split routes' torch part
-# costs ~0.4-0.8 ms of host launches, flat in the history.  The
-# threshold is unchanged until the crossover is timed over more runs.
+# included), histories 1024, 2048, 4096, 8192, 12032, two runs after the
+# split kernels' redesign: decode 0.325, 0.641, 0.328, 0.435, 0.277 and
+# 0.512, 0.673, 0.510, 0.768, 0.472 vs 0.030, 0.072, 0.058, 0.065,
+# 0.051 and 0.039, 0.082, 0.062, 0.090, 0.081 (the fused kernel wins at
+# every history); extend (T1 = 128) 0.650, 0.536, 0.859, 0.793, 0.505
+# and 1.111, 0.986, 0.931, 0.742, 0.891 vs 0.105, 0.176, 0.372, 0.672,
+# 0.904 and 0.175, 0.223, 0.362, 0.670, 0.972 (the route wins at 12K).
+# The split routes' torch part costs ~0.25-0.7 ms of host launches,
+# flat in the history.  The threshold is unchanged until the crossover
+# is timed over more runs.
 SPLIT_BLOCKS = 132          # SMs of an H100 SXM
 SPLIT_MIN_HISTORY = 2048    # quantized tokens from which the split wins
 EXTEND_ROWS = 128           # query rows per block of the extend kernel

@@ -78,11 +78,11 @@ SIGNATURES = {
     },
     "qk_pv": {
         # q, k_codes, k_scale, k_mn, out, B, H, r, D, T, gs, bits,
-        # n_quant, scale_is_f32, stream
-        "kivi_qk_dequant": [_P] * 5 + [_I] * 9 + [_P],
-        # p, v_codes, v_scale, v_mn, part, out, B, H, r, D, T, gs, bits,
-        # n_quant, scale_is_f32, stream
-        "kivi_pv_dequant": [_P] * 6 + [_I] * 9 + [_P],
+        # n_quant, scale_is_f32, split, stream
+        "kivi_qk_dequant": [_P] * 5 + [_I] * 10 + [_P],
+        # p, v_codes, v_scale, v_mn, out, part_acc, tickets, B, H, r, D, T,
+        # gs, bits, n_quant, scale_is_f32, split, nsplit, stream
+        "kivi_pv_dequant": [_P] * 7 + [_I] * 11 + [_P],
     },
     "flash": {
         # q, k, v, pad, out, B, Hq, Hkv, T, D, sliding_window, sm_scale,

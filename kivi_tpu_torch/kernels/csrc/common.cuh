@@ -48,10 +48,6 @@ __device__ __forceinline__ void channel_slot(int d, int Dw, int bits,
     }
 }
 
-__device__ __forceinline__ float code_at(uint32_t word, int shift, int bits) {
-    return (float)((word >> shift) & ((1u << bits) - 1u));
-}
-
 // Reduce R values per thread across a block of NT threads (max or sum);
 // every thread gets the R results.  red: R * (NT / 32) floats of shared
 // memory.  Ends with a barrier, so it also orders shared writes made

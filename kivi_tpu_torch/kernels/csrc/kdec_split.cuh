@@ -183,6 +183,110 @@ __device__ __forceinline__ void cp16n(uint32_t saddr, const void* g,
                  : "memory");
 }
 
+// The same in 8 bytes (a source only 8-byte aligned).
+__device__ __forceinline__ void cp8n(uint32_t saddr, const void* g,
+                                     int bytes) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
+                     saddr),
+                 "l"(g), "r"(bytes)
+                 : "memory");
+}
+
+// The staging shared with the split decode route's kernels (qk_pv.cu).
+// Each issues a chunk's copies from every thread of the block; the
+// caller commits them.
+//
+// One chunk's code rows: Dw rows of CH words from position c0 (source
+// rows T words long) into rows CW words apart at dst, the 16-byte pieces
+// that hold a position in [a, hi), each reading only its bytes below hi.
+__device__ __forceinline__ void stage_code_rows(uint32_t dst,
+                                                const char* src, int Dw,
+                                                int T, int c0, int a,
+                                                int hi) {
+    for (int i = threadIdx.x; i < Dw * (CH / 4); i += NT) {
+        const int w = i / (CH / 4), v = i % (CH / 4);
+        const int pos = c0 + 4 * v, n = min(16, 4 * (hi - pos));
+        if (n > 0 && pos + 4 > a)
+            cp16n(dst + (w * CW + 4 * v) * 4,
+                  src + ((long long)w * T + pos) * 4, n);
+    }
+}
+
+// One chunk's V scale and min columns: source rows g0 .. g0 + ng - 1 of
+// T entries of SB bytes (ss, sm), CH positions from c0, into rows
+// `stride` bytes apart at ds / dm, in pieces of P bytes (16, or 8 where
+// the rows are only 8-byte aligned): the pieces that hold a position in
+// [a, hi), each reading only its bytes below hi.
+template <int SB>
+__device__ __forceinline__ void stage_columns(uint32_t ds, uint32_t dm,
+                                              int stride, const char* ss,
+                                              const char* sm, int g0,
+                                              int ng, int T, int c0, int a,
+                                              int hi, int P) {
+    const int pp = P / SB;   // positions a piece
+    for (int i = threadIdx.x; i < ng * (CH / pp); i += NT) {
+        const int g = i / (CH / pp), v = i % (CH / pp);
+        const int pos = c0 + v * pp, n = min(P, (hi - pos) * SB);
+        if (n > 0 && pos + pp > a) {
+            const long long o = ((long long)(g0 + g) * T + pos) * SB;
+            const int d = g * stride + v * P;
+            if (P == 16) {
+                cp16n(ds + d, ss + o, n);
+                cp16n(dm + d, sm + o, n);
+            } else {
+                cp8n(ds + d, ss + o, n);
+                cp8n(dm + d, sm + o, n);
+            }
+        }
+    }
+}
+
+// For each of m items, the sum over k < n of term(i, k), as many items at
+// once as fit: tpp threads per item, lanes of one warp (the largest power
+// of two <= 32 with tpp * m <= NT, but at least TPP), lane l summing k =
+// l, l + tpp, ..., then an xor tree over the item's lanes; put(i, sum)
+// from its first lane.  The order is fixed, so two runs are bit-equal.
+// Every thread calls it.
+template <int TPP = 1, typename F, typename P>
+__device__ __forceinline__ void sum_items(int m, int n, F term, P put) {
+    int tpp = 32;
+    while (tpp > TPP && tpp * m > NT) tpp >>= 1;
+    const int l = threadIdx.x % tpp;
+    for (int i0 = 0; i0 < m; i0 += NT / tpp) {
+        const int i = i0 + threadIdx.x / tpp;
+        float z = 0.f;
+        if (i < m)
+            for (int k = l; k < n; k += tpp) z += term(i, k);
+        for (int x = tpp / 2; x > 0; x >>= 1)
+            z += __shfl_xor_sync(0xffffffffu, z, x);
+        if (i < m && l == 0) put(i, z);
+    }
+}
+
+// The zero-point terms of ng groups' K scale and min rows ks / km (ng, D)
+// with the R query rows q_s (R, D): zp (ng, R), q . mn per (group, row),
+// a warp an item (lanes over D); with FOLD_Q also qs, each group's scale
+// folded into the query rows (ng rows of R * D, qsg floats apart), a
+// thread a channel.  Every thread calls it.
+template <int R, bool FOLD_Q, typename ST>
+__device__ __forceinline__ void zero_point_terms(float* qs, int qsg,
+                                                 float* zp,
+                                                 const float* q_s,
+                                                 const ST* ks, const ST* km,
+                                                 int ng, int D) {
+    if (FOLD_Q)
+        for (int d = threadIdx.x; d < D; d += NT)
+            for (int g = 0; g < ng; ++g) {
+                const float sc = to_f(ks[g * D + d]);
+#pragma unroll
+                for (int rr = 0; rr < R; ++rr)
+                    qs[g * qsg + rr * D + d] = q_s[rr * D + d] * sc;
+            }
+    sum_items<32>(ng * R, D, [&](int i, int d) {
+        return q_s[(i % R) * D + d] * to_f(km[(i / R) * D + d]);
+    }, [&](int i, float z) { zp[i] = z; });
+}
+
 // The two codes of a crumb pair, x = the pair's bits in the low bits of
 // each 16-bit half: (x | 0x3F803F80) read as two bf16 is 1 + c * 2^-7
 // (exact for c < 128), and c = 128 * that - 128 (exact).
@@ -397,13 +501,8 @@ __global__ void __launch_bounds__(NT) decode_kernel(const Params p) {
 #pragma unroll
         for (int j = 0; j < NCH; ++j) {
             const int c0 = s0 + j * CH;
-            for (int i = tid; i < KDw * (CH / 4); i += NT) {
-                const int w = i / (CH / 4), v = i % (CH / 4);
-                const int pos = c0 + 4 * v, n = min(16, 4 * (hiK - pos));
-                if (n > 0 && pos + 4 > a)
-                    cp16n(base + L.kc + j * L.kcs + (w * CW + 4 * v) * 4,
-                          kc_g + ((long long)w * Tmax + pos) * 4, n);
-            }
+            stage_code_rows(base + L.kc + j * L.kcs, kc_g, KDw, Tmax, c0, a,
+                            hiK);
             // the chunk's group rows that hold a live position (and its
             // first, which the "none" ablation reads)
             const int cg = CH / gs, g0 = c0 / gs;
@@ -433,24 +532,12 @@ __global__ void __launch_bounds__(NT) decode_kernel(const Params p) {
                 vwin_g + (long long)va * D + i));
 #pragma unroll
         for (int j = 0; j < NCH; ++j) {
-            const int c0 = s0 + j * CH, pv = 16 / SB;
-            for (int i = tid; i < VDw * (CH / 4); i += NT) {
-                const int w = i / (CH / 4), v = i % (CH / 4);
-                const int pos = c0 + 4 * v, n = min(16, 4 * (hiV - pos));
-                if (n > 0 && pos + 4 > a)
-                    cp16n(base + L.vc + j * L.vcs + (w * CW + 4 * v) * 4,
-                          vc_g + ((long long)w * Tmax + pos) * 4, n);
-            }
-            for (int i = tid; i < Dg * (CH / pv); i += NT) {
-                const int g = i / (CH / pv), v = i % (CH / pv);
-                const int pos = c0 + v * pv, n = min(16, (hiV - pos) * SB);
-                if (n > 0 && pos + pv > a) {
-                    const long long o = ((long long)g * Tmax + pos) * SB;
-                    const int dst = (g * CH + v * pv) * SB;
-                    cp16n(base + L.vs + j * L.vss + dst, vs_g + o, n);
-                    cp16n(base + L.vm + j * L.vss + dst, vm_g + o, n);
-                }
-            }
+            const int c0 = s0 + j * CH;
+            stage_code_rows(base + L.vc + j * L.vcs, vc_g, VDw, Tmax, c0, a,
+                            hiV);
+            stage_columns<SB>(base + L.vs + j * L.vss,
+                              base + L.vm + j * L.vss, CH * SB, vs_g, vm_g,
+                              0, Dg, Tmax, c0, a, hiV, 16);
             wg::cp_commit();
         }
 
@@ -468,22 +555,8 @@ __global__ void __launch_bounds__(NT) decode_kernel(const Params p) {
         __syncthreads();
         if (A::zp) {
             const int gk = hiK > s0 ? (hiK - s0 + gs - 1) / gs : 0;
-            if (A::scales == FOLD) {
-                for (int i = tid; i < gk * R * D; i += NT) {
-                    const int g = i / (R * D), rd = i % (R * D);
-                    qs_s[i] = q_s[rd] * to_f(ksr[g * D + rd % D]);
-                }
-            }
-            // one warp per (group, row): lanes over D, then a shuffle sum
-            for (int i = warp; i < gk * R; i += NW) {
-                const int g = i / R, rr = i % R;
-                float z = 0.f;
-                for (int d = lane; d < D; d += 32)
-                    z += q_s[rr * D + d] * to_f(kmr[g * D + d]);
-                for (int o = 16; o > 0; o >>= 1)
-                    z += __shfl_xor_sync(0xffffffffu, z, o);
-                if (lane == 0) zp_s[i] = z;
-            }
+            zero_point_terms<R, A::scales == FOLD>(qs_s, R * D, zp_s, q_s,
+                                                   ksr, kmr, gk, D);
             __syncthreads();
         }
 

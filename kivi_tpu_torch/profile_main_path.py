@@ -64,9 +64,8 @@ OURS = {"quantize_pack_kernel": "quantize_pack_k/v",
         "flash_extend_kernel": "flash_extend_attention",
         "flash_prefill_kernel": "flash_attention",
         "fp_decode_split_kernel": "fp_decode_attention_kernel",
-        "qk_kernel": "qk_dequant_matmul",
-        "pv_split_kernel": "pv_dequant_matmul",
-        "pv_reduce_kernel": "pv_dequant_matmul",
+        "qk_dequant_kernel": "qk_dequant_matmul",
+        "pv_dequant_kernel": "pv_dequant_matmul",
         "qhist_split_kernel": "flash_extend_qhist",
         "qhist_merge_kernel": "flash_extend_qhist"}
 QCFG = {"chunked": QuantConfig(2, 2, 32, 128, v_flush=128),

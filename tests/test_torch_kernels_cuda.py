@@ -16,8 +16,9 @@ Tolerances (chip_smoke.py's):
     flash_extend_qhist against their f32 plain versions: each query row
     within utils.tolerance.FLASH_RTOL / EXTEND_RTOL / QHIST_RTOL of its
     own largest value (the reasons are in that module);
-  * fp_decode_attention_kernel and the two KIVI decode kernels
-    fused_decode_attention_wide and fused_decode_attention (f32 on the
+  * fp_decode_attention_kernel, the two KIVI decode kernels
+    fused_decode_attention_wide and fused_decode_attention, and the split
+    decode kernels qk_dequant_matmul and pv_dequant_matmul (f32 on the
     CUDA cores, split over T): max|kernel - plain| <= 1e-5 * max|plain|
     + 1e-5, and two runs bit-equal.
 """
@@ -25,15 +26,18 @@ Tolerances (chip_smoke.py's):
 import pytest
 import torch
 
+from kivi_tpu_torch import profile_qk_pv as PQ
 from kivi_tpu_torch import profile_wide_32k as PW
 from kivi_tpu_torch.cache import fp_cache as FC
 from kivi_tpu_torch.cache import kivi_cache as KC
 from kivi_tpu_torch.config import QuantConfig
+from kivi_tpu_torch.core import quant as Q
 from kivi_tpu_torch.kernels import flash as FL
 from kivi_tpu_torch.kernels import flash_extend as FE
 from kivi_tpu_torch.kernels import fp_decode as FD
 from kivi_tpu_torch.kernels import fused_decode as FR
 from kivi_tpu_torch.kernels import fused_decode_wide as FW
+from kivi_tpu_torch.kernels import qk_pv as QP
 from kivi_tpu_torch.utils import tolerance as TOL
 
 
@@ -62,6 +66,15 @@ def test_profile_wide_32k_check(cuda):
     history."""
     assert PW.main(["--check", "--B", "2", "--T", "4096",
                     "--fill", "4000"]) == []
+
+
+def test_profile_qk_pv(cuda):
+    """`python3 -m kivi_tpu_torch.profile_qk_pv --batch 1`: every probe
+    build of csrc/qk_pv.cu compiles and launches, and those that compute
+    the kernels' function (the runtime-shape and ELEMENT builds) agree
+    with the plain versions."""
+    out = PQ.main(["--batch", "1"])
+    assert {f"B1 {name}" for name in PQ.BUILDS} <= out.keys()
 
 
 def _randn(gen, shape):
@@ -463,3 +476,156 @@ def test_fused_decode_rows_uniform_equal_wide(cuda, bits):
     _fp_check(got, FW.fused_decode_attention_wide(
         q, *_cache_arrays(c), c.n_k_quant, c.n_k_win, c.n_v_quant, **kw),
         f"rows vs wide bits={bits}")
+
+
+# (bits, r, D, scale dtype) of the split decode kernels, rows 7 and 8, at
+# the long slice's batch 1 and 8 KV heads, a cache of QKPV_TMAX filled to
+# 6001 (W = 32); every case runs at each n_quant of _qkpv_nqs
+QKPV_CASES = [(2, 1, 128, "bfloat16"), (2, 2, 128, "bfloat16"),
+              (2, 4, 128, "bfloat16"), (2, 8, 128, "bfloat16"),
+              (4, 4, 128, "bfloat16"), (8, 4, 128, "bfloat16"),
+              (8, 2, 128, "float32"), (4, 1, 64, "float32"),
+              (2, 4, 64, "float32"), (8, 8, 64, "bfloat16")]
+QKPV_TMAX = 8192
+
+
+def _qkpv_cache(bits, r, d, sdt):
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(bits + r + d)
+    qcfg = QuantConfig(bits, bits, 32, 32, scale_dtype=sdt)
+    c = _kivi_cache(gen, 1, 8, d, 6001, qcfg, tmax=QKPV_TMAX)
+    return gen, c
+
+
+def _qkpv_nqs(c):
+    """Split edges, a group edge inside a split (5017), the cache's
+    count and all of T."""
+    return (0, 1, KS - 1, KS, KS + 1, 5017, c.n_k_quant, QKPV_TMAX)
+
+
+def _poisoned(x, start: int, axis: int):
+    """A copy of a float store whose entries from `start` on along `axis`
+    are NaN: a kernel that read them would show it."""
+    x = x.clone()
+    x.narrow(axis, start, x.shape[axis] - start).fill_(float("nan"))
+    return x
+
+
+@pytest.mark.parametrize("bits,r,d,sdt", QKPV_CASES)
+def test_qk_dequant_matches_plain(cuda, bits, r, d, sdt):
+    """Row 7 at every n_quant of _qkpv_nqs: positions >= n_quant exactly
+    -1e30, the rest within the tolerance of the plain version, two runs
+    bit-equal; the scale and min rows of groups wholly past n_quant are
+    NaN, so a read of them would show."""
+    gen, c = _qkpv_cache(bits, r, d, sdt)
+    q = _randn(gen, (1, 8, r, d))
+    for nq in _qkpv_nqs(c):
+        _qk_check(q, c.k_codes, c.k_scale, c.k_mn, 32, bits, nq,
+                  f"qk bits={bits} r={r} D={d} {sdt} nq={nq}")
+
+
+def _qk_check(q, codes, scale, mn, gs, bits, nq, what):
+    g = -(-nq // gs)
+    kargs = (codes, _poisoned(scale, g, 2), _poisoned(mn, g, 2), gs, bits)
+    want = QP.qk_dequant_matmul_plain(q, *kargs, n_quant=nq)
+    got = QP.qk_dequant_matmul(q, *kargs, n_quant=nq)
+    assert (got[..., nq:] == -1e30).all(), what
+    if nq:
+        _fp_check(got[..., :nq], want[..., :nq], what)
+    assert torch.equal(got, QP.qk_dequant_matmul(q, *kargs, n_quant=nq)), what
+
+
+def _pv_check(p, codes, scale, mn, gs, bits, nq, what):
+    p = _poisoned(p, nq, 3)
+    vargs = (codes, _poisoned(scale, nq, 3), _poisoned(mn, nq, 3), gs, bits)
+    got = QP.pv_dequant_matmul(p, *vargs, n_quant=nq)
+    _fp_check(got, QP.pv_dequant_matmul_plain(p, *vargs, n_quant=nq), what)
+    if nq == 0:
+        assert (got == 0).all(), what
+    assert torch.equal(got, QP.pv_dequant_matmul(p, *vargs, n_quant=nq)), what
+
+
+@pytest.mark.parametrize("bits,r,d,sdt", QKPV_CASES)
+def test_pv_dequant_matches_plain(cuda, bits, r, d, sdt):
+    """Row 8 at every n_quant of _qkpv_nqs, p a softmax over the first
+    n_quant positions: within the tolerance of the plain version, zeros
+    at n_quant 0, two runs bit-equal; p and the V scale and min columns
+    past n_quant are NaN, so a read of them would show."""
+    gen, c = _qkpv_cache(bits, r, d, sdt)
+    for nq in _qkpv_nqs(c):
+        _pv_check(_softmax_p(gen, (1, 8, r, QKPV_TMAX), nq), c.v_codes,
+                  c.v_scale, c.v_mn, 32, bits, nq,
+                  f"pv bits={bits} r={r} D={d} {sdt} nq={nq}")
+
+
+def _softmax_p(gen, shape, nq):
+    """A softmax over the first nq positions, exactly 0 past them."""
+    pos = torch.arange(shape[-1], device="cuda")
+    return torch.softmax(torch.randn(shape, generator=gen, device="cuda")
+                         .masked_fill(pos >= nq, float("-inf")),
+                         dim=-1).nan_to_num(0.0)
+
+
+# (bits, r, D, group size, scale dtype, T) at the edges of rows 7 and 8's
+# contract (D <= 128 with 128 % gs == 0, T a multiple of 4): group sizes
+# 1 and 2 (a thread's position or channel pair spans two groups, and
+# shared memory takes the split's groups in several tiles at r = 8 and
+# f32 scales), 4, 8 and 128; D not a multiple of 8 (scale rows in 8-byte
+# copies); bf16 columns with T % 8 == 4 (8-byte copies)
+QKPV_EDGES = [(2, 8, 128, 1, "float32", 2048),
+              (4, 4, 128, 2, "float32", 1028),
+              (2, 2, 64, 1, "bfloat16", 1028),
+              (8, 8, 4, 4, "bfloat16", 516),
+              (8, 2, 12, 2, "float32", 1000),
+              (8, 1, 124, 4, "bfloat16", 772),
+              (4, 8, 24, 8, "bfloat16", 776),
+              (2, 4, 128, 128, "bfloat16", 1024)]
+
+
+@pytest.mark.parametrize("bits,r,d,gs,sdt,t", QKPV_EDGES)
+def test_qk_pv_contract_edges(cuda, bits, r, d, gs, sdt, t):
+    """Rows 7 and 8 at the edges of their contract, B = 1, 2 KV heads,
+    stores quantized from N(0, 1), n_quant 0, 1, 3, 255, 257, T - 1 and
+    T: within the tolerance of the plain versions, -1e30 and zeros where
+    the contract says, two runs bit-equal, nothing read past n_quant."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(bits + d + gs + t)
+    dt = getattr(torch, sdt)
+    kc, ks, km = Q.quantize_k_block(torch.randn(
+        (1, 2, d, t), generator=gen, device="cuda"), gs, bits)
+    vc, vs, vm = Q.quantize_v_block(torch.randn(
+        (1, 2, t, d), generator=gen, device="cuda"), gs, bits)
+    q = _randn(gen, (1, 2, r, d))
+    for nq in (0, 1, 3, KS - 1, KS + 1, t - 1, t):
+        what = f"bits={bits} r={r} D={d} gs={gs} {sdt} T={t} nq={nq}"
+        _qk_check(q, kc.contiguous(), ks.to(dt).contiguous(),
+                  km.to(dt).contiguous(), gs, bits, nq, "qk " + what)
+        _pv_check(_softmax_p(gen, (1, 2, r, t), nq), vc.contiguous(),
+                  vs.to(dt).contiguous(), vm.to(dt).contiguous(), gs, bits,
+                  nq, "pv " + what)
+
+
+def test_qk_pv_controls_refused(cuda):
+    """Controls: PV on p whose first split is zeroed, and QK against a
+    plain version whose first split's keys changed, must both miss by
+    more than the tolerance."""
+    gen, c = _qkpv_cache(2, 4, 128, "bfloat16")
+    nq = c.n_k_quant
+    q = _randn(gen, (1, 8, 4, 128))
+    kargs = (c.k_codes, c.k_scale, c.k_mn, 32, 2)
+    moved = c.k_codes.clone()
+    moved[..., :KS] ^= 0x55555555      # every code of the first split
+    want = QP.qk_dequant_matmul_plain(q, moved, *kargs[1:], n_quant=nq)
+    got = QP.qk_dequant_matmul(q, *kargs, n_quant=nq)
+    err = (got[..., :nq] - want[..., :nq]).abs().max().item()
+    assert err > 10 * (1e-5 * want[..., :nq].abs().max().item() + 1e-5), err
+    p = torch.softmax(torch.randn((1, 8, 4, QKPV_TMAX), generator=gen,
+                                  device="cuda")[..., :nq], dim=-1)
+    p = torch.nn.functional.pad(p, (0, QKPV_TMAX - nq))
+    vargs = (c.v_codes, c.v_scale, c.v_mn, 32, 2)
+    want = QP.pv_dequant_matmul_plain(p, *vargs, n_quant=nq)
+    _fp_check(QP.pv_dequant_matmul(p, *vargs, n_quant=nq), want, "pv")
+    cut = p.clone()
+    cut[..., :KS] = 0.0
+    err = (QP.pv_dequant_matmul(cut, *vargs, n_quant=nq) - want).abs().max()
+    assert err.item() > 10 * (1e-5 * want.abs().max().item() + 1e-5), err
