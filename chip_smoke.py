@@ -8,7 +8,12 @@ Phases (any failure raises; the exit code is then non-zero):
   2. build: compile every CUDA kernel from kivi_tpu_torch/kernels/csrc;
   3. kernels vs their plain PyTorch versions on the card, at the main
      path's shapes and edge cases, timed with CUDA events beside their
-     bound and a one-call PyTorch yardstick (the three tensor-core
+     bound and a one-call PyTorch yardstick (the quantizers bit-equal
+     through both entries, the in-place one on whole stores pre-filled
+     with a sentinel beside a control that flips one row's predicate,
+     and timed at the batcher's step with no row, one row and every row
+     flushing beside the quantizer + masked-write sequence it replaces;
+     the three tensor-core
      kernels per query row at utils.tolerance's limits, beside a control
      that drops one chunk of keys and must be refused, and their wgmma
      tile alone against torch.matmul; the three split decode kernels (fp,
@@ -154,6 +159,21 @@ def _randn(gen, shape, dtype=torch.bfloat16):
 
 
 def check_quant(gen, results):
+    """Rows 1-2, both entries, bit-equal to their plain versions: the
+    contract entry (fresh outputs) at the main path's shapes, on a
+    window view and an unaligned base; the in-place entry on whole
+    stores pre-filled with a sentinel, rows selected all / one / none /
+    every / one host offset, at offsets 0, 128, Tmax (clamped) and 130,
+    bf16 and f32 stores, beside a control (row 0 flipped) that must be
+    refused (profile_quant.check_into); the same at the main path's
+    shapes (profile_quant.MAIN_PATH_INTO: the batcher's flush with
+    device offsets, the one-shot ingest, the long slice's flush and
+    chunk at host offsets).  Timed: the contract entry at one
+    (8, 32, 128, 128) block; the in-place entry at the batcher's step
+    with no row, one row and every row flushing, beside the sequence the
+    slot cache ran without it (the contract entry, then three masked
+    gather/where/scatter writes)."""
+    from kivi_tpu_torch import profile_quant as PQ8
     from kivi_tpu_torch.kernels import quant_pack as QP
     gs = 32
     for is_key in (True, False):
@@ -178,16 +198,36 @@ def check_quant(gen, results):
                             f"({(g != w).sum().item()} elements, max "
                             f"|diff| {err})")
                 log(f"[kernel] {name} bits={bits} T={T}: bit-equal")
-        # timed at the main path's shape: one 128-token chunk or flush
-        x = _randn(gen, (B, H, 128, D))
-        Dw = D // 16
-        nbytes = (x.numel() * 2 + B * H * Dw * 128 * 4
-                  + 2 * B * H * (128 // gs) * D * 4)
-        bms, by = bound(nbytes, 0)
+            for layout in ("window", "unaligned"):
+                PQ8.check_fresh(is_key, bits, gs, (2, 8, 128, D), layout)
+            for sdt in (torch.float32, torch.bfloat16):
+                for mode in PQ8.MODES:
+                    PQ8.check_into(is_key, bits, gs, 128, sdt, mode)
+            log(f"[kernel] {name} bits={bits}: window view and unaligned "
+                f"base bit-equal; in-place entry bit-equal on whole stores "
+                f"at {PQ8.MODES}, f32 and bf16 stores, controls refused")
+        cases = PQ8.check_into_main_path(is_key)
+        log(f"[kernel] {name}: in-place entry bit-equal on whole stores at "
+            f"the main path's shapes (KIVI-2, bf16 stats), controls "
+            f"refused: {'; '.join(cases)}")
+        PQ8.check_into(is_key, 2, 16, 32, torch.bfloat16, "all")
+        PQ8.check_into(is_key, 2, gs, 32, torch.bfloat16, "one", D_=64)
+        log(f"[kernel] {name}: runtime-shape kernel (gs 16; D 64) in place "
+            "bit-equal")
+        t = PQ8.time_kind(is_key, reps=1)
+        bms, by = bound(PQ8.fresh_bytes(B, H, 128, D), 0)
         results[name] = dict(
-            max_abs_err=worst, ms=cuda_ms(lambda: kern(x, gs, 2)),
-            plain_ms=cuda_ms(lambda: plain(x, gs, 2)), bound_ms=bms,
-            bound_by=by, library_ms=None)
+            max_abs_err=worst, ms=t["fresh_8x32x128x128"][0],
+            plain_ms=t["plain"], bound_ms=bms, bound_by=by, library_ms=None,
+            **{f"{k}_ms": (v[0] if isinstance(v, list) else v)
+               for k, v in t.items() if k.startswith(("into", "masked"))})
+        log(f"[kernel] {name} in place at the batcher's step (8 slots, 32 "
+            f"heads, W 128, Tmax 4096, bf16 stats): no row "
+            f"{t['into_none'][0]:.4f} ms, one {t['into_one'][0]:.4f}, all "
+            f"{t['into_all'][0]:.4f} (bound {t['into_all_bound']:.5f}) | "
+            f"quantizer + 3 masked writes {t['masked_seq'][0]:.4f} ms | "
+            f"host enqueue counted: one row {t['into_one_host'][0]:.4f} vs "
+            f"{t['masked_seq_host'][0]:.4f} ms")
 
 
 def _filled_cache(gen, qcfg, fill: int, heads: int = H, batch: int = B,

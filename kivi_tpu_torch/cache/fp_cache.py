@@ -18,9 +18,9 @@ from typing import Optional, Union
 
 import torch
 
-from kivi_tpu_torch.cache.kivi_cache import _masked_store_write
 from kivi_tpu_torch.kernels.fp_decode import (NEG_INF,
                                                fp_decode_attention_kernel)
+from kivi_tpu_torch.kernels.quant_pack import masked_store_write
 from kivi_tpu_torch.utils.device import resolve_device
 
 
@@ -88,8 +88,8 @@ def fp_append_masked(cache: FpLayerCache, k_new, v_new,
     if active is None:
         return fp_append(cache, k_new, v_new)
     t = k_new.shape[-2]
-    _masked_store_write(cache.k, k_new.transpose(-1, -2), cache.length, 3)
-    _masked_store_write(cache.v, v_new, cache.length, 2)
+    masked_store_write(cache.k, k_new.transpose(-1, -2), cache.length, 3)
+    masked_store_write(cache.v, v_new, cache.length, 2)
     cache.length += active.to(device=cache.k.device,
                               dtype=torch.int32).reshape(-1) * t
     return cache

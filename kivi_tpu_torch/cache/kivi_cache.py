@@ -36,7 +36,9 @@ import torch
 
 from kivi_tpu_torch.config import QuantConfig
 from kivi_tpu_torch.core import quant as Q
-from kivi_tpu_torch.kernels.quant_pack import quantize_pack_k, quantize_pack_v
+from kivi_tpu_torch.kernels.quant_pack import (masked_store_write,
+                                               quantize_pack_k_into,
+                                               quantize_pack_v_into)
 from kivi_tpu_torch.utils.device import resolve_device
 
 
@@ -164,29 +166,23 @@ def write_slot(slot_cache, s: int, one_cache):
 
 def _append_k_quant(cache: KiviLayerCache, k_block, qcfg: QuantConfig,
                     n_tokens: int) -> KiviLayerCache:
-    """Quantize k_block (B,H,n_tokens,D) and write it at n_k_quant.
-    Scales are cast to the store's scale dtype by the copy."""
-    gs = qcfg.group_size
-    codes, scale, mn = quantize_pack_k(k_block, gs, qcfg.k_bits)
-    off = cache.n_k_quant
-    goff = off // gs
-    cache.k_codes[..., off:off + n_tokens].copy_(codes)
-    cache.k_scale[:, :, goff:goff + n_tokens // gs].copy_(scale)
-    cache.k_mn[:, :, goff:goff + n_tokens // gs].copy_(mn)
-    cache.n_k_quant = off + n_tokens
+    """Quantize k_block (B,H,n_tokens,D) straight into the stores at
+    n_k_quant (scales in the store's scale dtype)."""
+    quantize_pack_k_into(k_block, qcfg.group_size, qcfg.k_bits,
+                         cache.k_codes, cache.k_scale, cache.k_mn,
+                         cache.n_k_quant)
+    cache.n_k_quant += n_tokens
     return cache
 
 
 def _append_v_quant(cache: KiviLayerCache, v_block, qcfg: QuantConfig,
                     n_tokens: int) -> KiviLayerCache:
-    """Quantize v_block (B,H,n_tokens,D) and write it at n_v_quant."""
-    codes, scale, mn = quantize_pack_v(v_block, qcfg.group_size,
-                                       qcfg.v_bits)
-    off = cache.n_v_quant
-    cache.v_codes[..., off:off + n_tokens].copy_(codes)
-    cache.v_scale[..., off:off + n_tokens].copy_(scale)
-    cache.v_mn[..., off:off + n_tokens].copy_(mn)
-    cache.n_v_quant = off + n_tokens
+    """Quantize v_block (B,H,n_tokens,D) straight into the stores at
+    n_v_quant."""
+    quantize_pack_v_into(v_block, qcfg.group_size, qcfg.v_bits,
+                         cache.v_codes, cache.v_scale, cache.v_mn,
+                         cache.n_v_quant)
+    cache.n_v_quant += n_tokens
     return cache
 
 
@@ -320,33 +316,11 @@ def decode_append(cache: KiviLayerCache, k_new, v_new, qcfg: QuantConfig,
 
 # ---------------------------------------------------------------------------
 # masked, per-row updates of a slot cache (kivi_tpu/cache/kivi_cache.py:
-# 348-401, 457-522): the continuous batcher's decode step
+# 348-401, 457-522): the continuous batcher's decode step.  The flushes
+# quantize straight into the stores on the rows that flush (the kernel's
+# other rows load nothing); the window appends are slice-sized selected
+# writes (kernels.quant_pack.masked_store_write)
 # ---------------------------------------------------------------------------
-
-def _masked_store_write(store: torch.Tensor, block: torch.Tensor,
-                        start: torch.Tensor, dim: int,
-                        pred: Optional[torch.Tensor] = None) -> None:
-    """Write block (B, ...) into store (B, ...) in place at per-row
-    offsets start (B,) along `dim`, with the CONTENT falling back to the
-    store's own bytes on rows where pred (B,) is false.
-
-    As XLA's dynamic_update_slice, which the JAX package relies on, the
-    start is clamped into [0, store.shape[dim] - block.shape[dim]]: an
-    inactive row at n_win == W, or a full store at n_k_quant == Tmax,
-    writes (its own bytes) at the last slice instead of out of range.
-    Traffic is O(block) per row; no branch reads a device value."""
-    B, n = block.shape[0], block.shape[dim]
-    start = start.to(torch.int64).clamp(0, store.shape[dim] - n)
-    shape = [1] * block.dim()
-    shape[0], shape[dim] = B, n
-    idx = (start[:, None] + torch.arange(n, device=store.device)).reshape(
-        shape).expand(block.shape)
-    block = block.to(store.dtype)
-    if pred is not None:
-        keep = pred.reshape([B] + [1] * (block.dim() - 1))
-        block = torch.where(keep, block, store.gather(dim, idx))
-    store.scatter_(dim, idx, block)
-
 
 def _row_pred(cache: KiviLayerCache, pred) -> torch.Tensor:
     B = cache.k_win.shape[0]
@@ -357,17 +331,14 @@ def _row_pred(cache: KiviLayerCache, pred) -> torch.Tensor:
 
 def flush_k_masked(cache: KiviLayerCache, qcfg: QuantConfig,
                    pred: Optional[torch.Tensor] = None) -> KiviLayerCache:
-    """Masked key-window flush of a slot cache: quantize every row's
-    window and append it on rows where pred & (n_k_win == W), by
-    slice-sized selected writes (`_masked_store_write`) at each row's
-    n_k_quant, never a branch on the counters."""
+    """Masked key-window flush of a slot cache: quantize the window
+    straight into the stores at each row's n_k_quant (clamped, as XLA's
+    dynamic_update_slice) on rows where pred & (n_k_win == W), never a
+    branch on the counters.  The other rows' stores are not touched."""
     W, gs = qcfg.residual_length, qcfg.group_size
     flush_k = _row_pred(cache, pred) & (cache.n_k_win == W)
-    kc, ks, km = quantize_pack_k(cache.k_win, gs, qcfg.k_bits)
-    off = cache.n_k_quant
-    _masked_store_write(cache.k_codes, kc, off, 3, flush_k)
-    _masked_store_write(cache.k_scale, ks, off // gs, 2, flush_k)
-    _masked_store_write(cache.k_mn, km, off // gs, 2, flush_k)
+    quantize_pack_k_into(cache.k_win, gs, qcfg.k_bits, cache.k_codes,
+                         cache.k_scale, cache.k_mn, cache.n_k_quant, flush_k)
     cache.n_k_quant += flush_k.to(torch.int32) * W
     cache.n_k_win.masked_fill_(flush_k, 0)
     return cache
@@ -377,14 +348,12 @@ def flush_v_masked(cache: KiviLayerCache, qcfg: QuantConfig,
                    pred: Optional[torch.Tensor] = None) -> KiviLayerCache:
     """Masked value-window flush (the oldest v_flush tokens, then the
     window shifts) on rows where pred & (n_v_win == W); see
-    flush_k_masked."""
+    flush_k_masked.  The shift is a torch select over every row."""
     W, vf, gs = qcfg.residual_length, qcfg.value_flush, qcfg.group_size
     flush_v = _row_pred(cache, pred) & (cache.n_v_win == W)
-    vc, vs, vm = quantize_pack_v(cache.v_win[:, :, :vf], gs, qcfg.v_bits)
-    off = cache.n_v_quant
-    _masked_store_write(cache.v_codes, vc, off, 3, flush_v)
-    _masked_store_write(cache.v_scale, vs, off, 3, flush_v)
-    _masked_store_write(cache.v_mn, vm, off, 3, flush_v)
+    quantize_pack_v_into(cache.v_win[:, :, :vf], gs, qcfg.v_bits,
+                         cache.v_codes, cache.v_scale, cache.v_mn,
+                         cache.n_v_quant, flush_v)
     shifted = torch.cat([cache.v_win[:, :, vf:],
                          torch.zeros_like(cache.v_win[:, :, :vf])], dim=2)
     cache.v_win.copy_(torch.where(flush_v.reshape(-1, 1, 1, 1), shifted,
@@ -402,16 +371,18 @@ def decode_append_masked(cache: KiviLayerCache, k_new, v_new,
     """`decode_append` for a slot cache whose rows sit at divergent
     window phases: each row flushes its own full windows, then appends
     one token's K/V (B, H, 1, D).  Rows where active (B,) is false freeze
-    every counter, and their writes carry the store's own bytes: an
-    inactive row may sit at n_win == W, where the clamped write lands on
-    the last REAL window token.  Every row's window is quantized every
-    step (O(W·D), as in the JAX package); non-flushing rows write their
-    stores' bytes back."""
+    every counter, and their window writes carry the window's own bytes:
+    an inactive row may sit at n_win == W, where the clamped write lands
+    on the last REAL window token.  Only rows that flush quantize their
+    window and write their stores (the JAX package quantizes every row's
+    window every step and writes the others' bytes back); the quantizer
+    still launches every step, and its blocks of the other rows return
+    before loading anything."""
     act = _row_pred(cache, active)
     flush_k_masked(cache, qcfg, act)
     flush_v_masked(cache, qcfg, act)
-    _masked_store_write(cache.k_win, k_new, cache.n_k_win, 2, act)
-    _masked_store_write(cache.v_win, v_new, cache.n_v_win, 2, act)
+    masked_store_write(cache.k_win, k_new, cache.n_k_win, 2, act)
+    masked_store_write(cache.v_win, v_new, cache.n_v_win, 2, act)
     inc = act.to(torch.int32)
     cache.n_k_win += inc
     cache.n_v_win += inc

@@ -18,6 +18,7 @@ it before a run can show which kernels the run went through.
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -47,6 +48,10 @@ SIGNATURES = {
         # is_key, codes, scale, mn, stream
         "kivi_quantize_pack": [_P, _L, _L, _L, _I, _I, _I, _I, _I, _I, _I,
                                _P, _P, _P, _P],
+        # x, stride_b, stride_h, stride_t, B, H, T, D, gs, bits, is_key,
+        # codes, scale, mn, tmax, stats_bf16, off, offs, pred, stream
+        "kivi_quantize_pack_into": [_P, _L, _L, _L] + [_I] * 7
+                                   + [_P] * 3 + [_I] * 3 + [_P] * 3,
     },
     "fused_decode": {
         # q, k_codes, k_scale, k_mn, v_codes, v_scale, v_mn, k_win,
@@ -163,15 +168,61 @@ def build_all() -> dict:
         if failed:
             raise RuntimeError("CUDA kernel build failed:\n"
                                + "\n".join(failed))
-        for name, fns in SIGNATURES.items():
-            lib = ctypes.CDLL(str(_target(name)))
-            for fn, argtypes in fns.items():
-                f = getattr(lib, fn)
-                f.argtypes = argtypes
-                f.restype = ctypes.c_int
-            _LIBS[name] = lib
+        for name in SIGNATURES:
+            _LIBS[name] = _load(_target(name), name)
         BUILD_SECONDS = time.perf_counter() - t0
         return _LIBS
+
+
+def _load(path, name: str):
+    lib = ctypes.CDLL(str(path))
+    for fn, argtypes in SIGNATURES[name].items():
+        f = getattr(lib, fn)
+        f.argtypes = argtypes
+        f.restype = ctypes.c_int
+    return lib
+
+
+def build_probes(name: str, variants: dict) -> dict:
+    """{variant: CDLL}: library `name` built once per variant, a list of
+    extra nvcc flags (-D switches; [] is the library itself), the probe
+    builds started together while the libraries build.  For profilers
+    that time a kernel's phases or its compile-time choices apart."""
+    base = _target(name)
+    procs, libs, paths = {}, {}, {}
+    for v, flags in variants.items():
+        if not flags:
+            continue
+        tag = hashlib.sha1(" ".join(flags).encode()).hexdigest()[:8]
+        paths[v] = out = base.with_name(f"{base.stem}-probe-{tag}.so")
+        if not out.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            cmd = [_nvcc(), *NVCC_FLAGS, *flags, "-I", str(CSRC), "-o",
+                   str(out), str(CSRC / f"{name}.cu")]
+            procs[v] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True)
+    lib = library(name)
+    logs = {v: proc.communicate()[0] for v, proc in procs.items()}
+    for v, proc in procs.items():
+        BUILD_LOG[f"{name} {v}"] = logs[v]
+        if proc.returncode:
+            raise RuntimeError(f"probe build {v} of {name} failed:\n"
+                               f"{logs[v]}")
+    for v in variants:
+        libs[v] = _load(paths[v], name) if v in paths else lib
+    return libs
+
+
+@contextlib.contextmanager
+def through(name: str, lib):
+    """The wrappers of library `name` launch from `lib` inside the
+    block."""
+    old = _LIBS[name]
+    _LIBS[name] = lib
+    try:
+        yield
+    finally:
+        _LIBS[name] = old
 
 
 @functools.lru_cache(maxsize=16)

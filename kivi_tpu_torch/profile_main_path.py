@@ -26,8 +26,9 @@ Two windows, each run once without and once under torch.profiler:
     V-window flush).
 
 With --path batcher the one window is S batcher steps (one batched
-decode step each: the masked per-slot appends, whose quantizers run
-every step, attention with per-row counters, per-row sampling) after
+decode step each: the masked per-slot appends, whose quantizers launch
+every step and load only the rows that flush, attention with per-row
+counters, per-row sampling) after
 8 requests of 100-1000 prompt tokens were admitted.
 
 For each window it prints the host wall time without the profiler, the
@@ -58,7 +59,8 @@ B, PROMPT, CHUNK, TMAX = 8, 1024, 128, 4096
 LONG_PROMPT, LONG_PAD, LONG_TMAX = 12032, 32, 16384
 # kernel name fragment -> wrapper; kdec::decode_kernel<R, ST, Ablation<V>,
 # ROWS> is the host-int (wide) kernel at ROWS false, the per-row one at true
-OURS = {"quantize_pack_kernel": "quantize_pack_k/v",
+OURS = {"qpack_tile_kernel": "quantize_pack_k/v",
+        "qpack_any_kernel": "quantize_pack_k/v",
         "Ablation<0>, false>": "fused_decode_attention_wide",
         "Ablation<0>, true>": "fused_decode_attention",
         "flash_extend_kernel": "flash_extend_attention",
@@ -74,7 +76,7 @@ QCFG = {"chunked": QuantConfig(2, 2, 32, 128, v_flush=128),
         "batcher": QuantConfig(2, 2, 32, 128, v_flush=128),
         "long": QuantConfig(2, 2, 32, 32)}
 GEMM = re.compile(r"gemm|nvjet|cutlass|xmma|cublas", re.I)
-# the masked per-slot cache writes (kivi_cache._masked_store_write)
+# the masked per-slot window appends (quant_pack.masked_store_write)
 SCATTER = re.compile(r"scatter|gather", re.I)
 
 

@@ -19,10 +19,7 @@ last.  Needs a CUDA device.
 from __future__ import annotations
 
 import argparse
-import contextlib
-import ctypes
 import json
-import subprocess
 
 import torch
 
@@ -38,47 +35,6 @@ BUILDS = {"kernels": 0, "empty": 1, "loads only": 2, "no merge": 3,
 EXACT = ("kernels", "generic", "element")
 H, R, D, GS, BITS, T = 8, 4, 128, 32, 2, 16384
 RTOL = ATOL = 1e-5
-
-
-def build() -> dict:
-    """{build name: CDLL}: the probe builds compiled while the kernels'
-    own build runs."""
-    base = _build._target("qk_pv")
-    procs = {}
-    for name, k in BUILDS.items():
-        out = base.with_name(f"{base.stem}-probe{k}.so")
-        if k and not out.exists():
-            _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            cmd = [_build._nvcc(), *_build.NVCC_FLAGS,
-                   f"-DKIVI_QKPV_PROBE={k}", "-I", str(_build.CSRC), "-o",
-                   str(out), str(_build.CSRC / "qk_pv.cu")]
-            procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                           stderr=subprocess.STDOUT,
-                                           text=True)
-    libs = {"kernels": _build.library("qk_pv")}
-    logs = {name: proc.communicate()[0] for name, proc in procs.items()}
-    for name, proc in procs.items():
-        if proc.returncode:
-            raise RuntimeError(f"probe build {name} failed:\n{logs[name]}")
-    for name, k in BUILDS.items():
-        if k:
-            lib = ctypes.CDLL(str(base.with_name(f"{base.stem}-probe{k}.so")))
-            for fn, argtypes in _build.SIGNATURES["qk_pv"].items():
-                getattr(lib, fn).argtypes = argtypes
-                getattr(lib, fn).restype = ctypes.c_int
-            libs[name] = lib
-    return libs
-
-
-@contextlib.contextmanager
-def through(lib):
-    """The wrappers launch from `lib` inside the block."""
-    old = _build._LIBS["qk_pv"]
-    _build._LIBS["qk_pv"] = lib
-    try:
-        yield
-    finally:
-        _build._LIBS["qk_pv"] = old
 
 
 def inputs(batch: int, nq: int, seed: int = 0):
@@ -103,14 +59,16 @@ def _close(got, want, what: str) -> None:
 
 
 def run(batches=(1, 4), nq: int = 12000) -> dict:
-    libs = build()
+    libs = _build.build_probes("qk_pv", {
+        name: [f"-DKIVI_QKPV_PROBE={k}"] if k else []
+        for name, k in BUILDS.items()})
     out = {"card": card()}
     for batch in batches:
         q, kargs, vargs, p = inputs(batch, nq)
         qk = lambda: QP.qk_dequant_matmul(q, *kargs, n_quant=nq)  # noqa
         pv = lambda: QP.pv_dequant_matmul(p, *vargs, n_quant=nq)  # noqa
         for name, lib in libs.items():
-            with through(lib):
+            with _build.through("qk_pv", lib):
                 if name in EXACT:
                     _close(qk()[..., :nq], QP.qk_dequant_matmul_plain(
                         q, *kargs, n_quant=nq)[..., :nq], f"{name} qk")

@@ -7,6 +7,9 @@ and the port only, so that it runs where JAX is not installed:
 (`--noconftest`: the suite's conftest.py configures JAX.)
 
 Tolerances (chip_smoke.py's):
+  * the quantizers quantize_pack_k and quantize_pack_v, both entries:
+    none; codes, scale and min bit-equal to the plain versions, every
+    byte of the stores they write into;
   * the decode probe: max|kernel - plain| <= 1e-5 * max|plain| + 1e-5
     (the kernel and the plain version compute in f32 from the same bf16
     inputs, summed in another order);
@@ -27,6 +30,7 @@ import pytest
 import torch
 
 from kivi_tpu_torch import profile_qk_pv as PQ
+from kivi_tpu_torch import profile_quant as PQ8
 from kivi_tpu_torch import profile_wide_32k as PW
 from kivi_tpu_torch.cache import fp_cache as FC
 from kivi_tpu_torch.cache import kivi_cache as KC
@@ -38,6 +42,7 @@ from kivi_tpu_torch.kernels import fp_decode as FD
 from kivi_tpu_torch.kernels import fused_decode as FR
 from kivi_tpu_torch.kernels import fused_decode_wide as FW
 from kivi_tpu_torch.kernels import qk_pv as QP
+from kivi_tpu_torch.kernels import quant_pack as QW
 from kivi_tpu_torch.utils import tolerance as TOL
 
 
@@ -629,3 +634,99 @@ def test_qk_pv_controls_refused(cuda):
     cut[..., :KS] = 0.0
     err = (QP.pv_dequant_matmul(cut, *vargs, n_quant=nq) - want).abs().max()
     assert err.item() > 10 * (1e-5 * want.abs().max().item() + 1e-5), err
+
+
+# ---------------------------------------------------------------------------
+# rows 1-2: the quantizers, both entries (kivi_tpu_torch.profile_quant's
+# checkers: codes, scale and min bit-equal to the plain versions, whole
+# stores pre-filled with a sentinel, two runs bit-equal)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("T", [32, 128, 1024])
+@pytest.mark.parametrize("gs", [32, 16])
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("is_key", [True, False])
+def test_quantize_pack_matches_plain(cuda, is_key, bits, gs, T):
+    """The contract entry (fresh outputs) on contiguous blocks and on the
+    first T tokens of a longer one; gs 16 takes the runtime-shape
+    kernel."""
+    for layout in ("contiguous", "window"):
+        PQ8.check_fresh(is_key, bits, gs, (2, 8, T, 128), layout)
+
+
+@pytest.mark.parametrize("shape,gs,bits", [
+    ((2, 4, 64, 64), 32, 2), ((1, 2, 32, 96), 32, 4),
+    ((1, 2, 48, 80), 16, 4), ((1, 3, 8, 12), 4, 8),
+    ((2, 2, 128, 128), 128, 2), ((1, 2, 4, 128), 1, 8)])
+@pytest.mark.parametrize("is_key", [True, False])
+def test_quantize_pack_runtime_shapes(cuda, is_key, shape, gs, bits):
+    """The rest of the contract (D and gs other than 128 and 32, D not a
+    multiple of 8) and a base that is not 16-byte aligned."""
+    for layout in ("contiguous", "window", "unaligned"):
+        PQ8.check_fresh(is_key, bits, gs, shape, layout)
+
+
+@pytest.mark.parametrize("mode", list(PQ8.MODES))
+@pytest.mark.parametrize("sdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [32, 128, 1024])
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("is_key", [True, False])
+def test_quantize_pack_into_matches_plain(cuda, is_key, bits, n, sdt, mode):
+    """The in-place entry: selected rows (all, one, none, every, one host
+    offset) at offsets 0, 128, Tmax (clamped) and 130, bf16 and f32
+    stores, the V block a token-strided window view; every store equal to
+    the plain version's, the control refused."""
+    PQ8.check_into(is_key, bits, 32, n, sdt, mode)
+
+
+@pytest.mark.parametrize("case", list(PQ8.MAIN_PATH_INTO))
+@pytest.mark.parametrize("is_key", [True, False])
+def test_quantize_pack_into_main_path_shapes(cuda, is_key, case):
+    """The in-place entry at the shapes the main path gives it: the
+    batcher's flush (device offsets, no / one / every row), the one-shot
+    ingest and the long slice's flush and chunk (host offsets)."""
+    B, H, n, tmax, modes, host_off = case
+    for mode in modes:
+        PQ8.check_into(is_key, 2, 32, n, torch.bfloat16, mode, B=B, H=H,
+                       tmax=tmax, host_off=host_off)
+
+
+@pytest.mark.parametrize("gs,d", [(16, 128), (32, 64), (8, 24)])
+@pytest.mark.parametrize("is_key", [True, False])
+def test_quantize_pack_into_runtime_shapes(cuda, is_key, gs, d):
+    """The in-place entry through the runtime-shape kernel."""
+    for mode in ("all", "one", "host"):
+        PQ8.check_into(is_key, 8 if d == 24 else 2, gs, 32, torch.bfloat16,
+                       mode, D_=d)
+
+
+def test_quantize_pack_into_control_refused(cuda):
+    """The checker refuses a kernel run whose one row was left out: the
+    in-place entry with row 0's predicate off, held to the plain version
+    with it on."""
+    x = torch.randn((4, 8, 128, 128), device="cuda").to(torch.bfloat16)
+    off = torch.tensor([0, 128, 256, 384], dtype=torch.int32, device="cuda")
+    pred = torch.ones(4, dtype=torch.bool, device="cuda")
+    got = PQ8.stores(True, 4, 8, 128, 512, 2, 32, torch.bfloat16)
+    want = PQ8.stores(True, 4, 8, 128, 512, 2, 32, torch.bfloat16)
+    cut = pred.clone()
+    cut[0] = False
+    QW.quantize_pack_k_into(x, 32, 2, *got, off, cut)
+    QW.quantize_pack_k_into_plain(x, 32, 2, *want, off, pred)
+    assert not all(torch.equal(g, w) for g, w in zip(got, want))
+    assert all(torch.equal(g[1:], w[1:]) for g, w in zip(got, want))
+
+
+def test_quantize_pack_into_raises(cuda):
+    """A CUDA tensor the kernel refuses raises (no fallback): f16 stats,
+    a host offset past the store, offsets on the host."""
+    x = torch.zeros((2, 8, 32, 128), dtype=torch.bfloat16, device="cuda")
+    st = PQ8.stores(True, 2, 8, 128, 64, 2, 32, torch.float16)
+    with pytest.raises(TypeError):
+        QW.quantize_pack_k_into(x, 32, 2, *st, 0)
+    st = PQ8.stores(True, 2, 8, 128, 64, 2, 32, torch.float32)
+    with pytest.raises(ValueError):
+        QW.quantize_pack_k_into(x, 32, 2, *st, 48)
+    with pytest.raises(ValueError):
+        QW.quantize_pack_k_into(x, 32, 2, *st,
+                                torch.zeros(2, dtype=torch.int32))
