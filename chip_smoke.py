@@ -19,11 +19,14 @@ Phases (any failure raises; the exit code is then non-zero):
      tile alone against torch.matmul; the three split decode kernels (fp,
      and the KIVI body of rows 4 and 6) also bit-equal across two runs,
      the KIVI ones beside a control that drops the first split and must
-     be refused; the split decode route's two kernels (rows 7 and 8) at
+     be refused; the per-row ones (rows 6 and 9) also under the static
+     fill bound a replayed decode step passes them, bit-equal to the
+     full grid, and timed beside it; the split decode route's two kernels (rows 7 and 8) at
      n_quant around their 256-position splits, bit-equal across two
      runs, QK's masked positions exactly -1e30, beside a control each);
      the split routes (split decode against
-     the fused kernel, the qhist extend route and the fused extend
+     the fused kernel and against row 6 under the long slice's fill
+     bound, the qhist extend route and the fused extend
      kernel against the plain extend) on the same inputs at the long
      slice's geometry, timed at histories of 1K-12K (the crossover behind
      core.attention.SPLIT_MIN_HISTORY); the probe
@@ -33,26 +36,39 @@ Phases (any failure raises; the exit code is then non-zero):
      the probe path's own 32K geometry, on a flat and a peaked softmax;
   4. the paths at Llama-2-7B width, sharing one set of weights:
      Engine.generate of 8 prompts of 1024 tokens, 128 greedy tokens,
+     decode replayed as CUDA graphs over device counters (rows 6 and 9
+     under the fill bound),
        * KIVI-2, chunked prefill of 128 (extend + KIVI decode),
        * KIVI-2, one-shot prefill (flash_attention + ingest + decode),
        * the fp16 cache, one-shot prefill (flash_attention + fp decode);
      each path's kernels must launch during its run (counts zeroed just
      before it), and a split prefill + decode must give generate()'s
-     tokens;
+     tokens; then Engine(debug=True) (the same decode step run eagerly
+     as a checked call, with guards) over the first 32 tokens must give
+     them too, the same kernels launching;
      then the continuous batcher at the same width on the same weights
      (8 slots, 12 requests of 100-1000 prompt tokens and 16-128 new
-     tokens, half greedy, half sampled), three ways:
+     tokens, half greedy, half sampled), each step a replay of the
+     graph for its fill bound, three ways:
        * KIVI-2, bucketed one-shot admission (per-row KIVI decode),
        * KIVI-2, chunked admission (prefill_chunk=128),
        * the fp16 cache, bucketed admission (fp decode, per-row lengths);
      each path's kernels must launch and the engine's decode kernel must
-     not;
+     not, and the body run eagerly from the same start must give the
+     same tokens over its first 40 steps;
      then the long-context slice at Llama-3.1-8B width: Engine.generate
      at batch 1 of a 12,000-token prompt left-padded to 12,032, chunks
      of 128, a 16,384-token cache, KIVI-2 with group 32 and residual 32
      (the reference's example configuration), 64 greedy tokens; the
-     split routes' kernels must launch and the fused decode kernels
-     must not;
+     qhist extend kernel and row 6 must launch, with graphs and with
+     debug=True; then 32 host-int Engine.decode_step calls fed the graph
+     run's tokens take the split decode route (rows 7-8, not row 6), and
+     each fed token must lie within phase 5's logit tolerance of the
+     route's top logit;
+     every decode path reports tokens/s and host ms a step over a timed
+     window, and the device busy time and idle share over the profiled
+     steps after it (busy and wall both from those steps), with graphs
+     and eagerly;
      then the probe path: `python3 -m kivi_tpu_torch.profile_wide_32k
      --quick` (B = 4, 32 KV heads, a 32K history), whose wide kernel,
      split decode route and probe variants must launch;
@@ -116,6 +132,13 @@ NEG_INF = -1e30
 
 def log(*a):
     print(*a, flush=True)
+
+
+START = time.perf_counter()
+
+
+def stamp(what: str) -> None:
+    log(f"[phase] {what} done at {time.perf_counter() - START:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -823,8 +846,11 @@ def check_split_routes(gen, crossover: list):
     geometry with W = 32, v_flush = 32 (the reference's example
     configuration), left pad 32; both timed at each of CROSS_FILLS.
     Decode: the split route (qk_dequant_matmul, torch softmax,
-    pv_dequant_matmul) vs fused_decode_attention_wide; the pair computes
-    one function in f32 (ATT_RTOL).  Extend (T1 = 128): the qhist route
+    pv_dequant_matmul) vs fused_decode_attention_wide, and row 6
+    (fused_decode_attention: per-row counters under the t_bound that the
+    long slice's replayed decode passes it) vs its plain version and vs
+    the split route; the three compute one function in f32 (ATT_RTOL).
+    Extend (T1 = 128): the qhist route
     (flash_extend_qhist + torch merge) and flash_extend_attention each
     against flash_extend_attention_plain, per query row: both round
     their operands to bf16, so neither is the other's reference; the
@@ -832,9 +858,13 @@ def check_split_routes(gen, crossover: list):
     from kivi_tpu_torch.config import QuantConfig
     from kivi_tpu_torch.core import attention as TA
     from kivi_tpu_torch.kernels import flash_extend as FE
+    from kivi_tpu_torch.kernels import fused_decode as FR
     from kivi_tpu_torch.kernels import fused_decode_wide as FD
+    from kivi_tpu_torch.serving.engine import fill_bound
     qcfg = QuantConfig(2, 2, 32, 32)
     pad = torch.full((LB,), LPAD, device="cuda", dtype=torch.int32)
+    tb = TA.t_bound_for(fill_bound(LFILL, LNEW - 1), LTMAX,
+                        qcfg.residual_length)
     for fill in CROSS_FILLS:
         c = _filled_cache(gen, qcfg, fill + 1, LH, LB, LTMAX)
         q = _randn(gen, (LB, LH, LR, D))
@@ -851,11 +881,26 @@ def check_split_routes(gen, crossover: list):
                                f"{c.seq_len} vs its plain version")
         _att_err(split, fused, f"split decode route vs fused_decode_"
                                f"attention_wide, {geo} fill={c.seq_len}")
+        counts = torch.tensor([[c.n_k_quant, c.n_k_win, c.n_v_quant]] * LB,
+                              device="cuda", dtype=torch.int32)
+        rargs = args[:9] + (counts,)
+        rkw = dict(kw, t_bound=tb)
+        rows = FR.fused_decode_attention(*rargs, **rkw)
+        rplain = FR.fused_decode_attention_plain(*rargs, **rkw)
+        torch.cuda.synchronize()
+        _att_err(rows, rplain, f"fused_decode_attention {geo} fill="
+                               f"{c.seq_len} t_bound={tb} vs its plain "
+                               "version")
+        _att_err(split, rows, f"split decode route vs fused_decode_"
+                              f"attention {geo} fill={c.seq_len} "
+                              f"t_bound={tb}")
         # the crossover is set by the routes' host launches: timed as a
         # host-bound caller sees them (no hold)
         dec = (cuda_ms(lambda: FD.fused_decode_attention_wide(*args, **kw),
                        hold=False),
                cuda_ms(lambda: TA._decode_attention_split(q, c, qcfg, pad),
+                       hold=False),
+               cuda_ms(lambda: FR.fused_decode_attention(*rargs, **rkw),
                        hold=False))
 
         ce = _ingested_cache(gen, qcfg, fill)
@@ -886,11 +931,12 @@ def check_split_routes(gen, crossover: list):
                        hold=False),
                cuda_ms(qhist_route, hold=False))
         crossover.append(dict(fill=fill, decode_fused_ms=dec[0],
-                              decode_split_ms=dec[1],
-                              extend_fused_ms=ext[0],
+                              decode_split_ms=dec[1], decode_rows_ms=dec[2],
+                              t_bound=tb, extend_fused_ms=ext[0],
                               extend_split_ms=ext[1]))
         log(f"[crossover] history {fill}: decode fused {dec[0]:.4f} ms, "
-            f"split {dec[1]:.4f} ms | extend (T1={T1}) fused {ext[0]:.4f} "
+            f"split {dec[1]:.4f} ms, row 6 (t_bound {tb}) {dec[2]:.4f} ms "
+            f"| extend (T1={T1}) fused {ext[0]:.4f} "
             f"ms, qhist {ext[1]:.4f} ms | SPLIT_MIN_HISTORY "
             f"{TA.SPLIT_MIN_HISTORY}")
         del c, ce
@@ -1131,6 +1177,102 @@ def check_fp_decode(gen, results):
     log(f"[kernel] {name} timed at fill {fill}, B={B}, H={H}, r=1")
 
 
+# per-slot fills of the fill-bound checks: the batcher's and the engine's
+# (prompts up to 1024, up to 128 new tokens), under the bound 1536 that
+# the engine's chunked path and the batcher's steps run with
+BOUND_FILLS = (129, 256, 300, 512, 640, 1024, 1100, 0)
+FILL_BOUND = 1536
+
+
+def check_t_bound(gen, results):
+    """Rows 6 and 9 under the static fill bound (t_bound) that a replayed
+    decode step passes them, at BOUND_FILLS in a 4096-token cache: within
+    the tolerance of their plain versions under the bound, bit-equal to
+    the full grid (the contract holds), two runs bit-equal, beside a row
+    past the bound that the bound truncates as the plain version does;
+    timed beside the full grid."""
+    from kivi_tpu_torch.cache import fp_cache as FC
+    from kivi_tpu_torch.config import QuantConfig
+    from kivi_tpu_torch.core.attention import t_bound_for
+    from kivi_tpu_torch.kernels import fp_decode as FD
+    from kivi_tpu_torch.kernels import fused_decode as FR
+    kivi = QuantConfig(2, 2, 32, 128, v_flush=128)
+    tb = t_bound_for(FILL_BOUND, TMAX, kivi.residual_length)
+    S = len(BOUND_FILLS)
+
+    c = _slot_cache(gen, kivi, H, fills=BOUND_FILLS)
+    q = _randn(gen, (S, H, 1, D))
+    counts = torch.stack([c.n_k_quant, c.n_k_win, c.n_v_quant], dim=1)
+    args = (q, c.k_codes, c.k_scale, c.k_mn, c.v_codes, c.v_scale, c.v_mn,
+            c.k_win, c.v_win, counts)
+    kw = dict(group_size=32, k_bits=2, v_bits=2)
+    what = f"fused_decode_attention t_bound={tb} fills={BOUND_FILLS}"
+    got = _twice(lambda: FR.fused_decode_attention(*args, t_bound=tb, **kw),
+                 what)
+    err = _att_err(got, FR.fused_decode_attention_plain(
+        *args, t_bound=tb, **kw), what + " (two runs bit-equal)")
+    if not torch.equal(got, FR.fused_decode_attention(*args, **kw)):
+        raise AssertionError(f"{what}: differs from the full grid")
+    rows = _row_counts(c)
+    sb = c.k_scale.element_size()
+    bms, by = bound(sum(H * _live_bytes(kivi, sb, *x) for x in rows)
+                    + q.numel() * 2 + S * H * D * 4 + S * 3 * 4,
+                    4 * H * D * sum(BOUND_FILLS))
+    past = torch.tensor([[2048, 0, 2048]] * S, device="cuda",
+                        dtype=torch.int32)     # live past the bound
+    cut = args[:-1] + (past,)
+    _att_err(FR.fused_decode_attention(*cut, t_bound=tb, **kw),
+             FR.fused_decode_attention_plain(*cut, t_bound=tb, **kw),
+             what + " truncating a row past the bound")
+    results["fused_decode_attention"]["t_bound"] = dict(
+        fills=list(BOUND_FILLS), t_bound=tb, max_abs_err=err,
+        bound_ms=bms, bound_by=by,
+        ms=cuda_ms(lambda: FR.fused_decode_attention(*args, t_bound=tb,
+                                                     **kw)),
+        full_grid_ms=cuda_ms(lambda: FR.fused_decode_attention(*args,
+                                                               **kw)),
+        plain_ms=cuda_ms(lambda: FR.fused_decode_attention_plain(
+            *args, t_bound=tb, **kw)))
+    del c
+
+    tb = t_bound_for(FILL_BOUND, TMAX)
+    c = FC.init_fp_slot_cache(S, H, D, TMAX, device="cuda")
+    c.k.copy_(_randn(gen, c.k.shape))
+    c.v.copy_(_randn(gen, c.v.shape))
+    c.length.copy_(torch.tensor(BOUND_FILLS, device="cuda"))
+    what = f"fp_decode_attention_kernel t_bound={tb} fills={BOUND_FILLS}"
+    got = _twice(lambda: FD.fp_decode_attention_kernel(
+        q, c.k, c.v, c.length, t_bound=tb), what)
+    err = _att_err(got, FD.fp_decode_attention_plain(
+        q, c.k, c.v, c.length, t_bound=tb), what + " (two runs bit-equal)")
+    if not torch.equal(got, FD.fp_decode_attention_kernel(q, c.k, c.v,
+                                                          c.length)):
+        raise AssertionError(f"{what}: differs from the full grid")
+    past = torch.full((S,), 3000, device="cuda", dtype=torch.int32)
+    _att_err(FD.fp_decode_attention_kernel(q, c.k, c.v, past, t_bound=tb,
+                                           sliding_window=1500),
+             FD.fp_decode_attention_plain(q, c.k, c.v, past, t_bound=tb,
+                                          sliding_window=1500),
+             what + " truncating rows past the bound")
+    bms, by = bound(2 * H * sum(BOUND_FILLS) * D * 2 + q.numel() * 6
+                    + S * 4, 4 * H * sum(BOUND_FILLS) * D)
+    results["fp_decode_attention_kernel"]["t_bound"] = dict(
+        fills=list(BOUND_FILLS), t_bound=tb, max_abs_err=err,
+        bound_ms=bms, bound_by=by,
+        ms=cuda_ms(lambda: FD.fp_decode_attention_kernel(
+            q, c.k, c.v, c.length, t_bound=tb)),
+        full_grid_ms=cuda_ms(lambda: FD.fp_decode_attention_kernel(
+            q, c.k, c.v, c.length)),
+        plain_ms=cuda_ms(lambda: FD.fp_decode_attention_plain(
+            q, c.k, c.v, c.length, t_bound=tb)))
+    for name in ("fused_decode_attention", "fp_decode_attention_kernel"):
+        r = results[name]["t_bound"]
+        log(f"[kernel] {name} at fills {BOUND_FILLS}: t_bound {r['t_bound']}"
+            f" {r['ms']:.4f} ms, full grid {r['full_grid_ms']:.4f} ms, "
+            f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}), max err {r['max_abs_err']:.3g}")
+
+
 def phase_kernels():
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
@@ -1142,6 +1284,7 @@ def phase_kernels():
     check_wgmma_tile(gen)
     check_flash(gen, results)
     check_fp_decode(gen, results)
+    check_t_bound(gen, results)
     check_qk_pv(gen, results)
     check_qhist(gen, results)
     check_trimmed(results)
@@ -1160,13 +1303,18 @@ KIVI_KERNELS = ("quantize_pack_k", "quantize_pack_v", "flash_extend_attention",
                 "fused_decode_attention_wide",
                 "fused_decode_attention") + SPLIT_KERNELS
 PROBE = ("trimmed",)        # the ablation probe runs on the probe path only
-# path -> (kernels that must launch, kernels that must not)
+# path -> (kernels that must launch, kernels that must not).  The engine's
+# decode replays CUDA graphs over device counters (row 6, or the fp
+# kernel's per-row entry); "-debug" is Engine(debug=True), the same step
+# run eagerly as a checked call, so the same kernels; "long-split" is
+# Engine.decode_step over host-int counters, the split decode route
 PATHS = {
-    "chunked": (KIVI_KERNELS[:4],
-                ("fused_decode_attention",) + SPLIT_KERNELS + PROBE),
+    "chunked": (("quantize_pack_k", "quantize_pack_v",
+                 "flash_extend_attention", "fused_decode_attention"),
+                ("fused_decode_attention_wide",) + SPLIT_KERNELS + PROBE),
     "oneshot": (("flash_attention", "quantize_pack_k", "quantize_pack_v",
-                 "fused_decode_attention_wide"),
-                ("fused_decode_attention",) + SPLIT_KERNELS + PROBE),
+                 "fused_decode_attention"),
+                ("fused_decode_attention_wide",) + SPLIT_KERNELS + PROBE),
     "fp16": (("flash_attention", "fp_decode_attention_kernel"),
              KIVI_KERNELS + PROBE),
     "batcher": (("flash_attention", "quantize_pack_k", "quantize_pack_v",
@@ -1180,9 +1328,17 @@ PATHS = {
                         + PROBE),
     "batcher-fp16": (("flash_attention", "fp_decode_attention_kernel"),
                      KIVI_KERNELS + PROBE),
-    "long": (("quantize_pack_k", "quantize_pack_v") + SPLIT_KERNELS,
-             ("fused_decode_attention_wide", "fused_decode_attention",
-              "fp_decode_attention_kernel", "flash_attention") + PROBE),
+    "long": (("quantize_pack_k", "quantize_pack_v", "flash_extend_qhist",
+              "fused_decode_attention"),
+             ("fused_decode_attention_wide", "qk_dequant_matmul",
+              "pv_dequant_matmul", "fp_decode_attention_kernel",
+              "flash_attention") + PROBE),
+    "long-split": (("quantize_pack_v", "qk_dequant_matmul",
+                    "pv_dequant_matmul"),
+                   ("fused_decode_attention_wide", "fused_decode_attention",
+                    "fp_decode_attention_kernel", "flash_attention",
+                    "flash_extend_attention", "flash_extend_qhist")
+                   + PROBE),
     # the 32K ablation profiler: the wide kernel and the split decode
     # route as anchors, then every variant of the probe
     "probe": (PROBE + ("fused_decode_attention_wide", "qk_dequant_matmul",
@@ -1191,6 +1347,12 @@ PATHS = {
                "fused_decode_attention", "flash_extend_qhist",
                "flash_attention", "fp_decode_attention_kernel")),
 }
+PATHS.update({f"{p}-debug": PATHS[p]
+              for p in ("chunked", "oneshot", "fp16", "long")})
+DEBUG_NEW = 32     # tokens of each engine path's debug=True run
+SPLIT_STEPS = 32   # host-int decode steps of the long slice's split route
+PROFILED = 8       # decode steps under the profiler, per mode
+DECODE = {}        # path -> mode -> decode measurements (phase 4)
 
 
 def check_launches(path: str, launches: dict) -> None:
@@ -1203,14 +1365,100 @@ def check_launches(path: str, launches: dict) -> None:
             raise AssertionError(f"{path} path launched {k}")
 
 
+def busy_ms(what: str, fn) -> tuple:
+    """(device busy ms, host wall ms) of fn() under torch.profiler: busy
+    is the union of kernel and copy intervals, those of a graph's replay
+    included; the wall runs from the call to the synchronize after it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from kivi_tpu_torch.profile_main_path import busy_span_us, device_events
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    return busy_span_us(device_events(what, prof))[0] / 1e3, wall
+
+
+def record_decode(path: str, mode: str, rows: int, steps: int,
+                  wall_s: float, profiled: tuple, profiled_steps: int,
+                  smi: str) -> None:
+    """Decode tokens/s and host ms a step of a timed window without the
+    profiler; device busy ms a step and the idle share 1 - busy / wall of
+    the profiled_steps steps that follow it, both read from those steps
+    (profiled = busy_ms(...)).  The profiler's own host cost stretches
+    that wall a little, so the share leans high."""
+    host = wall_s / steps * 1e3
+    busy, pwall = profiled
+    dev, idle = busy / profiled_steps, 1 - busy / pwall
+    DECODE.setdefault(path, {})[mode] = dict(
+        tokens_per_s=rows * steps / wall_s, host_ms_per_step=host,
+        busy_ms_per_step=dev, profiled_host_ms_per_step=pwall / profiled_steps,
+        idle_share=idle, steps=steps)
+    log(f"[decode:{path}] {mode}: {rows * steps / wall_s:.1f} tokens/s, "
+        f"host {host:.3f} ms a step | profiled: host "
+        f"{pwall / profiled_steps:.3f} ms a step, device busy {dev:.3f} ms "
+        f"a step, idle share {idle:.4f} | card {smi}")
+
+
+def _prefill(eng, tokens, chunk, pad_lens):
+    """Greedy first token and caches: into the engine's own caches."""
+    caches = eng.own_caches()
+    if chunk is None:
+        return eng.prefill(tokens, caches, pad_lens)
+    logits, caches = eng.prefill_chunked(tokens, chunk, caches, pad_lens)
+    if not torch.isfinite(logits).all():
+        raise AssertionError("non-finite prefill logits")
+    return logits.argmax(-1).to(torch.int32)[:, None], caches
+
+
+def _timed_decode(path, mode, eng, tokens, steps, smi, chunk, pad_lens):
+    """Prefill, then `steps` decode steps timed, then PROFILED more steps
+    from where they ended under the profiler.  Returns (first token and
+    the timed steps' tokens (B, steps + 1), caches, the next token's
+    position)."""
+    Bn, prompt = tokens.shape
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    first, caches = _prefill(eng, tokens, chunk, pad_lens)
+    torch.cuda.synchronize()
+    t_pre = time.perf_counter() - t0
+    pos = torch.full((Bn, 1), prompt, device="cuda")
+    if pad_lens is not None:
+        pos = pos - torch.tensor(pad_lens, device="cuda")[:, None]
+    t0 = time.perf_counter()
+    rest, caches = eng.decode(first, pos, caches, steps=steps,
+                              prompt_len=prompt, pad_lens=pad_lens)
+    torch.cuda.synchronize()
+    t_dec = time.perf_counter() - t0
+    toks = torch.cat([first, rest], 1)
+    prof = busy_ms(f"{path} {mode}", lambda: eng.decode(
+        rest[:, -1:], pos + steps, caches, steps=PROFILED,
+        prompt_len=prompt + steps, pad_lens=pad_lens))
+    log(f"[main:{path}] {mode}: prefill {Bn}x{prompt}"
+        f"{f' (chunks of {chunk})' if chunk else ' (one-shot)'}"
+        f"{f', left pads {pad_lens}' if pad_lens else ''}: {t_pre:.3f} s "
+        f"| decode {steps} steps: {t_dec:.3f} s | "
+        f"{eng.cfg.num_layers} layers | card {smi}")
+    record_decode(path, mode, Bn, steps, t_dec, prof, PROFILED, smi)
+    return toks, caches, pos + steps + PROFILED
+
+
 def run_path(path: str, eng, tokens, new: int, smi: str,
              chunk=None, pad_lens=None) -> dict:
     """generate() with the launch counts zeroed just before and read just
-    after; then the same path split into prefill and decode, timed, whose
-    tokens must equal generate()'s: two greedy runs of the same kernels
-    on the same weights, prompt and card.  chunk: the prefill chunk
-    (None = one-shot); pad_lens: the rows' left pads."""
+    after (decode replayed as CUDA graphs); then the same path split into
+    prefill and decode, timed, whose tokens must equal generate()'s: two
+    greedy runs of the same kernels on the same weights, prompt and
+    card; then Engine(debug=True) on the same weights over the first
+    DEBUG_NEW tokens (the same decode step run eagerly as a checked
+    call), its launches counted as path "-debug", whose tokens must
+    equal too.  chunk: the prefill chunk (None = one-shot); pad_lens:
+    the rows' left pads.  Returns ({path: launches, path-debug:
+    launches}, the generated tokens, the debug engine)."""
     from kivi_tpu_torch.kernels import _build
+    from kivi_tpu_torch.serving.engine import Engine
     Bn, prompt = tokens.shape
     _build.LAUNCHES.clear()
     torch.cuda.synchronize()
@@ -1219,50 +1467,89 @@ def run_path(path: str, eng, tokens, new: int, smi: str,
                        pad_lens=pad_lens)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(_build.LAUNCHES)
+    launches = {path: dict(_build.LAUNCHES)}
     log(f"[main:{path}] generate({Bn}x{prompt}, {new} new): {wall:.2f} s, "
-        f"launches {launches}")
-    check_launches(path, launches)
+        f"{len(eng.graphs)} decode graph(s), launches {launches[path]}")
+    check_launches(path, launches[path])
     if out.shape != (Bn, new) or out.min() < 0 or \
             out.max() >= eng.cfg.vocab_size:
         raise AssertionError(f"bad tokens: shape {tuple(out.shape)}")
 
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    if chunk is None:
-        first, caches = eng.prefill(tokens, pad_lens=pad_lens)
-    else:
-        logits, caches = eng.prefill_chunked(tokens, chunk,
-                                             pad_lens=pad_lens)
-        if not torch.isfinite(logits).all():
-            raise AssertionError("non-finite prefill logits")
-        first = logits.argmax(-1).to(torch.int32)[:, None]
-    torch.cuda.synchronize()
-    t_pre = time.perf_counter() - t0
-    pos = torch.full((Bn, 1), prompt, device="cuda")
-    if pad_lens is not None:
-        pos = pos - torch.tensor(pad_lens, device="cuda")[:, None]
-    t0 = time.perf_counter()
-    rest, caches = eng.decode(first, pos, caches, steps=new - 1,
-                              prompt_len=prompt, pad_lens=pad_lens)
-    torch.cuda.synchronize()
-    t_dec = time.perf_counter() - t0
-    last, _ = eng.decode_step(rest[:, -1:], pos + new - 1, caches,
+    split, caches, pos = _timed_decode(path, "graphs", eng, tokens, new - 1,
+                                       smi, chunk, pad_lens)
+    last, _ = eng.decode_step(split[:, -1:], pos, caches,
                               pad_lens=pad_lens, flush=True)
     if not torch.isfinite(last).all():
         raise AssertionError("non-finite decode logits")
-    split = torch.cat([first, rest], 1)
     if not torch.equal(split, out):
         bad = (split != out).any(dim=0).nonzero()
         raise AssertionError(
             f"{path}: split prefill + decode tokens differ from generate() "
             f"from step {int(bad[0])} on")
-    tps = Bn * (new - 1) / t_dec
-    log(f"[main:{path}] prefill {Bn}x{prompt}"
-        f"{f' (chunks of {chunk})' if chunk else ' (one-shot)'}"
-        f"{f', left pads {pad_lens}' if pad_lens else ''}: {t_pre:.3f} s | "
-        f"decode {new - 1} steps: {t_dec:.3f} s = {tps:.1f} tokens/s | "
-        f"{eng.cfg.num_layers} layers | card {smi}")
+    caches = None
+
+    dbg = Engine(cfg=eng.cfg, qcfg=eng.qcfg, params=eng.params,
+                 max_seq_len=eng.max_seq_len, batch_size=eng.batch_size,
+                 debug=True)
+    _build.LAUNCHES.clear()
+    toks, _, _ = _timed_decode(path, "debug=True", dbg, tokens,
+                               DEBUG_NEW - 1, smi, chunk, pad_lens)
+    launches[f"{path}-debug"] = dict(_build.LAUNCHES)
+    check_launches(f"{path}-debug", launches[f"{path}-debug"])
+    differ = (toks != out[:, :DEBUG_NEW]).any(dim=0).nonzero()
+    if len(differ):
+        raise AssertionError(f"{path}: debug=True tokens differ from the "
+                             f"graphs' from step {int(differ[0])} on")
+    log(f"[main:{path}] debug=True: the {DEBUG_NEW} tokens equal the "
+        f"graphs'; launches {launches[f'{path}-debug']}")
+    return launches, out, dbg
+
+
+def run_split_steps(path: str, eng, tokens, out, chunk: int, pad_lens,
+                    smi: str) -> dict:
+    """The split decode route (rows 7-8), which serves host-int callers:
+    a prefill into eng's own caches, then SPLIT_STEPS Engine.decode_step
+    calls (flushing as they go) fed the graph run's tokens `out`, with
+    the launch counts zeroed just after the prefill and read at the end
+    (path "-split").  The two routes compute one function within
+    ATT_RTOL (phase 3, at this geometry) but sum in another order, so a
+    greedy token may differ where the top logits nearly tie: at every
+    step the graph run's next token must have a split-route logit within
+    phase 5's card-vs-host tolerance (5e-2 * max|logit|) of the top one;
+    the steps where it is the top one and the widest such gap are
+    logged.  Returns {path-split: launches}."""
+    from kivi_tpu_torch.kernels import _build
+    Bn, prompt = tokens.shape
+    logits, caches = eng.prefill_chunked(tokens, chunk, eng.own_caches(),
+                                         pad_lens)
+    pos = torch.full((Bn, 1), prompt, device="cuda")
+    pos = pos - torch.tensor(pad_lens, device="cuda")[:, None]
+    torch.cuda.synchronize()
+    _build.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    gaps = []
+    for i in range(SPLIT_STEPS):
+        logits, caches = eng.decode_step(out[:, i:i + 1], pos + i, caches,
+                                         pad_lens=pad_lens, flush=True)
+        want = out[:, i + 1:i + 2].long()
+        top = logits.max(-1).values
+        gaps.append(((top - logits.gather(-1, want)[:, 0])
+                     / logits.abs().max(-1).values).max())
+    gaps = torch.stack(gaps).cpu()
+    wall = time.perf_counter() - t0
+    key = f"{path}-split"
+    launches = {key: dict(_build.LAUNCHES)}
+    check_launches(key, launches[key])
+    tops = int((gaps == 0).sum())
+    log(f"[main:{key}] {SPLIT_STEPS} host-int decode steps fed the graph "
+        f"run's tokens in {wall:.2f} s: the graphs' token is the split "
+        f"route's top one at {tops} steps; widest gap to the top logit "
+        f"{float(gaps.max()):.3e} x max|logit| (step "
+        f"{int(gaps.argmax())}), tolerance 5e-2; launches {launches[key]}"
+        f" | card {smi}")
+    if not float(gaps.max()) <= 5e-2:
+        raise AssertionError(f"{key}: the graph run's token lies past the "
+                             "tolerance below the split route's top logit")
     return launches
 
 
@@ -1283,11 +1570,21 @@ def batcher_requests(n: int, vocab: int, seed: int):
     return reqs
 
 
-def run_batcher(path: str, bat, reqs, smi: str) -> dict:
-    """Drive the batcher over reqs with the launch counts zeroed just
-    before and read just after; every request must come back with its
-    max_new_tokens valid token ids."""
+EAGER_STEPS = 40   # steps of the batcher's eager reference run
+WINDOW = 16        # timed batcher steps per mode
+
+
+def run_batcher(path: str, make, reqs, smi: str) -> dict:
+    """Drive a batcher from make() over reqs with the launch counts zeroed
+    just before and read just after (each step a replay of the graph for
+    its fill bound); every request must come back with its
+    max_new_tokens valid token ids.  Then a second batcher runs the same
+    requests from the same start for EAGER_STEPS steps with the body
+    run eagerly: every request's tokens so far must equal the graph
+    run's, sampled rows included.  Then decode in both modes is timed on
+    the first batcher (`batcher_modes`)."""
     from kivi_tpu_torch.kernels import _build
+    bat = make()
     _build.LAUNCHES.clear()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1315,9 +1612,63 @@ def run_batcher(path: str, bat, reqs, smi: str) -> dict:
         f"{min(len(r.prompt) for r in reqs)}-"
         f"{max(len(r.prompt) for r in reqs)}: {n_tok} tokens in "
         f"{steps} steps, {wall:.3f} s = {n_tok / wall:.1f} generated "
-        f"tokens/s | {bat.cfg.num_layers} layers | card {smi}")
+        f"tokens/s, {len(bat.graphs)} decode graph(s) | "
+        f"{bat.cfg.num_layers} layers | card {smi}")
     log(f"[main:{path}] launches {launches}")
+
+    eager = make()
+    eager.graphs = None
+    for r in reqs:
+        eager.submit(r)
+    for _ in range(EAGER_STEPS):
+        eager.step()
+    so_far = {u: r.tokens for u, r in eager.results.items()}
+    so_far.update({req.uid: eager.slot_out[s]
+                   for s, req in enumerate(eager.slot_req) if req})
+    for uid, toks in so_far.items():
+        if toks != bat.results[uid].tokens[:len(toks)]:
+            raise AssertionError(f"{path}: request {uid}'s tokens differ "
+                                 "between the graphs and the eager body")
+    log(f"[main:{path}] eager body, first {EAGER_STEPS} steps: "
+        f"{sum(map(len, so_far.values()))} tokens of {len(so_far)} "
+        f"requests ({sum(r.temperature > 0 for r in reqs)} of "
+        f"{len(reqs)} sampled) equal the graphs'")
+    del eager
+    torch.cuda.empty_cache()
+    batcher_modes(path, bat, smi)
     return launches
+
+
+def batcher_modes(path: str, bat, smi: str) -> None:
+    """Eight requests of 100-1000 prompt tokens admitted at once (every
+    slot busy, one fill bound throughout), then WINDOW steps timed and
+    PROFILED steps profiled in each mode: the graphs, then the body run
+    eagerly."""
+    from kivi_tpu_torch.serving.batcher import Request
+    gen = torch.Generator()
+    gen.manual_seed(1)
+    for i, n in enumerate((100, 137, 240, 400, 555, 640, 800, 1000)):
+        bat.submit(Request(uid=1000 + i, prompt=torch.randint(
+            0, bat.cfg.vocab_size, (n,), generator=gen).tolist(),
+            max_new_tokens=128))
+    bat.step()                               # admits all eight
+    graphs = bat.graphs
+    for mode in ("graphs", "eager body"):
+        if mode != "graphs":
+            bat.graphs = None
+        for _ in range(4):                   # warm (a capture, if any)
+            bat.step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(WINDOW):
+            bat.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        prof = busy_ms(f"{path} {mode}",
+                       lambda: [bat.step() for _ in range(PROFILED)])
+        record_decode(path, mode, int(bat.active.sum()), WINDOW, wall, prof,
+                      PROFILED, smi)
+    bat.graphs = graphs
 
 
 def phase_main(layers: int, smi: str) -> dict:
@@ -1325,6 +1676,7 @@ def phase_main(layers: int, smi: str) -> dict:
     three, all on one set of Llama-2-7B weights; then the long slice on
     Llama-3.1-8B weights.  Returns {path: {kernel: launches}}."""
     import dataclasses
+    import functools
 
     from kivi_tpu_torch.config import PRESETS, QuantConfig
     from kivi_tpu_torch.models import modeling
@@ -1348,25 +1700,26 @@ def phase_main(layers: int, smi: str) -> dict:
                        ("fp16", fp16)):
         eng = Engine(cfg=cfg, qcfg=qcfg, params=params, max_seq_len=TMAX,
                      batch_size=B)
-        launches[path] = run_path(path, eng, tokens, new, smi,
-                                  chunk=128 if path == "chunked" else None)
+        launches.update(run_path(path, eng, tokens, new, smi,
+                                 chunk=128 if path == "chunked" else None)[0])
         del eng
         torch.cuda.empty_cache()
+        stamp(path)
     from kivi_tpu_torch.serving.batcher import ContinuousBatcher
     for path, qcfg, chunk in (("batcher", kivi, 0),
                               ("batcher-chunked", kivi, 128),
                               ("batcher-fp16", fp16, 0)):
-        bat = ContinuousBatcher(cfg, qcfg, params, num_slots=B,
-                                max_seq_len=TMAX,
-                                prompt_buckets=(128, 256, 512, 1024),
-                                prefill_chunk=chunk)
+        make = functools.partial(
+            ContinuousBatcher, cfg, qcfg, params, num_slots=B,
+            max_seq_len=TMAX, prompt_buckets=(128, 256, 512, 1024),
+            prefill_chunk=chunk)
         launches[path] = run_batcher(
-            path, bat, batcher_requests(12, cfg.vocab_size, seed=5), smi)
-        del bat
+            path, make, batcher_requests(12, cfg.vocab_size, seed=5), smi)
         torch.cuda.empty_cache()
+        stamp(path)
     del params
     torch.cuda.empty_cache()
-    launches["long"] = phase_long(layers, smi)
+    launches.update(phase_long(layers, smi))
     return launches
 
 
@@ -1399,9 +1752,14 @@ def phase_long(layers: int, smi: str) -> dict:
     eng = Engine(cfg=cfg, qcfg=QuantConfig(2, 2, 32, 32), params=params,
                  max_seq_len=LTMAX, batch_size=1)
     tokens = long_prompt(LFILL - LPAD, LPAD, cfg.vocab_size, seed=7)
-    launches = run_path("long", eng, tokens.cuda(), LNEW, smi, chunk=128,
-                        pad_lens=[LPAD])
-    del eng, params
+    tokens = tokens.cuda()
+    launches, out, dbg = run_path("long", eng, tokens, LNEW, smi, chunk=128,
+                                  pad_lens=[LPAD])
+    del eng
+    torch.cuda.empty_cache()
+    launches.update(run_split_steps("long", dbg, tokens, out, 128, [LPAD],
+                                    smi))
+    del dbg, params
     torch.cuda.empty_cache()
     return launches
 
@@ -1721,16 +2079,21 @@ def main():
     ap.add_argument("--layers", type=int, default=32,
                     help="depth of the main-path model (width is never cut)")
     args = ap.parse_args()
-    t_start = time.perf_counter()
     name, smi = phase_card()
     phase_build()
+    stamp("build")
     results, crossover = phase_kernels()
+    stamp("kernels")
     launches = phase_main(args.layers, smi)
+    stamp("main")
     launches["probe"] = phase_probe()
+    stamp("probe")
     phase_vs_plain()
     phase_long_vs_plain()
+    stamp("vs plain")
     phase_batcher_vs_engine()
     phase_api()
+    stamp("batcher vs engine, api")
     sources = {
         "quantize_pack_k": ("kivi_tpu_torch/kernels/csrc/quant_pack.cu",
                             "kivi_tpu/kernels/quant_pack.py:119"),
@@ -1792,9 +2155,17 @@ def main():
         log(f"[time] split vs fused at history {row['fill']} (B={LB}, "
             f"Hkv={LH}, r={LR}, KIVI-2, W=32): decode "
             f"{row['decode_split_ms']:.4f} vs {row['decode_fused_ms']:.4f} "
-            f"ms, extend T1={T1} {row['extend_split_ms']:.4f} vs "
+            f"ms (row 6, t_bound {row['t_bound']}: "
+            f"{row['decode_rows_ms']:.4f} ms), extend T1={T1} {row['extend_split_ms']:.4f} vs "
             f"{row['extend_fused_ms']:.4f} ms | card {smi}")
-    log(f"[done] {time.perf_counter() - t_start:.1f} s")
+    for path, modes in DECODE.items():
+        log(f"[decode] {path}: " + " | ".join(
+            f"{mode} {m['tokens_per_s']:.1f} tokens/s, host "
+            f"{m['host_ms_per_step']:.3f} ms a step, idle "
+            f"{m['idle_share']:.4f}" for mode, m in modes.items())
+            + f" | card {smi}")
+    log(f"[decode] {json.dumps(DECODE)}")
+    log(f"[done] {time.perf_counter() - START:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

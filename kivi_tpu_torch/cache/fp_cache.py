@@ -18,10 +18,13 @@ from typing import Optional, Union
 
 import torch
 
+from kivi_tpu_torch.cache import kivi_cache as KC
+from kivi_tpu_torch.core.attention import t_bound_for
 from kivi_tpu_torch.kernels.fp_decode import (NEG_INF,
                                                fp_decode_attention_kernel)
 from kivi_tpu_torch.kernels.quant_pack import masked_store_write
 from kivi_tpu_torch.utils.device import resolve_device
+from kivi_tpu_torch.utils.guards import checking, debug_check
 
 
 @dataclasses.dataclass
@@ -79,20 +82,34 @@ def fp_append(cache: FpLayerCache, k_new, v_new) -> FpLayerCache:
 
 def fp_append_masked(cache: FpLayerCache, k_new, v_new,
                      active: Optional[torch.Tensor] = None) -> FpLayerCache:
-    """`fp_append` of T tokens (B, H, T, D) into a slot cache, each row at
-    its own length; rows where active (B,) is false keep their length.
+    """`fp_append` of T tokens (B, H, T, D) into a cache with per-row
+    lengths on the device (a slot cache, or the engine's cache while it
+    replays its decode step), each row at its own length; rows where
+    active (B,) is false keep their length (None: every row advances).
     They still write, at the frozen length, beyond the valid count and
     hence invisible to attention, as in the JAX package.  The start is
     clamped into [0, Tmax - T] (XLA's dynamic_update_slice), so a full
-    row never writes out of range."""
-    if active is None:
+    row never writes out of range.  A host-int length takes fp_append."""
+    if not isinstance(cache.length, torch.Tensor):
         return fp_append(cache, k_new, v_new)
     t = k_new.shape[-2]
     masked_store_write(cache.k, k_new.transpose(-1, -2), cache.length, 3)
     masked_store_write(cache.v, v_new, cache.length, 2)
-    cache.length += active.to(device=cache.k.device,
-                              dtype=torch.int32).reshape(-1) * t
+    cache.length += t if active is None else active.to(
+        device=cache.k.device, dtype=torch.int32).reshape(-1) * t
     return cache
+
+
+def counters_to_device(caches, buf: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+    """kivi_cache.counters_to_device for fp caches: every layer's host-int
+    length into a row of buf (L, 1, B) int32, one copy."""
+    return KC.counters_to_device(caches, buf, names=("length",))
+
+
+def counters_to_host(caches, buf: torch.Tensor) -> None:
+    """kivi_cache.counters_to_host for fp caches: one read of buf."""
+    KC.counters_to_host(caches, buf, names=("length",))
 
 
 def fp_extend_attention(q, k_new, v_new, cache: FpLayerCache,
@@ -150,19 +167,34 @@ def fp_extend_attention(q, k_new, v_new, cache: FpLayerCache,
 
 def fp_decode_attention(q, cache: FpLayerCache,
                         sliding_window: Optional[int] = None,
-                        pad_len: Optional[torch.Tensor] = None
+                        pad_len: Optional[torch.Tensor] = None,
+                        fill_bound: Optional[int] = None
                         ) -> torch.Tensor:
     """Exact single-token decode attention over the fp cache.
 
     q: (B, Hq, 1, D) -> (B, Hq, 1, D) f32.  CUDA tensors go to the
     flash-decode kernel (kernels/fp_decode.py), with the host-int length
-    or, in a slot cache, each row's length read on the device; CPU
-    tensors go to its plain version.  pad_len: optional (B,) int left pad
-    per row."""
+    or each row's length read on the device; CPU tensors go to its plain
+    version.  pad_len: optional (B,) int left pad per row.  fill_bound:
+    optional STATIC upper bound on every row's length, rounded as in
+    core.attention.decode_attention and passed to the per-row kernel as
+    its t_bound (host-int lengths size the grid themselves); checked
+    under a checked call (kivi_tpu/cache/fp_cache.py:167-178)."""
     B, Hq, M, D = q.shape
     Hkv = cache.k.shape[1]
     r = Hq // Hkv
+    tb = t_bound_for(fill_bound, cache.max_seq_len)
+    if tb is not None and checking():
+        n = cache.length
+        if isinstance(n, torch.Tensor):
+            n = n.max()
+        debug_check(n <= tb, "fp_decode t_bound violated: length={n} "
+                    "exceeds t_bound={tb}: attention would be silently "
+                    "truncated", n=n, tb=tb)
+    if not isinstance(cache.length, torch.Tensor):
+        tb = None
     out = fp_decode_attention_kernel(
         q.reshape(B, Hkv, r, D).contiguous(), cache.k, cache.v,
-        cache.length, sliding_window=sliding_window, pad_len=pad_len)
+        cache.length, sliding_window=sliding_window, pad_len=pad_len,
+        t_bound=tb)
     return out.reshape(B, Hq, M, D)

@@ -9,15 +9,19 @@ returns the cache (the same object) so call sites read like the JAX ones.
 The four counters come in two kinds:
 
   * host Python ints, uniform over the batch as in the JAX cache (the
-    engine).  The flush schedule is known on the host, so no step needs
-    a device-to-host sync to read them; they reach the kernels as plain
-    int arguments;
+    engine's prefill and its eager decode loop).  The flush schedule is
+    known on the host, so no step needs a device-to-host sync to read
+    them; they reach the kernels as plain int arguments;
   * (B,) int32 device tensors, one count per row (the continuous
     batcher's slot caches, `init_slot_cache`): the counterpart of the
     JAX batcher's `jax.vmap` over batch-1 caches.  They are updated by
     the masked, per-row functions (`decode_append_masked`,
     `flush_k_masked`, `flush_v_masked`) with no Python branch on a
-    device value, and read per row by the decode kernel.
+    device value, and read per row by the decode kernel.  The engine
+    moves its caches' counters to this form for a decode it replays as
+    a CUDA graph and back after it (`counters_to_device`,
+    `counters_to_host`): the counterpart of the JAX engine's traced
+    counters under `lax.scan`.
 
 Streaming policy (reference `models/llama_kivi.py:131-144, 174-187`):
   * every token appends post-RoPE K and V to fp windows;
@@ -40,6 +44,7 @@ from kivi_tpu_torch.kernels.quant_pack import (masked_store_write,
                                                quantize_pack_k_into,
                                                quantize_pack_v_into)
 from kivi_tpu_torch.utils.device import resolve_device
+from kivi_tpu_torch.utils.guards import checking, debug_check
 
 
 @dataclasses.dataclass
@@ -130,6 +135,41 @@ def init_slot_cache(num_slots: int, num_kv_heads: int, head_dim: int,
                                       device=cache.k_codes.device))
     return cache
 
+
+
+def counters_to_device(caches, buf: Optional[torch.Tensor] = None,
+                       names=_COUNTERS) -> torch.Tensor:
+    """Move the host-int counters `names` of a list of caches (one batch
+    size, uniform over the batch) onto the device in one copy: into
+    buf (L, len(names), B) int32 (allocated when None), whose rows then
+    serve as the caches' (B,) counters.  Returns buf.  A decode step
+    captured over these counters reads the same storage on every
+    replay."""
+    # every tensor field has the row axis first (see write_slot)
+    first = getattr(caches[0], dataclasses.fields(caches[0])[0].name)
+    B, dev = first.shape[0], first.device
+    host = torch.tensor([[[getattr(c, n)] * B for n in names]
+                         for c in caches], dtype=torch.int32)
+    if buf is None:
+        buf = torch.empty(host.shape, dtype=torch.int32, device=dev)
+    buf.copy_(host)
+    for c, rows in zip(caches, buf):
+        for n, row in zip(names, rows):
+            setattr(c, n, row)
+    return buf
+
+
+def counters_to_host(caches, buf: torch.Tensor, names=_COUNTERS) -> None:
+    """The inverse of counters_to_device after a uniform decode: one read
+    of buf, each counter back to a host int.  Raises if the rows of a
+    counter disagree (the engine's decode advances every row alike)."""
+    host = buf.cpu().tolist()
+    for c, rows in zip(caches, host):
+        for n, row in zip(names, rows):
+            if min(row) != max(row):
+                raise RuntimeError(f"counter {n} differs across rows: "
+                                   f"{row}")
+            setattr(c, n, row[0])
 
 
 def clear(cache):
@@ -366,24 +406,35 @@ def flush_v_masked(cache: KiviLayerCache, qcfg: QuantConfig,
 
 def decode_append_masked(cache: KiviLayerCache, k_new, v_new,
                          qcfg: QuantConfig,
-                         active: Optional[torch.Tensor] = None
-                         ) -> KiviLayerCache:
-    """`decode_append` for a slot cache whose rows sit at divergent
-    window phases: each row flushes its own full windows, then appends
-    one token's K/V (B, H, 1, D).  Rows where active (B,) is false freeze
-    every counter, and their window writes carry the window's own bytes:
-    an inactive row may sit at n_win == W, where the clamped write lands
-    on the last REAL window token.  Only rows that flush quantize their
-    window and write their stores (the JAX package quantizes every row's
-    window every step and writes the others' bytes back); the quantizer
-    still launches every step, and its blocks of the other rows return
-    before loading anything."""
-    act = _row_pred(cache, active)
-    flush_k_masked(cache, qcfg, act)
-    flush_v_masked(cache, qcfg, act)
+                         active: Optional[torch.Tensor] = None,
+                         do_flush: bool = True) -> KiviLayerCache:
+    """`decode_append` for a cache with per-row device counters whose
+    rows may sit at divergent window phases: each row flushes its own
+    full windows, then appends one token's K/V (B, H, 1, D).  Rows where
+    active (B,) is false freeze every counter, and their window writes
+    carry the window's own bytes: an inactive row may sit at n_win == W,
+    where the clamped write lands on the last REAL window token.  Only
+    rows that flush quantize their window and write their stores (the
+    JAX package quantizes every row's window every step and writes the
+    others' bytes back); the quantizer still launches every step, and
+    its blocks of the other rows return before loading anything.
+
+    active None: every row advances.  do_flush=False skips the flushes,
+    for a caller that runs them on a static schedule (the engine's
+    replayed decode step): the step is then the two window writes and
+    the counter increments."""
+    act = None if active is None else _row_pred(cache, active)
+    if do_flush:
+        flush_k_masked(cache, qcfg, act)
+        flush_v_masked(cache, qcfg, act)
+    elif checking():
+        W = qcfg.residual_length
+        room = (cache.n_k_win < W) & (cache.n_v_win < W)
+        debug_check((room if act is None else room | ~act).all(),
+                    "window full: a scheduled flush was skipped")
     masked_store_write(cache.k_win, k_new, cache.n_k_win, 2, act)
     masked_store_write(cache.v_win, v_new, cache.n_v_win, 2, act)
-    inc = act.to(torch.int32)
+    inc = 1 if act is None else act.to(torch.int32)
     cache.n_k_win += inc
     cache.n_v_win += inc
     return cache

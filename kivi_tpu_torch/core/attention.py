@@ -52,9 +52,11 @@ from kivi_tpu_torch.kernels.flash_extend import (_extend_ws_logits,
                                                  flash_extend_attention,
                                                  flash_extend_qhist)
 from kivi_tpu_torch.kernels.fused_decode import fused_decode_attention
+from kivi_tpu_torch.kernels.fused_decode_wide import SPLIT as _WIDE_SPLIT
 from kivi_tpu_torch.kernels.fused_decode_wide import (
     NEG_INF, fused_decode_attention_wide)
 from kivi_tpu_torch.kernels.qk_pv import pv_dequant_matmul, qk_dequant_matmul
+from kivi_tpu_torch.utils.guards import checking, debug_check
 
 # The split routes' rule.  The fused extend kernel gives one block to
 # each (row, KV head, query tile of EXTEND_ROWS rows), and each block
@@ -93,10 +95,25 @@ def use_split(blocks: int, n_k_quant) -> bool:
             and blocks < SPLIT_BLOCKS and n_k_quant >= SPLIT_MIN_HISTORY)
 
 
+def t_bound_for(fill_bound: Optional[int], Tmax: int,
+                W: int = 0) -> Optional[int]:
+    """The decode kernels' static grid bound for a static bound on the
+    fill (kivi_tpu/core/attention.py:114-119): one spare split of slack
+    (enough splits to hold a window of W), rounded up to the split; None
+    (the full grid) when that passes Tmax."""
+    if fill_bound is None:
+        return None
+    split = _WIDE_SPLIT
+    slack = split * max(1, -(-W // split))
+    tb = -(-(int(fill_bound) + slack) // split) * split
+    return tb if tb <= Tmax else None
+
+
 def decode_attention(q: torch.Tensor, cache: KiviLayerCache,
                      qcfg: QuantConfig, *,
                      sliding_window: Optional[int] = None,
-                     pad_len: Optional[torch.Tensor] = None
+                     pad_len: Optional[torch.Tensor] = None,
+                     fill_bound: Optional[int] = None
                      ) -> torch.Tensor:
     """Single-token decode attention.
 
@@ -108,15 +125,36 @@ def decode_attention(q: torch.Tensor, cache: KiviLayerCache,
     same kind of lower position bound (position t attends positions
     > t - sliding_window), so both fold into one per-row `lo`.
 
-    Host-int counters (the engine) go to `fused_decode_attention_wide`,
-    or to the split route when `use_split` says so; a slot cache's
-    per-row device counters (the continuous batcher) go to
+    fill_bound: optional STATIC upper bound on every row's
+    cache.seq_len, valid for every call of a captured decode step (the
+    engine's prompt_len + steps, the batcher's fullest active slot).
+    Rounded by `t_bound_for` and passed to the per-row kernel as its
+    t_bound: its grid then stops there instead of covering Tmax.  A
+    wrong bound silently truncates attention; under a checked call
+    (`Engine(debug=True)`) the contract is checked and a violation
+    raises.
+
+    Host-int counters (the engine's `decode_step`) go to
+    `fused_decode_attention_wide`, or to the split route when
+    `use_split` says so; per-row device counters (the continuous
+    batcher's slot caches, the engine's decode step) go to
     `fused_decode_attention`, which reads them on the device."""
     B, Hq, M, D = q.shape
     assert M == 1, "decode_attention is single-token"
     Hkv = cache.k_win.shape[1]
     r = Hq // Hkv
+    W = qcfg.residual_length
     per_row = isinstance(cache.n_k_quant, torch.Tensor)
+    tb = t_bound_for(fill_bound, cache.max_seq_len, W)
+    if tb is not None and checking():
+        # the t_bound caller contract (kivi_tpu/core/attention.py:120-131)
+        nkq, nvq = cache.n_k_quant, cache.n_v_quant
+        if per_row:
+            nkq, nvq = nkq.max(), nvq.max()
+        debug_check((nkq <= tb) & (nvq + W <= tb),
+                    "decode t_bound violated: n_k_quant={nkq} or "
+                    "n_v_quant={nvq}+W exceeds t_bound={tb}: attention "
+                    "would be silently truncated", nkq=nkq, nvq=nvq, tb=tb)
     lo = None
     if pad_len is not None:
         lo = pad_len.to(device=q.device, dtype=torch.int32).reshape(B)
@@ -141,7 +179,7 @@ def decode_attention(q: torch.Tensor, cache: KiviLayerCache,
     if per_row:
         counts = torch.stack([cache.n_k_quant, cache.n_k_win,
                               cache.n_v_quant], dim=1)
-        out = fused_decode_attention(*args, counts, **kw)
+        out = fused_decode_attention(*args, counts, t_bound=tb, **kw)
     else:
         out = fused_decode_attention_wide(
             *args, cache.n_k_quant, cache.n_k_win, cache.n_v_quant, **kw)

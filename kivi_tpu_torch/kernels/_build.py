@@ -64,8 +64,8 @@ SIGNATURES = {
         # q, k_codes, k_scale, k_mn, v_codes, v_scale, v_mn, k_win,
         # v_win, counts, lo, out, part_acc, part_ml, tickets, B, H, r, D,
         # Tmax, W, gs, k_bits, v_bits, scale_is_f32, split, nsplit,
-        # sm_scale, stream
-        "kivi_fused_decode_rows": [_P] * 15 + [_I] * 12 + [_F, _P],
+        # t_bound, sm_scale, stream
+        "kivi_fused_decode_rows": [_P] * 15 + [_I] * 13 + [_F, _P],
     },
     "flash_extend": {
         # q, k_codes, k_scale, k_mn, v_codes, v_scale, v_mn, k_win,
@@ -98,8 +98,8 @@ SIGNATURES = {
     },
     "fp_decode": {
         # q, k, v, pad, lens, out, part_acc, part_ml, tickets, B, H, r, D,
-        # Tmax, length, sliding_window, sm_scale, stream
-        "kivi_fp_decode": [_P] * 9 + [_I] * 7 + [_F, _P],
+        # Tmax, length, t_bound, sliding_window, sm_scale, stream
+        "kivi_fp_decode": [_P] * 9 + [_I] * 8 + [_F, _P],
     },
     "trimmed": {
         # q, k_codes, k_scale, k_mn, v_codes, v_scale, v_mn, out,
@@ -265,6 +265,20 @@ def check_aligned(name: str, *tensors) -> None:
     for t in tensors:
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: tensors must be 16-byte aligned")
+
+
+def check_t_bound(name: str, t_bound, Tmax: int, split: int) -> int:
+    """A split decode kernel's grid end: Tmax without a static fill
+    bound (None), else t_bound, which must be Tmax or a multiple of the
+    kernel's split below it."""
+    if t_bound is None:
+        return Tmax
+    t_bound = int(t_bound)
+    if not (t_bound == Tmax or (0 < t_bound < Tmax
+                                and t_bound % split == 0)):
+        raise ValueError(f"{name}: t_bound={t_bound} must be Tmax={Tmax} "
+                         f"or a multiple of {split} below it")
+    return t_bound
 
 
 def stream_handle(device) -> int:

@@ -42,10 +42,12 @@
 // One launch per call; a call with one split writes its output at once.
 // The host never reads a counter: `length` is a host int (the engine:
 // splits from the window's lower bound up to length) or per row from a
-// (B,) device tensor (the continuous batcher's slot caches: splits over
-// all of Tmax, the dead ones exiting at once; the sliding window then
-// counts back from the row's own length and a row of length 0 writes
-// zeros).
+// (B,) device tensor (the continuous batcher's slot caches and the
+// engine's replayed decode step: splits over [0, t_bound), t_bound = Tmax
+// or a static bound on every row's length, the dead splits exiting at
+// once; positions at or past t_bound are not read; the sliding window
+// then counts back from the row's own length and a row of length 0
+// writes zeros).
 
 #include "attn_wgmma.cuh"   // cp.async helpers
 
@@ -340,8 +342,8 @@ template <int R>
 int launch(const void* q, const void* k, const void* v, const void* pad,
            const void* lens, void* out, void* part_acc, void* part_ml,
            void* tickets, int B, int H, int D, int Tmax, int length,
-           int window, float sm_scale, cudaStream_t stream) {
-    int first = 0, nsplit = (Tmax + S - 1) / S;
+           int t_bound, int window, float sm_scale, cudaStream_t stream) {
+    int first = 0, nsplit = (t_bound + S - 1) / S;
     if (!lens) {   // splits from the window's lower bound up to length
         first = (window > 0 ? max(0, length - window) : 0) / S;
         nsplit = (length + S - 1) / S - first;
@@ -363,7 +365,9 @@ int launch(const void* q, const void* k, const void* v, const void* pad,
 }  // namespace
 
 // lens: NULL for the host-int `length` (1 <= length <= Tmax), else a (B,)
-// int32 device tensor of per-row lengths (`length` is then ignored).
+// int32 device tensor of per-row lengths (`length` is then ignored), read
+// over positions [0, t_bound), 1 <= t_bound <= Tmax (ignored with a
+// host-int length).
 // part_acc (B*H*ceil(Tmax/256)*r*D floats), part_ml (twice
 // B*H*ceil(Tmax/256)*r floats) and tickets (B*H ints, zero before the
 // first call; every call leaves them zero) are the caller's workspace.
@@ -371,17 +375,18 @@ extern "C" int kivi_fp_decode(const void* q, const void* k, const void* v,
                               const void* pad, const void* lens, void* out,
                               void* part_acc, void* part_ml, void* tickets,
                               int B, int H, int r, int D, int Tmax,
-                              int length, int sliding_window, float sm_scale,
-                              void* stream) {
+                              int length, int t_bound, int sliding_window,
+                              float sm_scale, void* stream) {
     if (D > DMAX || D % 8 || Tmax % 8
-        || (!lens && (length < 1 || length > Tmax)))
+        || (!lens && (length < 1 || length > Tmax))
+        || (lens && (t_bound < 1 || t_bound > Tmax)))
         return (int)cudaErrorInvalidValue;
     cudaStream_t st = (cudaStream_t)stream;
 #define KIVI_R(RR)                                                        \
     case RR:                                                              \
         return launch<RR>(q, k, v, pad, lens, out, part_acc, part_ml,     \
-                          tickets, B, H, D, Tmax, length, sliding_window, \
-                          sm_scale, st);
+                          tickets, B, H, D, Tmax, length, t_bound,        \
+                          sliding_window, sm_scale, st);
     switch (r) {
         KIVI_R(1) KIVI_R(2) KIVI_R(4) KIVI_R(8)
         default: return (int)cudaErrorInvalidValue;

@@ -17,7 +17,10 @@
 // longest row's walk (40x the bound).
 //
 // Design: the split body of kdec_split.cuh (shared with fused_decode.cu),
-// blocks over (ceil(Tmax / S) splits, row * KV head).  Each block reads
+// blocks over (t_bound / S splits, row * KV head): t_bound is Tmax, or a
+// static bound on every row's fill that a replayed decode step was
+// captured with (the engine's prompt + steps, the batcher's fullest
+// active slot, rounded up), so the grid stops short of the empty tail.  Each block reads
 // its row's (n_k_quant, n_k_win, n_v_quant) from a (B, 3) int32 device
 // tensor and its lower bound from an optional (B,) one, so no counter
 // passes through the host; a split outside the row's live positions
@@ -45,7 +48,12 @@ int dispatch_r(int r, const kdec::Params& p, int BH, cudaStream_t st) {
 }  // namespace
 
 // As kivi_fused_decode, the counters per row in counts (B, 3) int32 on
-// the device; `nsplit` splits of `split` positions cover [0, Tmax).
+// the device; `nsplit` splits of `split` positions cover [0, t_bound),
+// t_bound <= Tmax: the static fill bound of the JAX package's t_bound
+// (kivi_tpu/kernels/fused_decode_wide.py:564-572).  Positions at or past
+// the last split are neither read nor attended, so a row whose live
+// positions all lie below t_bound gets the unbounded result; t_bound =
+// Tmax is the full grid.
 extern "C" int kivi_fused_decode_rows(
         const void* q, const void* k_codes, const void* k_scale,
         const void* k_mn, const void* v_codes, const void* v_scale,
@@ -53,7 +61,7 @@ extern "C" int kivi_fused_decode_rows(
         const void* counts, const void* lo, void* out, void* part_acc,
         void* part_ml, void* tickets, int B, int H, int r, int D, int Tmax,
         int W, int gs, int k_bits, int v_bits, int scale_is_f32, int split,
-        int nsplit, float sm_scale, void* stream) {
+        int nsplit, int t_bound, float sm_scale, void* stream) {
     const kdec::Params p{
         (const __nv_bfloat16*)q, (const uint32_t*)k_codes, k_scale, k_mn,
         (const uint32_t*)v_codes, v_scale, v_mn,
@@ -61,7 +69,8 @@ extern "C" int kivi_fused_decode_rows(
         (const int*)counts, (const int*)lo, (float*)out, (float*)part_acc,
         (float*)part_ml, (int*)tickets, H, D, Tmax, W, gs, k_bits, v_bits,
         0, 0, 0, nsplit, sm_scale};
-    if (int e = kdec::check_args(p, split, Tmax)) return e;
+    if (t_bound < 1 || t_bound > Tmax) return (int)cudaErrorInvalidValue;
+    if (int e = kdec::check_args(p, split, t_bound)) return e;
     cudaStream_t st = (cudaStream_t)stream;
     return scale_is_f32 ? dispatch_r<float>(r, p, B * H, st)
                         : dispatch_r<__nv_bfloat16>(r, p, B * H, st);

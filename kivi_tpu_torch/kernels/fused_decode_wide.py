@@ -48,9 +48,12 @@ def fused_decode_attention_wide_plain(
         qg, k_codes, k_scale, k_mn, v_codes, v_scale, v_mn, k_win, v_win,
         n_k_quant: int, n_k_win: int, n_v_quant: int, *, group_size: int,
         k_bits: int, v_bits: int,
-        lo: Optional[torch.Tensor] = None) -> torch.Tensor:
+        lo: Optional[torch.Tensor] = None,
+        hi: Optional[int] = None) -> torch.Tensor:
     """qg (B, Hkv, r, D) + cache arrays -> (B, Hkv, r, D) f32.  lo: (B,)
-    int lower position bound per row (left pad / sliding window)."""
+    int lower position bound per row (left pad / sliding window); hi:
+    positions at or past it are not attended (the per-row kernel's
+    t_bound)."""
     B, Hkv, r, D = qg.shape
     Tmax = k_codes.shape[-1]
     W = k_win.shape[2]
@@ -65,6 +68,9 @@ def fused_decode_attention_wide_plain(
     att_q = att_q.masked_fill(pos_q >= n_k_quant, NEG_INF)
     att_w = torch.einsum("bhrd,bhwd->bhrw", q, k_win.float())
     att_w = att_w.masked_fill(win >= n_k_win, NEG_INF)
+    if hi is not None:
+        att_q = att_q.masked_fill(pos_q >= hi, NEG_INF)
+        att_w = att_w.masked_fill(win + n_k_quant >= hi, NEG_INF)
     if lo is not None:
         lo4 = lo.to(device=dev, dtype=torch.int64).reshape(B, 1, 1, 1)
         att_q = att_q.masked_fill(pos_q < lo4, NEG_INF)

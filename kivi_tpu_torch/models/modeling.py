@@ -10,9 +10,14 @@ place.  Weights and activations are bf16 on the main path; norms and
 attention softmax run in f32.
 
 Modes: `prefill` (one-shot, through flash_attention), `extend` (chunked
-prefill) and `decode`, over either cache.  Decode also runs over the
-continuous batcher's slot caches (`init_slot_caches`: per-row device
-counters), with `active=` selecting the masked, per-row appends.
+prefill) and `decode`, over either cache.  Decode also runs over caches
+whose counters are per-row device tensors (the continuous batcher's
+slot caches, `init_slot_caches`; the engine's caches while it replays
+its decode step): the masked, per-row appends, with `active=` selecting
+the rows that advance, and attention reading the counters on the
+device under an optional static `fill_bound`.  Under a checked call
+(`utils.guards`, `Engine(debug=True)`) every layer's appended K/V and
+the logits are checked finite.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ from kivi_tpu_torch.config import ModelConfig, QuantConfig
 from kivi_tpu_torch.core.attention import (decode_attention,
                                            extend_attention,
                                            prefill_attention)
+from kivi_tpu_torch.utils.guards import check_finite, checking, debug_check
 # re-exported: entry points resolve their device here
 from kivi_tpu_torch.utils.device import resolve_device  # noqa: F401
 
@@ -100,12 +106,16 @@ def swiglu_mlp(x: torch.Tensor, wg, wu, wd) -> torch.Tensor:
 
 def _attention_block(x, lp, cache, cfg: ModelConfig, qcfg: QuantConfig,
                      positions, *, mode: str, flush: bool = True,
-                     pad_len=None, prev_len: int = 0, active=None):
+                     pad_len=None, prev_len: int = 0, active=None,
+                     fill_bound: Optional[int] = None, layer: int = 0):
     """mode: 'prefill' (T tokens into an empty cache), 'extend' (T suffix
     tokens onto a cache holding prev_len tokens: chunked prefill) or
     'decode' (T == 1).  The cache is a KiviLayerCache or an
-    FpLayerCache.  active: (B,) bool, decode only: the masked appends of
-    a slot cache, rows where it is false frozen."""
+    FpLayerCache.  Decode over per-row device counters takes the masked
+    appends: active (B,) bool selects the rows that advance (None: every
+    row), and flush=False skips their window flushes (the engine runs
+    them on its schedule).  fill_bound: decode only, a static bound on
+    every row's fill (core.attention.decode_attention)."""
     B, T, _ = x.shape
     Hq, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     fp = isinstance(cache, FpLayerCache)
@@ -129,6 +139,8 @@ def _attention_block(x, lp, cache, cfg: ModelConfig, qcfg: QuantConfig,
         live = cpos[None, None, :, None] >= pad_len.reshape(B, 1, 1, 1)
         k = torch.where(live, k, torch.zeros_like(k))
         v = torch.where(live, v, torch.zeros_like(v))
+    check_finite(k, f"layer {layer}: the keys appended to the cache")
+    check_finite(v, f"layer {layer}: the values appended to the cache")
 
     if mode == "prefill":
         assert cache.seq_len == 0, "prefill needs an empty cache"
@@ -151,24 +163,27 @@ def _attention_block(x, lp, cache, cfg: ModelConfig, qcfg: QuantConfig,
                                    pad_len=pad_len)
             KC.prefill_extend(cache, k, v, qcfg, prev_len)
     elif mode == "decode":
+        per_row = isinstance(cache.seq_len, torch.Tensor)
         if fp:
-            if active is not None:
+            if per_row:
                 fp_append_masked(cache, k, v, active)
             else:
                 fp_append(cache, k, v)
             out = fp_decode_attention(q, cache,
                                       sliding_window=cfg.sliding_window,
-                                      pad_len=pad_len)
+                                      pad_len=pad_len,
+                                      fill_bound=fill_bound)
         else:
-            if active is not None:
-                # divergent per-row windows (the continuous batcher):
-                # masked slice writes, each row flushing its own
-                KC.decode_append_masked(cache, k, v, qcfg, active=active)
+            if per_row:
+                # per-row windows on the device: masked slice writes,
+                # each row flushing its own (the batcher) or none
+                KC.decode_append_masked(cache, k, v, qcfg, active=active,
+                                        do_flush=flush)
             else:
                 KC.decode_append(cache, k, v, qcfg, do_flush=flush)
             out = decode_attention(q, cache, qcfg,
                                    sliding_window=cfg.sliding_window,
-                                   pad_len=pad_len)
+                                   pad_len=pad_len, fill_bound=fill_bound)
     else:
         raise ValueError(f"unknown mode {mode!r}")
 
@@ -177,11 +192,12 @@ def _attention_block(x, lp, cache, cfg: ModelConfig, qcfg: QuantConfig,
 
 
 def _decoder_layer(x, lp, cache, cfg, qcfg, positions, *, mode, flush=True,
-                   pad_len=None, prev_len=0, active=None):
+                   pad_len=None, prev_len=0, active=None, fill_bound=None,
+                   layer=0):
     h = _attention_block(rms_norm(x, lp["ln_attn"], cfg.rms_norm_eps), lp,
                          cache, cfg, qcfg, positions, mode=mode,
                          flush=flush, pad_len=pad_len, prev_len=prev_len,
-                         active=active)
+                         active=active, fill_bound=fill_bound, layer=layer)
     x = x + h
     return x + swiglu_mlp(rms_norm(x, lp["ln_mlp"], cfg.rms_norm_eps),
                           lp["wg"], lp["wu"], lp["wd"])
@@ -197,27 +213,35 @@ def forward(params: dict, tokens: torch.Tensor, caches: List, cfg:
             mode: str, last_only: bool = False, flush: bool = True,
             pad_len: Optional[torch.Tensor] = None,
             prev_len: int = 0,
-            active: Optional[torch.Tensor] = None
+            active: Optional[torch.Tensor] = None,
+            fill_bound: Optional[int] = None
             ) -> Tuple[torch.Tensor, List]:
     """tokens (B, T) int; positions (B, T) int RoPE positions (for
     left-padded rows: cache index minus pad_len, clamped at 0).  The
     caches are updated in place.
 
-    active: (B,) bool, decode mode over slot caches (init_slot_caches):
-    `decode_append_masked` / `fp_append_masked`, rows where it is false
-    keep their counters (kivi_tpu/models/modeling.py:232-254).
+    active: (B,) bool, decode mode over per-row device counters
+    (init_slot_caches): `decode_append_masked` / `fp_append_masked`,
+    rows where it is false keep their counters
+    (kivi_tpu/models/modeling.py:232-254); None advances every row.
+
+    fill_bound: decode mode, an optional STATIC upper bound on every
+    row's cache fill for this call (kivi_tpu/models/modeling.py:117,
+    263-268), passed to the decode kernels as their grid bound.
 
     Returns (logits (B, T, vocab) f32, caches); with last_only the logits
     are (B, 1, vocab) for the final position."""
     x = params["embed"][tokens]
-    for lp, cache in zip(params["layers"], caches):
+    for i, (lp, cache) in enumerate(zip(params["layers"], caches)):
         x = _decoder_layer(x, lp, cache, cfg, qcfg, positions, mode=mode,
                            flush=flush, pad_len=pad_len, prev_len=prev_len,
-                           active=active)
+                           active=active, fill_bound=fill_bound, layer=i)
     if last_only:
         x = x[:, -1:]
     x = rms_norm(x, params["ln_f"], cfg.rms_norm_eps)
-    return (x @ params["lm_head"]).float(), caches
+    logits = (x @ params["lm_head"]).float()
+    check_finite(logits, "the logits")
+    return logits, caches
 
 
 def init_caches(cfg: ModelConfig, qcfg: QuantConfig, batch: int,
@@ -253,12 +277,22 @@ def init_slot_caches(cfg: ModelConfig, qcfg: QuantConfig, num_slots: int,
 def flush_caches(caches, qcfg: QuantConfig, k: bool = False,
                  v: bool = False):
     """Unconditional window flushes across all layers (the engine's
-    statically scheduled decode path; see KC.flush_k_now/flush_v_now)."""
-    for c in caches:
+    statically scheduled decode path; see KC.flush_k_now/flush_v_now).
+    Over per-row device counters: the masked flushes with no predicate,
+    each row flushing its full window (KC.flush_k_masked /
+    flush_v_masked), no counter read on the host; under a checked call
+    every row's window must be full (the schedule matches the cache)."""
+    W = qcfg.residual_length
+    for i, c in enumerate(caches):
+        per_row = isinstance(c.n_k_quant, torch.Tensor)
+        if per_row and checking():
+            full = ((c.n_k_win == W) | (not k)) & ((c.n_v_win == W) | (not v))
+            debug_check(full.all(), "flush schedule violated: layer {i} "
+                        "flushes a window that is not full", i=i)
         if k:
-            KC.flush_k_now(c, qcfg)
+            (KC.flush_k_masked if per_row else KC.flush_k_now)(c, qcfg)
         if v:
-            KC.flush_v_now(c, qcfg)
+            (KC.flush_v_masked if per_row else KC.flush_v_now)(c, qcfg)
     return caches
 
 

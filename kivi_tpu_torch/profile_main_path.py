@@ -23,13 +23,15 @@ Two windows, each run once without and once under torch.profiler:
 
   * prefill: 8 prompts of 1024 tokens (long: one of 12,032);
   * decode: S greedy steps after it (with KIVI-2, step 0 carries a
-    V-window flush).
+    V-window flush), each step a replay of the engine's CUDA graph (the
+    first pass captures it).
 
 With --path batcher the one window is S batcher steps (one batched
-decode step each: the masked per-slot appends, whose quantizers launch
-every step and load only the rows that flush, attention with per-row
-counters, per-row sampling) after
-8 requests of 100-1000 prompt tokens were admitted.
+decode step each, a replay of the batcher's CUDA graph for the step's
+fill bound: the masked per-slot appends, whose quantizers launch every
+step and load only the rows that flush, attention with per-row
+counters, per-row sampling) after 8 requests of 100-1000 prompt tokens
+were admitted.
 
 For each window it prints the host wall time without the profiler, the
 device busy time (union of all kernel and copy intervals, profiled),
@@ -91,11 +93,19 @@ def category(name: str) -> str:
     return "other torch ops"
 
 
-def report(what: str, prof, wall_s: float) -> None:
+def device_events(what: str, prof) -> list:
+    """The profiled device events (kernels and copies, those launched by
+    a CUDA graph's replay included); raises when there are none."""
     ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not ev:
         raise RuntimeError(f"{what}: the profiler recorded no device "
                            "activity")
+    return ev
+
+
+def busy_span_us(ev) -> tuple:
+    """(device busy, span) in µs: the union of the events' intervals,
+    and the first start to the last end."""
     iv = sorted((e.time_range.start, e.time_range.end) for e in ev)
     busy, (cur_s, cur_e) = 0.0, iv[0]
     for s, e in iv[1:]:
@@ -105,7 +115,12 @@ def report(what: str, prof, wall_s: float) -> None:
         else:
             cur_e = max(cur_e, e)
     busy += cur_e - cur_s
-    span = max(e for _, e in iv) - iv[0][0]
+    return busy, max(e for _, e in iv) - iv[0][0]
+
+
+def report(what: str, prof, wall_s: float) -> None:
+    ev = device_events(what, prof)
+    busy, span = busy_span_us(ev)
     # the profiler slows the host, which stretches the span; the idle
     # share against the unprofiled wall is the one a user sees
     print(f"[{what}] host wall {wall_s * 1e3:.3f} ms without the profiler | "
@@ -160,8 +175,8 @@ def profile_batcher(cfg, steps: int, smi: str) -> None:
     fills = (bat.caches[0].seq_len - bat.pad_dev.to(torch.int32)).tolist()
     print(f"[config] llama2-7b width, {cfg.num_layers} layers, continuous "
           f"batcher over KIVI-2 slot caches, {B} slots, prompts {lens} "
-          f"(bucketed), true fills at the end {fills}, {steps} steps | "
-          f"card {smi}")
+          f"(bucketed), true fills at the end {fills}, {steps} steps, "
+          f"CUDA graphs | card {smi}")
     report("decode", prof, wall)
     print(f"[decode] {B * steps / wall:.1f} tokens/s, "
           f"{wall / steps * 1e3:.3f} ms per step")
@@ -201,9 +216,12 @@ def main():
         pos = pos - LONG_PAD
 
     def prefill():
+        # into the engine's own caches, as generate() does: the decode
+        # graph captured over them in the first pass is replayed after
+        caches = eng.own_caches()
         if args.path in ("chunked", "long"):
-            return eng.prefill_chunked(tokens, CHUNK, pad_lens=pad)
-        return eng._prefill(tokens)
+            return eng.prefill_chunked(tokens, CHUNK, caches, pad_lens=pad)
+        return eng._prefill(tokens, caches)
 
     def decode(logits, caches):
         first = logits.argmax(-1).to(torch.int32)[:, None]
@@ -211,10 +229,7 @@ def main():
                           prompt_len=prompt, pad_lens=pad)
 
     walls = {}
-    for rep in range(2):               # the first pass builds and warms
-        # drop the last pass's caches first, so the caching allocator
-        # reuses their memory as a server's next batch would
-        logits = caches = None
+    for rep in range(2):    # the first pass builds, warms and captures
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         logits, caches = prefill()
@@ -226,7 +241,6 @@ def main():
         walls["decode"] = time.perf_counter() - t0
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    logits = caches = None
     with profile(activities=acts) as p_pre:
         logits, caches = prefill()
         torch.cuda.synchronize()
@@ -240,7 +254,7 @@ def main():
                    f"pad {LONG_PAD}) in chunks of {CHUNK}, cache {tmax}"
            }[args.path]
     print(f"[config] {preset} width, {args.layers} layers, {how}, batch "
-          f"{Bp}, {args.steps} decode steps | card {smi}")
+          f"{Bp}, {args.steps} decode steps, CUDA graphs | card {smi}")
     report("prefill", p_pre, walls["prefill"])
     report("decode", p_dec, walls["decode"])
     print(f"[decode] {Bp * args.steps / walls['decode']:.1f} tokens/s, "

@@ -21,6 +21,12 @@ step advances every slot together.
   * Retirement: a slot frees when EOS is sampled or max_new_tokens is
     reached; freed slots keep decoding garbage, but their cache writes
     are masked (frozen counters) and their tokens dropped.
+  * The decode step (`_decode_all`) updates every piece of its state in
+    place, so that it can be captured: on CUDA one CUDA graph per fill
+    bound (`_decode_for`, the JAX batcher's one jit per bound), captured
+    on first use and replayed after (utils/graphs.py); on the CPU it
+    runs eagerly.  The bound is the fullest active slot's fill after the
+    step, from the host's per-slot `fill`, rounded up to 512.
 
 The step reads one thing back to the host, the sampled tokens; the
 counters, pads, controls and penalty masks stay on the device.
@@ -29,6 +35,7 @@ counters, pads, controls and penalty masks stay on the device.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from collections import deque
 from typing import Callable, Dict, List, Optional
 
@@ -39,7 +46,8 @@ from kivi_tpu_torch.cache import kivi_cache as KC
 from kivi_tpu_torch.config import ModelConfig, QuantConfig
 from kivi_tpu_torch.models import modeling
 from kivi_tpu_torch.serving import sampling
-from kivi_tpu_torch.serving.engine import phase_period
+from kivi_tpu_torch.serving.engine import FILL_BUCKET, phase_period
+from kivi_tpu_torch.utils.graphs import StepGraphs
 
 _PREFIX_LATER = ("prefix admission (prefix=, prefix_cache=, "
                  "Request.prefix_tokens) comes with a later slice of the "
@@ -149,8 +157,15 @@ class ContinuousBatcher:
                                     dtype=torch.bool, device=dev)
         self.gen = torch.Generator(device=dev)
         self.gen.manual_seed(0)
-        # raw logits (S, V) of the last decode step, before the penalty
-        self.last_logits: Optional[torch.Tensor] = None
+        # the step's outputs, written in place: raw logits (S, V) of the
+        # last decode step, before the penalty, and its sampled tokens
+        self.last_logits = torch.zeros((num_slots, cfg.vocab_size),
+                                       dtype=torch.float32, device=dev)
+        self.nxt = z(torch.int32)
+        # per-slot cache tokens (pads included) on the host: the decode
+        # step's fill bound comes from them, with no device read
+        self.fill = np.zeros(num_slots, np.int64)
+        self.graphs = StepGraphs(dev) if dev.type == "cuda" else None
 
     # -- device work ----------------------------------------------------------
 
@@ -188,23 +203,45 @@ class ContinuousBatcher:
                 pad_len=padv, prev_len=t0)
         return logits[:, -1], pad
 
-    def _decode_all(self) -> torch.Tensor:
+    def _decode_all(self, fill_bound: Optional[int] = None
+                    ) -> torch.Tensor:
         """One decode step for all slots: one batched forward over the
         slot caches (inactive slots frozen), then per-row penalty and
-        sampling.  Returns the sampled tokens (S,) int32 on the device."""
+        sampling; the sampled token becomes each slot's next input and
+        the active slots' positions advance.  fill_bound: a static bound
+        on every ACTIVE slot's fill after the step.  Every write is in
+        place (the body a CUDA graph captures).  Returns the sampled
+        tokens, self.nxt (S,) int32 on the device."""
         logits, _ = modeling.forward(
             self.params, self.cur_tok, self.caches, self.cfg, self.qcfg,
             self.pos, mode="decode", pad_len=self.pad_dev,
-            active=self.act_dev)
-        self.last_logits = logits[:, -1]
+            active=self.act_dev, fill_bound=fill_bound)
+        self.last_logits.copy_(logits[:, -1])
         # the consumed token joins the sequence before the penalty
         # (engine/HF ordering)
-        self.seen_dev = sampling.update_seen(self.seen_dev,
-                                             self.cur_tok[:, 0])
+        self.seen_dev.scatter_(1, self.cur_tok, True)
         lg = sampling.apply_repetition_penalty_per_row(
             self.last_logits, self.seen_dev, self.pen_dev)
-        return sampling.sample_step_per_row(lg, self.gen, self.temp_dev,
-                                            self.topk_dev, self.topp_dev)
+        self.nxt.copy_(sampling.sample_step_per_row(
+            lg, self.gen, self.temp_dev, self.topk_dev, self.topp_dev))
+        self.cur_tok.copy_(self.nxt[:, None])
+        self.pos += self.act_dev.to(torch.int64)[:, None]
+        return self.nxt
+
+    def _decode_for(self, fb: int) -> Callable[[], torch.Tensor]:
+        """The decode step under fill bound fb: on CUDA a replay of the
+        CUDA graph captured for fb (captured on first use: at most
+        T / 512 graphs, the bound growing with the fullest slot), on the
+        CPU the body itself."""
+        body = functools.partial(self._decode_all, fb)
+        if self.graphs is None:
+            return body
+
+        def replay():
+            self.graphs.run(fb, body, (self.gen,))
+            return self.nxt
+
+        return replay
 
     # -- host-side loop -------------------------------------------------------
 
@@ -289,6 +326,7 @@ class ContinuousBatcher:
             self.active[slot] = True
             self.slot_req[slot] = req
             self.slot_out[slot] = [int(nxt[0])]
+            self.fill[slot] = bucket   # cache tokens, pads included
             if req.on_token is not None:
                 req.on_token(self.slot_out[slot][0])
 
@@ -311,10 +349,17 @@ class ContinuousBatcher:
         self._admit()
         if not self.active.any():
             return
-        nxt = self._decode_all()
+        # the live-fill bound: this step appends one token per active
+        # slot.  INVARIANT (kivi_tpu/serving/batcher.py:524-528): fb
+        # covers the ACTIVE slots only.  A retired slot's counters may
+        # pass it, so its attention is truncated; that is safe only
+        # because an inactive slot's sampled token is dropped and its
+        # cache writes are masked.  Never read an inactive slot's output.
+        fb = int(min(-(-(int(self.fill[self.active].max()) + 1)
+                       // FILL_BUCKET) * FILL_BUCKET, self.T))
+        nxt = self._decode_for(fb)()
         nxt_host = nxt.cpu().numpy()          # the step's one host read
-        self.cur_tok = nxt.to(torch.int64)[:, None]
-        self.pos += self.act_dev.to(torch.int64)[:, None]
+        self.fill[self.active] += 1
         for s in range(self.S):
             if self.active[s] and self.slot_req[s] is not None:
                 tok = int(nxt_host[s])

@@ -3,25 +3,53 @@ baseline): port of the main-path subset of `kivi_tpu/serving/engine.py`
 — one-shot prefill (`prefill`) or chunked prefill through the extend
 path (`prefill_chunked`), then decode.
 
-PyTorch runs eagerly, so the decode "scan" is a Python loop.  As in the
-JAX engine, a KIVI cache's window flushes run unconditionally at the
-steps the flush schedule fixes for the known prompt length, and the
-per-step body does no flush checks (`decode_append(do_flush=False)`);
-the fp cache has no flushes.  The cache counters are host ints, so no
-step waits on the device to read them.
+Decode is the port of the JAX engine's compiled `_decode_scan_fn`
+(kivi_tpu/serving/engine.py:312-398).  As there, a KIVI cache's window
+flushes run unconditionally at the steps the flush schedule fixes for
+the known prompt length, between plain steps that do no flush checks;
+the fp cache has no flushes.  A plain step (forward, repetition
+penalty, sampling, and the in-place update of the token, the position
+and the penalty mask) runs over the caches' counters moved to the
+device, (B,) int32 per counter (`counters_to_device`; the JAX scan's
+traced counters), with the decode kernels' grids cut at a static fill
+bound, prompt_len + steps rounded up to 512 (`_decode_scan`, :195-220).
+On CUDA the step is captured once as a CUDA graph per static key
+(utils/graphs.py: batch, fill bound, sampling controls) and replayed
+`steps` times; the flushes run eagerly between replays (the masked
+flushes with no predicate: every row's window is full at a scheduled
+step).  On the CPU the same step runs eagerly.  The tokens land in a
+preallocated device buffer, and the counters return to host ints with
+one read at the end.
+
+`Engine(debug=True)` is the port of the JAX engine's checked_jit mode
+(utils/guards.py): it runs the same program, with nothing captured.
+Every prefill forward, every scheduled flush and every decode step
+(the same body over the same device counters and fill bound) is a
+checked call, run eagerly, that raises on the first non-finite logit or
+appended K/V value, on a violated fill bound, or on a flush schedule
+that does not match the caches.  The split decode route (rows 7-8 of
+the kernel table) serves host-int callers, `decode_step`, only.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 import math
 from typing import Optional
 
 import torch
 
+from kivi_tpu_torch.cache import fp_cache as FC
+from kivi_tpu_torch.cache import kivi_cache as KC
 from kivi_tpu_torch.cache.kivi_cache import nvq_canonical
 from kivi_tpu_torch.config import ModelConfig, QuantConfig
 from kivi_tpu_torch.models import modeling
 from kivi_tpu_torch.serving import sampling
+from kivi_tpu_torch.utils.graphs import StepGraphs
+from kivi_tpu_torch.utils.guards import checked_call
+
+FILL_BUCKET = 512   # the decode fill bound's rounding (one graph per bucket)
 
 
 def canonical_phase(qcfg: QuantConfig, prompt_len: int) -> int:
@@ -67,27 +95,82 @@ def flush_schedule(qcfg: QuantConfig, prompt_len: int, steps: int) -> dict:
     return events
 
 
+def fill_bound(prompt_len: int, steps: int) -> int:
+    """The static bound on the cache fill over a decode of `steps` tokens
+    after a prompt of prompt_len, rounded up to FILL_BUCKET so that one
+    graph serves many lengths (kivi_tpu/serving/engine.py:213)."""
+    return -(-(prompt_len + steps) // FILL_BUCKET) * FILL_BUCKET
+
+
+@dataclasses.dataclass
+class _DecodeState:
+    """What a captured decode step reads and writes, at fixed addresses:
+    the caches (whose counters are rows of `counters` during a decode),
+    the token fed and its RoPE position (B, 1) int64, the left pads (B,)
+    int64, the penalty mask (B, V) bool (allocated on first use), the
+    token buffer (B, max_seq_len) int32 and the step index (1,) int64
+    into it.  `ptrs` identifies the caches' storage."""
+
+    ptrs: tuple
+    caches: list
+    counters: Optional[torch.Tensor]
+    token: torch.Tensor
+    pos: torch.Tensor
+    pad: torch.Tensor
+    out: torch.Tensor
+    step: torch.Tensor
+    seen: Optional[torch.Tensor] = None
+
+
+def _cache_ptrs(caches) -> tuple:
+    return tuple(getattr(c, f.name).data_ptr() for c in caches
+                 for f in dataclasses.fields(c)
+                 if isinstance(getattr(c, f.name), torch.Tensor))
+
+
 class Engine:
     """Generation engine over the KIVI cache, or over the fp16 cache when
     qcfg.quantize_kv is False (QuantConfig(16, 16, ...): the baseline).
-    Runs on CUDA (the kernels) unless built with device="cpu" (the plain
-    versions).
+    Runs on CUDA (the kernels; decode replayed as CUDA graphs) unless
+    built with device="cpu" (the plain versions, run eagerly).
+    debug=True: the same program run eagerly, every forward, flush and
+    decode step a checked call (module docstring).
 
     params: the port's parameter dict (modeling.init_params or
     convert.params_from_jax), already on `device`."""
 
     def __init__(self, cfg: ModelConfig, qcfg: QuantConfig, params: dict,
                  max_seq_len: int, batch_size: int, device=None,
-                 cache_dtype=torch.bfloat16):
+                 cache_dtype=torch.bfloat16, debug: bool = False):
         self.cfg, self.qcfg, self.params = cfg, qcfg, params
         self.max_seq_len, self.batch_size = max_seq_len, batch_size
         self.device = modeling.resolve_device(device)
         self.cache_dtype = cache_dtype
+        self.debug = debug
+        self._forward = (checked_call(modeling.forward) if debug
+                         else modeling.forward)
+        self._caches = None   # the caches generate() prefills, reused
+        self._dec: Optional[_DecodeState] = None
+        self.graphs = (StepGraphs(self.device)
+                       if self.device.type == "cuda" and not debug else None)
 
     def init_caches(self):
         return modeling.init_caches(self.cfg, self.qcfg, self.batch_size,
                                     self.max_seq_len, self.cache_dtype,
                                     self.device)
+
+    def own_caches(self):
+        """The engine's own caches, those generate() prefills: allocated
+        once and cleared on every call, so that the decode graphs
+        captured over them are replayed by the next call (the JAX engine
+        donates its caches instead).  A caller holding them sees them
+        overwritten by the next call."""
+        if self._caches is None:
+            self._caches = self.init_caches()
+        else:
+            for c in self._caches:
+                KC.clear(c)
+        return self._caches
 
     def _pad(self, pad_lens, B: int) -> Optional[torch.Tensor]:
         if pad_lens is None:
@@ -109,7 +192,7 @@ class Engine:
         positions = torch.arange(T, device=self.device).expand(B, T)
         if pad is not None:
             positions = torch.clamp(positions - pad[:, None], min=0)
-        logits, caches = modeling.forward(
+        logits, caches = self._forward(
             self.params, tokens, caches, self.cfg, self.qcfg, positions,
             mode="prefill", last_only=True, pad_len=pad)
         return logits[:, -1], caches
@@ -146,7 +229,7 @@ class Engine:
                          ).expand(B, T1)
             if pad is not None:
                 positions = torch.clamp(positions - pad[:, None], min=0)
-            logits, caches = modeling.forward(
+            logits, caches = self._forward(
                 self.params, chunk, caches, self.cfg, self.qcfg, positions,
                 mode="extend", last_only=True, pad_len=pad, prev_len=t0)
         return logits[:, -1], caches
@@ -158,7 +241,7 @@ class Engine:
         before the append; the decode loop flushes on its schedule
         instead."""
         B = token.shape[0]
-        logits, caches = modeling.forward(
+        logits, caches = self._forward(
             self.params, token, caches, self.cfg, self.qcfg, pos,
             mode="decode", flush=flush, pad_len=self._pad(pad_lens, B))
         return logits[:, -1], caches
@@ -170,32 +253,111 @@ class Engine:
                seen: Optional[torch.Tensor] = None,
                generator: Optional[torch.Generator] = None):
         """Generate `steps` tokens after `first` (B, 1), whose RoPE
-        position is pos (B, 1); the cache holds prompt_len tokens.
-        A KIVI cache's window flushes run on the static schedule between
-        steps; the fp cache has none.  Returns (tokens (B, steps) int32,
-        caches)."""
+        position is pos (B, 1); the caches (host-int counters) hold
+        prompt_len tokens.  A KIVI cache's window flushes run on the
+        static schedule between steps; the fp cache has none.  Returns
+        (tokens (B, steps) int32, caches), the caches updated in place
+        with host-int counters again."""
+        # a host int: the flush schedule and the fill bound both stand on it
+        assert caches[0].seq_len == prompt_len, (
+            f"the caches hold {caches[0].seq_len} tokens, not prompt_len "
+            f"{prompt_len}")
         events = (flush_schedule(self.qcfg,
                                  canonical_phase(self.qcfg, prompt_len),
                                  steps)
                   if self.qcfg.quantize_kv else {})
         use_pen = repetition_penalty != 1.0 and seen is not None
-        token, out = first, []
+        fb = fill_bound(prompt_len, steps)
+        st = self._decode_begin(first, pos, caches, pad_lens,
+                                seen if use_pen else None)
+        penalty = repetition_penalty if use_pen else 1.0
+        has_pad = pad_lens is not None
+        body = functools.partial(self._decode_body, st, fb, has_pad,
+                                 temperature, top_k, top_p, penalty,
+                                 generator)
+        flush = modeling.flush_caches
+        if self.debug:
+            body, flush = checked_call(body), checked_call(flush)
+        # the JAX jit's static arguments but `steps` (the graph is one
+        # step); the generator object itself, since a graph draws from
+        # the generator it was captured with
+        key = (first.shape[0], fb, has_pad, temperature, top_k, top_p,
+               penalty, generator if temperature > 0 else None)
+        gens = (generator,) if temperature > 0 and generator is not None \
+            else ()
         for i in range(steps):
             if i in events:
                 fk, fv = events[i]
-                modeling.flush_caches(caches, self.qcfg, k=fk, v=fv)
-            logits, caches = self.decode_step(token, pos, caches, pad_lens,
-                                              flush=False)
-            if use_pen:
-                seen = sampling.update_seen(seen, token[:, 0])
-                logits = sampling.apply_repetition_penalty(
-                    logits, seen, repetition_penalty)
-            nxt = sampling.sample_step(logits, generator,
-                                       temperature=temperature,
-                                       top_k=top_k, top_p=top_p)
-            out.append(nxt)
-            token, pos = nxt[:, None], pos + 1
-        return torch.stack(out, dim=1), caches
+                flush(caches, self.qcfg, k=fk, v=fv)
+            if self.graphs is not None:
+                self.graphs.run(key, body, gens)
+            else:
+                body()
+        return self._decode_end(st, steps), caches
+
+    def _decode_begin(self, first, pos, caches, pad_lens,
+                      seen) -> _DecodeState:
+        """Move the caches' counters to the device and load the step's
+        inputs into the decode state of these caches (made anew, and the
+        graphs dropped, when the caches are not the last ones')."""
+        B = first.shape[0]
+        ptrs = _cache_ptrs(caches)
+        st = self._dec
+        if st is None or st.ptrs != ptrs:
+            if self.graphs is not None:
+                self.graphs.clear()
+
+            def z(*shape, dt=torch.int64):
+                return torch.zeros(shape, dtype=dt, device=self.device)
+
+            st = self._dec = _DecodeState(
+                ptrs=ptrs, caches=caches, counters=None, token=z(B, 1),
+                pos=z(B, 1), pad=z(B), out=z(B, self.max_seq_len,
+                                            dt=torch.int32), step=z(1))
+        st.caches = caches
+        cm = KC if self.qcfg.quantize_kv else FC
+        st.counters = cm.counters_to_device(caches, st.counters)
+        st.token.copy_(first.reshape(B, 1))
+        st.pos.copy_(torch.as_tensor(pos).reshape(B, 1))
+        if pad_lens is not None:
+            st.pad.copy_(self._pad(pad_lens, B))
+        if seen is not None:
+            if st.seen is None:
+                st.seen = torch.zeros(seen.shape, dtype=torch.bool,
+                                      device=self.device)
+            st.seen.copy_(seen)
+        st.step.zero_()
+        return st
+
+    def _decode_body(self, st: _DecodeState, fill_bound: int,
+                     has_pad: bool, temperature: float, top_k: int,
+                     top_p: float, penalty: float,
+                     generator: Optional[torch.Generator]) -> None:
+        """One plain decode step, the body a CUDA graph captures: reads
+        and writes only the state's tensors, in place."""
+        logits, _ = modeling.forward(
+            self.params, st.token, st.caches, self.cfg, self.qcfg, st.pos,
+            mode="decode", flush=False, pad_len=st.pad if has_pad else None,
+            fill_bound=fill_bound)
+        logits = logits[:, -1]
+        if penalty != 1.0:
+            # the consumed token joins the sequence before the penalty
+            st.seen.scatter_(1, st.token, True)
+            logits = sampling.apply_repetition_penalty(logits, st.seen,
+                                                       penalty)
+        nxt = sampling.sample_step(logits, generator,
+                                   temperature=temperature, top_k=top_k,
+                                   top_p=top_p)
+        st.out.index_copy_(1, st.step, nxt[:, None])
+        st.step += 1
+        st.token.copy_(nxt[:, None])
+        st.pos += 1
+
+    def _decode_end(self, st: _DecodeState, steps: int) -> torch.Tensor:
+        """The counters back to host ints (one read); the tokens."""
+        cm = KC if self.qcfg.quantize_kv else FC
+        cm.counters_to_host(st.caches, st.counters)
+        return st.out[:, :steps].clone()
 
     def generate(self, tokens: torch.Tensor, max_new_tokens: int, *,
                  prefill_chunk_size: Optional[int] = None,
@@ -235,11 +397,12 @@ class Engine:
         assert B == self.batch_size
         assert T + max_new_tokens <= self.max_seq_len, "cache too small"
 
+        caches = self.own_caches()
         if prefill_chunk_size is None:
-            logits, caches = self._prefill(tokens, pad_lens=pad_lens)
+            logits, caches = self._prefill(tokens, caches, pad_lens)
         else:
             logits, caches = self.prefill_chunked(
-                tokens, prefill_chunk_size, pad_lens=pad_lens)
+                tokens, prefill_chunk_size, caches, pad_lens)
         seen = None
         if repetition_penalty != 1.0:
             seen = sampling.seen_mask_from_prompt(

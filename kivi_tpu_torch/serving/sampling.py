@@ -14,10 +14,12 @@ device tensors.
 Order as in HF: penalty before the warpers, warpers in temperature ->
 top_k -> top_p order.  Draws come from an explicit torch.Generator, so
 sampled tokens differ from the JAX package's (jax.random) draws; the
-distributions are the same.  The per-row sampler draws as
+distributions are the same.  Both samplers draw as
 `jax.random.categorical` does, by Gumbel-max (argmax of the warped
-logits plus Gumbel noise), which also never raises on a row whose
-logits are all masked (`torch.multinomial` would).
+logits plus Gumbel noise from one `torch.rand`): that never raises on a
+row whose logits are all masked, and it can be captured in a CUDA graph
+(`torch.multinomial` reads its probabilities back to the host to check
+them, which a capture refuses).
 """
 
 from __future__ import annotations
@@ -78,6 +80,15 @@ def warp_logits(logits: torch.Tensor, *, temperature: float,
     return apply_top_p(logits, top_p)
 
 
+def gumbel_argmax(lt: torch.Tensor,
+                  generator: Optional[torch.Generator]) -> torch.Tensor:
+    """A draw from softmax(lt) per row of lt (B, V): argmax of lt plus
+    Gumbel noise from `generator` (B,) int64."""
+    u = torch.rand(lt.shape, generator=generator, device=lt.device)
+    u = u.clamp(min=torch.finfo(torch.float32).tiny)
+    return torch.argmax(lt - torch.log(-torch.log(u)), dim=-1)
+
+
 def sample_step(logits: torch.Tensor,
                 generator: Optional[torch.Generator] = None, *,
                 temperature: float = 0.0, top_k: int = 0,
@@ -86,11 +97,9 @@ def sample_step(logits: torch.Tensor,
     int32.  temperature == 0 is greedy (argmax)."""
     if temperature == 0.0:
         return torch.argmax(logits, dim=-1).to(torch.int32)
-    probs = torch.softmax(warp_logits(logits.float(),
-                                      temperature=temperature,
-                                      top_k=top_k, top_p=top_p), dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[:, 0].to(
-        torch.int32)
+    lt = warp_logits(logits.float(), temperature=temperature, top_k=top_k,
+                     top_p=top_p)
+    return gumbel_argmax(lt, generator).to(torch.int32)
 
 
 def warp_logits_per_row(logits: torch.Tensor, temperature: torch.Tensor,
@@ -144,12 +153,9 @@ def sample_step_per_row(logits: torch.Tensor,
     rows are greedy.  Sampled rows draw argmax(warped logits + Gumbel
     noise) from `generator` (jax.random.categorical's method).  Returns
     token ids (B,) int32."""
-    B, V = logits.shape
-    greedy = temperature.reshape(B) <= 0.0
+    greedy = temperature.reshape(-1) <= 0.0
     lt = warp_logits_per_row(logits.float(), temperature, top_k, top_p)
-    u = torch.rand((B, V), generator=generator, device=logits.device)
-    u = u.clamp(min=torch.finfo(torch.float32).tiny)
-    sampled = torch.argmax(lt - torch.log(-torch.log(u)), dim=-1)
+    sampled = gumbel_argmax(lt, generator)
     return torch.where(greedy, torch.argmax(logits, dim=-1),
                        sampled).to(torch.int32)
 
@@ -164,9 +170,11 @@ def seen_mask_from_prompt(tokens: torch.Tensor, vocab_size: int,
     if pad_len is not None:
         idx = torch.arange(T, device=tokens.device)[None, :]
         live = idx >= pad_len.reshape(B, 1)
-    seen = torch.zeros((B, vocab_size), dtype=torch.bool,
+    # int32: CUDA has no bool scatter_reduce
+    seen = torch.zeros((B, vocab_size), dtype=torch.int32,
                        device=tokens.device)
-    return seen.scatter_reduce(1, tokens.long(), live, reduce="amax")
+    return seen.scatter_reduce(1, tokens.long(), live.to(torch.int32),
+                               reduce="amax").bool()
 
 
 def update_seen(seen: torch.Tensor, token: torch.Tensor) -> torch.Tensor:

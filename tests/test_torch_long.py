@@ -5,9 +5,13 @@ Engine in the reference's example cache configuration (KIVI-2, group
 then greedy decode, against the JAX package's Engine(impl="jnp").
 
 `SPLIT_MIN_HISTORY` is lowered so that, at these small sizes, the later
-prefill chunks take the qhist extend route and every decode step the
-split decode route, as a 12K prompt does at full size; a spy on the
-module's kernel wrappers shows which routes ran.
+prefill chunks take the qhist extend route and every decode step over
+host-int counters (`decode_step`) the split decode route, as a 12K
+prompt does at full size; `generate()`'s decode over device counters
+(the step a CUDA graph replays on the card, and the same step run
+eagerly under `Engine(debug=True)`) takes the per-row fused kernel
+instead.  A spy on the module's kernel wrappers shows which routes
+ran.
 
 Tolerances: greedy tokens equal; teacher-forced logits (prefill, then
 every decode step fed the JAX engine's tokens) within 1e-4 absolute.
@@ -47,7 +51,7 @@ KERNELS = ("qk_dequant_matmul", "pv_dequant_matmul", "flash_extend_qhist",
            "fused_decode_attention")
 
 
-def _engines():
+def _engines(debug=False):
     jcfg, tcfg = j_tiny_config(**MODEL), tiny_config(**MODEL)
     jp = JM.init_params(jcfg, jax.random.PRNGKey(0), dtype=jnp.float32)
     tp = params_from_jax(jax.tree_util.tree_map(np.asarray, jp), "cpu",
@@ -57,7 +61,7 @@ def _engines():
     jeng.cache_dtype = jnp.float32
     teng = Engine(cfg=tcfg, qcfg=QuantConfig(**QUANT), params=tp,
                   max_seq_len=TMAX, batch_size=1, device="cpu",
-                  cache_dtype=torch.float32)
+                  cache_dtype=torch.float32, debug=debug)
     return jeng, teng
 
 
@@ -95,12 +99,40 @@ def test_long_slice_greedy_matches_jax(routes):
     assert got.dtype == torch.int32 and got.shape == (1, NEW)
     np.testing.assert_array_equal(got.numpy(), want)
     # 7 chunks: histories 0, 32 take the full extend kernel, 64..192 the
-    # qhist route; every decode step (history >= 224) the split route
+    # qhist route; every decode step (history >= 224) the per-row kernel
+    # over device counters
     n_chunks = (PAD + PROMPT) // CHUNK
-    assert routes["flash_extend_attention"] == 2 * teng.cfg.num_layers
-    assert routes["flash_extend_qhist"] == (n_chunks - 2) * teng.cfg.num_layers
-    assert routes["qk_dequant_matmul"] == (NEW - 1) * teng.cfg.num_layers
-    assert routes["pv_dequant_matmul"] == (NEW - 1) * teng.cfg.num_layers
+    L = teng.cfg.num_layers
+    assert routes["flash_extend_attention"] == 2 * L
+    assert routes["flash_extend_qhist"] == (n_chunks - 2) * L
+    assert routes["fused_decode_attention"] == (NEW - 1) * L
+    assert routes["qk_dequant_matmul"] == 0
+    assert routes["pv_dequant_matmul"] == 0
+    assert routes["fused_decode_attention_wide"] == 0
+    # debug=True: the same step run eagerly as a checked call
+    routes.clear()
+    dbg = _engines(debug=True)[1]
+    got = dbg.generate(torch.from_numpy(toks), NEW,
+                       prefill_chunk_size=CHUNK, pad_lens=[PAD])
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert routes["fused_decode_attention"] == (NEW - 1) * L
+    assert routes["qk_dequant_matmul"] == 0
+    # host-int steps (decode_step, flushing as it goes): every step
+    # through the split route, the same greedy tokens
+    routes.clear()
+    logits, caches = dbg.prefill_chunked(torch.from_numpy(toks), CHUNK,
+                                         pad_lens=[PAD])
+    out = [int(logits.argmax(-1))]
+    for i in range(NEW - 1):
+        logits, caches = dbg.decode_step(
+            torch.tensor([[out[-1]]]), torch.tensor([[PROMPT + i]]), caches,
+            pad_lens=[PAD], flush=True)
+        out.append(int(logits.argmax(-1)))
+    np.testing.assert_array_equal(np.asarray([out]), want)
+    assert routes["flash_extend_attention"] == 2 * L
+    assert routes["flash_extend_qhist"] == (n_chunks - 2) * L
+    assert routes["qk_dequant_matmul"] == (NEW - 1) * L
+    assert routes["pv_dequant_matmul"] == (NEW - 1) * L
     assert routes["fused_decode_attention_wide"] == 0
     assert routes["fused_decode_attention"] == 0
     # the run crossed K and V window flushes on the static schedule
