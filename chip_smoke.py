@@ -69,6 +69,24 @@ Phases (any failure raises; the exit code is then non-zero):
      window, and the device busy time and idle share over the profiled
      steps after it (busy and wall both from those steps), with graphs
      and eagerly;
+     then the prefix slice at Llama-2-7B width (`phase_prefix`, batch
+     8, KIVI-2 and fp16): prefill_prefix of a 1000-token system prompt,
+     generate(prefix=) over 8 suffixes of 96, ragged suffixes of 24-96,
+     the stream (segment 16), extend by 300, a 2304-token prefix (its
+     batch-1 extension takes the qhist route), the snapshot saved and
+     loaded, beam search (2 x 4 beams, 512 prompt tokens) without and
+     with the prefix, the fp16 engine behind the prefix: each path's
+     kernels must launch and its tokens must equal Engine(debug=True)'s;
+     the stream must equal generate (greedy and sampled with one seed),
+     one beam greedy generate; then prefill_prefix ms, time to first
+     token behind the prefix against the full prompt one-shot and
+     chunked, decode tokens/s on the prefix and ragged paths, the
+     stream's time to first token, beam ms a step and its reorder's,
+     snapshot bytes of KIVI-2 and fp16; then the batcher behind a
+     PrefixCache of two system prompts (8 slots, chunks of 128, 12
+     requests of 20-300 prompt tokens, half sampled: one miss, one
+     extend hit, exact hits), directly and over HTTP with "prefix"
+     (greedy tokens equal);
      then the probe path: `python3 -m kivi_tpu_torch.profile_wide_32k
      --quick` (B = 4, 32 KV heads, a 32K history), whose wide kernel,
      split decode route and probe variants must launch;
@@ -76,11 +94,20 @@ Phases (any failure raises; the exit code is then non-zero):
      card (kernels) and on the host CPU (plain versions), same weights:
      chunked and one-shot prefill logits of both caches; the long slice
      with a prompt of SPLIT_MIN_HISTORY + 1024 tokens (prefill and one
-     decode step's logits, both split routes on both sides);
+     decode step's logits, both split routes on both sides); the prefix
+     slice (a 300-token prefix: the suffix extend's logits and the
+     longest ragged row's teacher-forced logits; the stream equal to
+     generate on each side; 2 x 2 beams over 8 replayed steps, the
+     host forced onto the card's choices, each chosen continuation's
+     log-probability within twice the logit tolerance; token agreement
+     of the prefix, ragged and stream paths reported);
   6. the batcher against the engine on the card (2 layers, full width):
      first tokens equal and one decode step's logits per slot within the
      phase-5 tolerance of batch-1 Engine runs of the same left-padded
-     prompts, on both caches;
+     prompts, on both caches; the same for requests with prefix_tokens
+     against the batch-1 generate(prefix=) of the same snapshot (KIVI-2
+     prompts of one whole chunk, fp16 prompts with tails), and the
+     batcher with debug=True giving the graphs' tokens;
   7. ServingAPI on 127.0.0.1 (2 layers): three concurrent requests, one
      streaming, and /v1/health.
 
@@ -127,6 +154,12 @@ FILLS = (1, 137, 640, 1081, 2048, 3000, 4000, 0)
 # rows each) at batch 1, a 16K cache holding a 12,032-token prompt
 LB, LH, LR, LTMAX, LFILL, LPAD, LNEW = 1, 8, 4, 16384, 12032, 32, 64
 CROSS_FILLS = (1024, 2048, 4096, 8192, 12032)   # split vs fused timings
+# the prefix slice: a 1000-token system prompt (its windows mid-phase),
+# the same grown by 300, one past SPLIT_MIN_HISTORY (the qhist route),
+# 96-token suffixes (ragged 24-96), 64 new tokens; beams: 2 requests x 4
+PREFIX, PREFIX_MORE, PREFIX_LONG, SUFFIX, PNEW = 1000, 300, 2304, 96, 64
+RAGGED_MIN = 24
+BEAM_B, BEAM_NB, BEAM_PROMPT = 2, 4, 512
 NEG_INF = -1e30
 
 
@@ -574,21 +607,30 @@ def check_extend(gen, results):
     worst = 0.0
     timed = None
     # (history fill, pad of rows 1.., sliding window, KV heads, r, bits,
-    # v_flush); the main path's chunks see fills 0, 128, ..., 896
-    cases = [(0, None, 0, H, 1, 2, 128), (128, None, 0, H, 1, 2, 128),
-             (896, None, 0, H, 1, 2, 128), (128, 200, 0, H, 1, 2, 128),
-             (0, 60, 0, H, 1, 2, 128),
-             (200, None, 100, H, 1, 4, 32),      # sliding window
-             (384, 150, 0, 8, 4, 8, 32)]         # Llama-3 GQA, 8-bit
-    for fill, pad, sw, heads, r, bits, vf in cases:
+    # v_flush, T1); the main path's chunks see fills 0, 128, ..., 896
+    cases = [(0, None, 0, H, 1, 2, 128, T1), (128, None, 0, H, 1, 2, 128, T1),
+             (896, None, 0, H, 1, 2, 128, T1),
+             (128, 200, 0, H, 1, 2, 128, T1),
+             (0, 60, 0, H, 1, 2, 128, T1),
+             (200, None, 100, H, 1, 4, 32, T1),      # sliding window
+             (384, 150, 0, 8, 4, 8, 32, T1)]         # Llama-3 GQA, 8-bit
+    # the prefix paths: a 1000-token snapshot leaves 104 keys in the
+    # window, its 300-token extension 76; they take the batcher's chunks
+    # (T1 128), the suffixes (96), the shortest ragged suffix (24) and
+    # the extension (300); the 2304-token snapshot the suffixes at batch 8
+    cases += [(fill, None, 0, H, 1, 2, 128, t1)
+              for fill in (PREFIX, PREFIX + PREFIX_MORE)
+              for t1 in (T1, SUFFIX, RAGGED_MIN, PREFIX_MORE)]
+    cases.append((PREFIX_LONG, None, 0, H, 1, 2, 128, SUFFIX))
+    for fill, pad, sw, heads, r, bits, vf, t1 in cases:
         qcfg = QuantConfig(bits, bits, 32, 128, v_flush=vf)
         c = KC.init_layer_cache(B, heads, D, TMAX, qcfg, device="cuda")
         if fill:
             KC.prefill_ingest(c, _randn(gen, (B, heads, fill, D)),
                               _randn(gen, (B, heads, fill, D)), qcfg)
-        q = _randn(gen, (B, heads, r * T1, D))
-        kn = _randn(gen, (B, heads, T1, D))
-        vn = _randn(gen, (B, heads, T1, D))
+        q = _randn(gen, (B, heads, r * t1, D))
+        kn = _randn(gen, (B, heads, t1, D))
+        vn = _randn(gen, (B, heads, t1, D))
         pad_len = None
         if pad is not None:
             pad_len = torch.full((B,), pad, device="cuda",
@@ -597,16 +639,16 @@ def check_extend(gen, results):
         args = (q, c.k_codes, c.k_scale, c.k_mn, c.v_codes, c.v_scale,
                 c.v_mn, c.k_win, c.v_win, kn, vn, c.n_k_quant, c.n_k_win,
                 c.n_v_quant)
-        kw = dict(group_size=32, k_bits=bits, v_bits=bits, t1=T1,
+        kw = dict(group_size=32, k_bits=bits, v_bits=bits, t1=t1,
                   sliding_window=sw, pad_len=pad_len)
         got = FE.flash_extend_attention(*args, **kw)
         want = FE.flash_extend_attention_plain(*args, **kw)
         torch.cuda.synchronize()
-        what = (f"{name} fill={fill} pad={pad} window={sw} Hkv={heads} "
-                f"r={r} bits={bits} vf={vf} (nkq={c.n_k_quant} "
+        what = (f"{name} fill={fill} T1={t1} pad={pad} window={sw} "
+                f"Hkv={heads} r={r} bits={bits} vf={vf} (nkq={c.n_k_quant} "
                 f"nvq={c.n_v_quant})")
         worst = max(worst, _rows_err(got, want, what, TOL.EXTEND_RTOL))
-        if (fill, pad, sw, r) == (896, None, 0, 1):
+        if (fill, pad, sw, r, t1) == (896, None, 0, 1, T1):
             timed = (c, args, kw, q, kn, vn)
             # control: the kernel's own output without the history's
             # first 64 positions (the kernel at a left pad of 64)
@@ -778,38 +820,48 @@ def _refused(share: float, what: str) -> None:
 def check_qhist(gen, results):
     """Row 5 against its plain version: the slice's geometry, an empty
     history, bits 2/4/8, n_k_quant > n_v_quant, per-row pads (one past
-    the history) and a sliding window; timed at the slice's shapes."""
+    the history), a sliding window and the prefix paths' batch-1 suffix
+    behind the 2304-token snapshot; timed at the slice's shapes."""
     import torch.nn.functional as F
 
     from kivi_tpu_torch.config import QuantConfig
     from kivi_tpu_torch.kernels import flash_extend as FE
     name = "flash_extend_qhist"
     worst, timed = 0.0, None
-    # (history, pads, sliding window, bits, W, v_flush)
-    cases = [(LFILL, None, 0, 2, 32, 32),        # the slice
-             (0, None, 0, 2, 32, 32),            # empty history
-             (3000, None, 0, 4, 32, 32), (3000, None, 0, 8, 32, 32),
-             (2200, None, 0, 2, 128, 32),        # n_k_quant > n_v_quant
-             (3000, (0, 700), 0, 2, 32, 32),
-             (3000, (32, 3050), 0, 2, 32, 32),   # row 1 sees nothing
-             (3000, None, 1000, 4, 32, 32)]      # sliding window
-    for fill, pads, sw, bits, W, vf in cases:
+    # (history, pads, sliding window, bits, W, v_flush); the slice's
+    # geometry (LH KV heads, r LR, T1, LTMAX) but where named
+    slice_geo = dict(heads=LH, r=LR, t1=T1, tmax=LTMAX)
+    cases = [(LFILL, None, 0, 2, 32, 32, {}),        # the slice
+             (0, None, 0, 2, 32, 32, {}),            # empty history
+             (3000, None, 0, 4, 32, 32, {}), (3000, None, 0, 8, 32, 32, {}),
+             (2200, None, 0, 2, 128, 32, {}),        # n_k_quant > n_v_quant
+             (3000, (0, 700), 0, 2, 32, 32, {}),
+             (3000, (32, 3050), 0, 2, 32, 32, {}),   # row 1 sees nothing
+             (3000, None, 1000, 4, 32, 32, {}),      # sliding window
+             # the prefix-qhist path: Llama-2-7B's heads behind the
+             # 2304-token snapshot, the 96-token suffix at batch 1
+             (PREFIX_LONG, None, 0, 2, 128, 128,
+              dict(heads=H, r=1, t1=SUFFIX, tmax=TMAX))]
+    for fill, pads, sw, bits, W, vf, geo in cases:
+        geo = {**slice_geo, **geo}
         qcfg = QuantConfig(bits, bits, 32, W, v_flush=vf)
         batch = 1 if pads is None else len(pads)
-        c = _ingested_cache(gen, qcfg, fill, batch=batch)
-        qg = _randn(gen, (batch, LH, LR * T1, D))
+        c = _ingested_cache(gen, qcfg, fill, heads=geo["heads"], batch=batch,
+                            tmax=geo["tmax"])
+        qg = _randn(gen, (batch, geo["heads"], geo["r"] * geo["t1"], D))
         pad_len = (None if pads is None else
                    torch.tensor(pads, device="cuda", dtype=torch.int32))
         args = (qg, c.k_codes, c.k_scale, c.k_mn, c.v_codes, c.v_scale,
                 c.v_mn, c.v_win, c.n_k_quant, c.n_v_quant, c.seq_len)
-        kw = dict(group_size=32, k_bits=bits, v_bits=bits, t1=T1,
+        kw = dict(group_size=32, k_bits=bits, v_bits=bits, t1=geo["t1"],
                   sliding_window=sw, pad_len=pad_len)
         got = FE.flash_extend_qhist(*args, **kw)
         want = FE.flash_extend_qhist_plain(*args, **kw)
         torch.cuda.synchronize()
         worst = max(worst, _state_err(
             got, want, f"{name} history={fill} pads={pads} window={sw} "
-                       f"bits={bits} W={W} vf={vf} (nkq={c.n_k_quant} "
+                       f"bits={bits} W={W} vf={vf} Hkv={geo['heads']} "
+                       f"r={geo['r']} T1={geo['t1']} (nkq={c.n_k_quant} "
                        f"nvq={c.n_v_quant})"))
         if fill == LFILL:
             timed = (c, qcfg, args, kw, qg)
@@ -1347,8 +1399,40 @@ PATHS = {
                "fused_decode_attention", "flash_extend_qhist",
                "flash_attention", "fp_decode_attention_kernel")),
 }
+# the prefix slice (phase_prefix): each path's counts include what it
+# runs of the snapshot's making (prefill_prefix one-shot: row 10)
+_NOT_SPLIT = ("fused_decode_attention_wide", "qk_dequant_matmul",
+              "pv_dequant_matmul", "fp_decode_attention_kernel") + PROBE
+_PREFIX_RUN = ("quantize_pack_k", "quantize_pack_v", "flash_extend_attention",
+               "fused_decode_attention")
+PATHS.update({
+    "prefix": (_PREFIX_RUN + ("flash_attention",),
+               _NOT_SPLIT + ("flash_extend_qhist",)),
+    "prefix-ragged": (_PREFIX_RUN, _NOT_SPLIT + ("flash_extend_qhist",
+                                                 "flash_attention")),
+    "prefix-stream": (_PREFIX_RUN, _NOT_SPLIT + ("flash_extend_qhist",
+                                                 "flash_attention")),
+    "prefix-extend": (_PREFIX_RUN, _NOT_SPLIT + ("flash_extend_qhist",
+                                                 "flash_attention")),
+    "prefix-qhist": (_PREFIX_RUN + ("flash_attention", "flash_extend_qhist"),
+                     _NOT_SPLIT),
+    "prefix-load": (_PREFIX_RUN, _NOT_SPLIT + ("flash_extend_qhist",
+                                               "flash_attention")),
+    "prefix-fp16": (("flash_attention", "fp_decode_attention_kernel"),
+                    KIVI_KERNELS + PROBE),
+    "beam": (("flash_attention", "quantize_pack_k", "quantize_pack_v",
+              "fused_decode_attention"),
+             _NOT_SPLIT + ("flash_extend_qhist", "flash_extend_attention")),
+    "beam-prefix": (_PREFIX_RUN, _NOT_SPLIT + ("flash_extend_qhist",
+                                               "flash_attention")),
+    "batcher-prefix": (_PREFIX_RUN + ("flash_attention",),
+                       _NOT_SPLIT + ("flash_extend_qhist",)),
+})
 PATHS.update({f"{p}-debug": PATHS[p]
-              for p in ("chunked", "oneshot", "fp16", "long")})
+              for p in ("chunked", "oneshot", "fp16", "long", "prefix",
+                        "prefix-ragged", "prefix-stream", "prefix-extend",
+                        "prefix-qhist", "prefix-load", "prefix-fp16", "beam",
+                        "beam-prefix")})
 DEBUG_NEW = 32     # tokens of each engine path's debug=True run
 SPLIT_STEPS = 32   # host-int decode steps of the long slice's split route
 PROFILED = 8       # decode steps under the profiler, per mode
@@ -1787,6 +1871,416 @@ def phase_probe() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 4b: the prefix slice at full width
+# ---------------------------------------------------------------------------
+
+PREFIX_STATS = {}   # what phase_prefix measured, for the summary lines
+
+
+def _counted(path: str, fn):
+    """fn() with the launch counts zeroed just before and read just after,
+    checked against PATHS[path].  Returns (fn's result, launches, wall
+    s)."""
+    from kivi_tpu_torch.kernels import _build
+    _build.LAUNCHES.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    check_launches(path, launches)
+    return out, launches, wall
+
+
+def _equal_tokens(got, want, what: str) -> None:
+    got, want = torch.as_tensor(got).cpu(), torch.as_tensor(want).cpu()
+    if got.shape != want.shape:
+        raise AssertionError(f"{what}: shapes {tuple(got.shape)} and "
+                             f"{tuple(want.shape)}")
+    differ = (got != want).any(dim=0).nonzero()
+    if len(differ):
+        raise AssertionError(f"{what}: tokens differ from step "
+                             f"{int(differ[0])} on")
+
+
+def _median_s(fn, n: int = 3) -> float:
+    """Median host seconds of fn() to a synchronize, after one warm call."""
+    import statistics
+    fn()
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)
+
+
+def _stream_tokens(it):
+    import numpy as np
+    return torch.from_numpy(np.concatenate(list(it), axis=1))
+
+
+def prefix_paths(e, data: dict, tmp: str) -> dict:
+    """The engine's prefix paths on engine e (batch 8, KIVI-2), each with
+    its launches counted: prefill_prefix of the system prompt and
+    generate(prefix=); ragged suffixes; the stream (segment 16); extend
+    by 300 tokens and generate from it; the long prefix (one-shot, its
+    extension at batch 1 takes the qhist route, then generate); the
+    snapshot saved, loaded and generated from; beam search without and
+    with the prefix.  Returns {path: (launches, tokens)}; data gains the
+    snapshots made."""
+    suf, beam_prompt = data["suffix"], data["beam_prompt"]
+    res = {}
+
+    def run(path, fn):
+        out, launches, wall = _counted(path, fn)
+        res[path] = (launches, out)
+        return out
+
+    def prefix():
+        data["snap", e] = e.prefill_prefix(data["system"])
+        return e.generate(suf, PNEW, prefix=data["snap", e])
+
+    run("prefix", prefix)
+    snap = data["snap", e]
+    run("prefix-ragged", lambda: e.generate(suf, PNEW, prefix=snap,
+                                            suffix_lens=data["lens"]))
+    run("prefix-stream", lambda: _stream_tokens(
+        e.generate_stream(suf, PNEW, segment=16, prefix=snap)))
+
+    def extend():
+        data["snap2", e] = e.extend(snap, data["more"])
+        return e.generate(suf, PNEW, prefix=data["snap2", e])
+
+    run("prefix-extend", extend)
+
+    def long_prefix():
+        long_snap = e.prefill_prefix(data["long"])
+        c = long_snap.caches[0]
+        data["long_counters"] = (c.n_k_quant, c.n_k_win, c.n_v_quant,
+                                 c.n_v_win)
+        e.extend(long_snap, suf[0])          # batch 1: the qhist route
+        return e.generate(suf, PNEW, prefix=long_snap)
+
+    run("prefix-qhist", long_prefix)
+
+    def load():
+        from kivi_tpu_torch.serving.engine import (load_prefix_snapshot,
+                                                   save_prefix_snapshot)
+        path = f"{tmp}/snap-{'debug' if e.debug else 'graphs'}"
+        save_prefix_snapshot(path, snap)
+        return e.generate(suf, PNEW, prefix=load_prefix_snapshot(path))
+
+    run("prefix-load", load)
+    run("beam", lambda: e.generate_beam(beam_prompt, PNEW,
+                                        num_beams=BEAM_NB))
+    run("beam-prefix", lambda: e.generate_beam(suf[:BEAM_B], PNEW,
+                                               num_beams=BEAM_NB,
+                                               prefix=snap))
+    return res
+
+
+def phase_prefix(layers: int, smi: str) -> dict:
+    """The prefix slice at Llama-2-7B width (random bf16 weights, seed 0),
+    KIVI-2 (`QuantConfig(2, 2, 32, 128, v_flush=128)`) and the fp16
+    cache, a 4096-token cache, batch 8: every engine path of
+    `prefix_paths` on graphs and under debug=True (tokens equal), the
+    stream against generate (greedy and sampled with one seed), one beam
+    against greedy, the fp16 engine behind the same prefix; then the
+    timings; then the batcher (8 slots, chunks of 128, a PrefixCache of
+    two system prompts) directly and over HTTP.  Returns {path:
+    launches}."""
+    import dataclasses
+    import functools
+    import tempfile
+
+    from kivi_tpu_torch.config import PRESETS, QuantConfig
+    from kivi_tpu_torch.models import modeling
+    from kivi_tpu_torch.serving.engine import Engine
+
+    cfg = dataclasses.replace(PRESETS["llama2-7b"], num_layers=layers)
+    params = modeling.init_params(cfg, seed=0, device="cuda")
+    kivi = QuantConfig(2, 2, 32, 128, v_flush=128)
+    fp16 = QuantConfig(16, 16, 32, 128)
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(21)
+
+    def ids(*shape):
+        return torch.randint(1, cfg.vocab_size, shape, generator=gen)
+
+    data = {"system": ids(PREFIX), "more": ids(PREFIX_MORE),
+            "long": ids(PREFIX_LONG), "suffix": ids(B, SUFFIX).cuda(),
+            "beam_prompt": ids(BEAM_B, BEAM_PROMPT).cuda(),
+            "lens": [RAGGED_MIN + (SUFFIX - RAGGED_MIN) * i // (B - 1)
+                     for i in range(B)]}
+    launches = {}
+    make = functools.partial(Engine, cfg=cfg, params=params,
+                             max_seq_len=TMAX, batch_size=B)
+    eng, dbg = make(qcfg=kivi), make(qcfg=kivi, debug=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        got = prefix_paths(eng, data, tmp)
+        ref = prefix_paths(dbg, data, tmp)
+    for path, (n, toks) in got.items():
+        _equal_tokens(toks, ref[path][1], f"{path}: graphs vs debug=True")
+        launches[path] = n
+        launches[f"{path}-debug"] = ref[path][0]
+        log(f"[prefix:{path}] tokens {tuple(toks.shape)} equal debug=True's"
+            f"; launches {n} | debug {ref[path][0]}")
+    _equal_tokens(got["prefix-stream"][1], got["prefix"][1],
+                  "stream vs generate (greedy)")
+    _equal_tokens(got["prefix-load"][1], got["prefix"][1],
+                  "generate from the loaded snapshot vs the snapshot")
+    nkq, nkw, nvq, nvw = data["long_counters"]
+    if not nvq <= nkq:
+        raise AssertionError(f"long prefix {PREFIX_LONG}: n_v_quant {nvq} > "
+                             f"n_k_quant {nkq}, which the qhist merge refuses")
+    log(f"[prefix] long prefix {PREFIX_LONG}: counters (n_k_quant, n_k_win, "
+        f"n_v_quant, n_v_win) {data['long_counters']}: n_v_quant <= "
+        f"n_k_quant, as the qhist merge needs")
+    snap = data["snap", eng]
+    sampled = dict(temperature=0.8, top_p=0.9)
+    want = eng.generate(data["suffix"], PNEW, prefix=snap,
+                        generator=torch.Generator("cuda").manual_seed(11),
+                        **sampled)
+    _equal_tokens(_stream_tokens(eng.generate_stream(
+        data["suffix"], PNEW, segment=16, prefix=snap,
+        generator=torch.Generator("cuda").manual_seed(11), **sampled)),
+        want, "stream vs generate (sampled, one seed)")
+    beam8 = data["beam_prompt"].repeat(B // BEAM_B, 1)
+    _equal_tokens(eng.generate_beam(beam8, PNEW, num_beams=1),
+                  eng.generate(beam8, PNEW), "one beam vs greedy")
+    log(f"[prefix] ragged suffix lengths {data['lens']}; stream == generate "
+        f"(greedy and sampled with one seed); one beam == greedy generate "
+        f"({B} x {BEAM_PROMPT}); the loaded snapshot's tokens == the "
+        f"snapshot's")
+    del dbg
+    torch.cuda.empty_cache()
+    fps = [make(qcfg=fp16), make(qcfg=fp16, debug=True)]
+    fp_out = []
+    for e in fps:
+        def fp_path(e=e):
+            data["fp_snap"] = e.prefill_prefix(data["system"])
+            return e.generate(data["suffix"], PNEW, prefix=data["fp_snap"])
+        out, n, _ = _counted("prefix-fp16", fp_path)
+        fp_out.append(out)
+        launches["prefix-fp16" + ("-debug" if e.debug else "")] = n
+    _equal_tokens(fp_out[0], fp_out[1], "prefix-fp16: graphs vs debug=True")
+    log(f"[prefix:prefix-fp16] tokens equal debug=True's; launches "
+        f"{launches['prefix-fp16']} | debug {launches['prefix-fp16-debug']}")
+    prefix_timings(eng, data, smi)
+    del fps, data["fp_snap"]
+    torch.cuda.empty_cache()
+    launches.update(prefix_batcher(cfg, kivi, params, smi))
+    del eng, params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def prefix_timings(eng, data: dict, smi: str) -> None:
+    """prefill_prefix ms; time to first token with the prefix against the
+    same full prompt one-shot and chunked; decode tokens/s and host ms a
+    step on the prefix, ragged and beam paths; the stream's time to first
+    token; snapshot bytes; the beam reorder's ms a step."""
+    import functools
+
+    from kivi_tpu_torch.cache import kivi_cache as KC
+    from kivi_tpu_torch.serving.engine import fill_bound
+    from kivi_tpu_torch.serving.prefix_cache import snapshot_bytes
+    snap, suf, lens = data["snap", eng], data["suffix"], data["lens"]
+    st = PREFIX_STATS
+    st["prefill_prefix_ms"] = 1e3 * _median_s(
+        lambda: eng.prefill_prefix(data["system"]))
+    full = torch.cat([snap.tokens.expand(B, PREFIX), suf], 1)
+    ingest = functools.partial(eng._ingest_prompt, max_new_tokens=PNEW)
+    st["ttft_prefix_ms"] = 1e3 * _median_s(lambda: ingest(suf, prefix=snap))
+    st["ttft_full_oneshot_ms"] = 1e3 * _median_s(lambda: ingest(full))
+    st["ttft_full_chunked_ms"] = 1e3 * _median_s(
+        lambda: ingest(full, prefill_chunk_size=128))
+    log(f"[prefix:time] prefill_prefix({PREFIX}) {st['prefill_prefix_ms']:.2f}"
+        f" ms; time to first token, {B} x {SUFFIX} suffix behind the "
+        f"prefix {st['ttft_prefix_ms']:.2f} ms vs the full {B} x "
+        f"{PREFIX + SUFFIX} prompt one-shot {st['ttft_full_oneshot_ms']:.2f}"
+        f" ms, chunked (128) {st['ttft_full_chunked_ms']:.2f} ms | card {smi}")
+    for path, kw in (("prefix", {}), ("prefix-ragged",
+                                      {"suffix_lens": lens})):
+        for _ in range(2):           # the first run captures, if need be
+            pr = ingest(suf, prefix=snap, **kw)
+            L = 0 if pr.ragged is None else pr.ragged[3]
+            steps = L + PNEW - 1
+            teach = {} if not L else {"forced": pr.ragged[1],
+                                      "n_forced": pr.ragged[2]}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rest, caches = eng.decode(pr.first, pr.pos, pr.caches,
+                                      steps=steps, prompt_len=pr.Tp - L,
+                                      **teach)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        prof = busy_ms(path, lambda: eng.decode(
+            rest[:, -1:], pr.pos + steps, caches, steps=PROFILED,
+            prompt_len=pr.Tp - L + steps))
+        record_decode(path, "graphs", B, steps, wall, prof, PROFILED, smi)
+    it = eng.generate_stream(suf, PNEW, segment=16, prefix=snap)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    next(it)
+    st["stream_ttft_ms"] = 1e3 * (time.perf_counter() - t0)
+    for _ in it:
+        pass
+    beam = data["beam_prompt"]
+    t_long = _median_s(lambda: eng.generate_beam(beam, PNEW,
+                                                 num_beams=BEAM_NB), 2)
+    t_two = _median_s(lambda: eng.generate_beam(beam, 2, num_beams=BEAM_NB),
+                      2)
+    per = (t_long - t_two) / (PNEW - 2)
+    DECODE.setdefault("beam", {})["graphs"] = dict(
+        tokens_per_s=B / per, host_ms_per_step=1e3 * per, steps=PNEW - 2)
+    caches = eng.own_caches()
+    idx = torch.randperm(B, device="cuda")
+    fb = fill_bound(BEAM_PROMPT, PNEW)
+    st["reorder_ms"] = cuda_ms(lambda: [KC.reorder_into(c, idx, fb)
+                                        for c in caches])
+    st["reorder_full_ms"] = cuda_ms(lambda: [KC.reorder_into(c, idx)
+                                             for c in caches])
+    st["snapshot_bytes_kivi2"] = snapshot_bytes(snap)
+    st["snapshot_bytes_fp16"] = snapshot_bytes(data["fp_snap"])
+    log(f"[prefix:time] stream time to first token {st['stream_ttft_ms']:.2f}"
+        f" ms; beam ({BEAM_B} x {BEAM_NB} beams, prompt {BEAM_PROMPT}): "
+        f"{1e3 * per:.3f} host ms a step ({B / per:.1f} row tokens/s), "
+        f"the reorder {st['reorder_ms']:.4f} ms a step below fill bound "
+        f"{fb} ({st['reorder_full_ms']:.4f} ms over the whole {TMAX}); "
+        f"snapshot of {PREFIX} tokens in a {TMAX}-token cache: KIVI-2 "
+        f"{st['snapshot_bytes_kivi2']} bytes, fp16 "
+        f"{st['snapshot_bytes_fp16']} bytes "
+        f"({st['snapshot_bytes_fp16'] / st['snapshot_bytes_kivi2']:.2f}x) "
+        f"| card {smi}")
+
+
+def prefix_requests(n: int, vocab: int, prefixes, seed: int):
+    """n requests behind the prefixes in turn: prompts of 20-300 tokens,
+    16-64 new tokens, odd uids sampled (temperature 0.8, top_p 0.9)."""
+    import numpy as np
+
+    from kivi_tpu_torch.serving.batcher import Request
+    rng = np.random.RandomState(seed)
+    reqs = []
+    for i in range(n):
+        kw = {} if i % 2 == 0 else dict(temperature=0.8, top_p=0.9)
+        reqs.append(Request(
+            uid=i, prompt=rng.randint(1, vocab, rng.randint(20, 301)).tolist(),
+            max_new_tokens=int(rng.randint(16, 65)),
+            prefix_tokens=prefixes[i % len(prefixes)], **kw))
+    return reqs
+
+
+def prefix_batcher(cfg, qcfg, params, smi: str) -> dict:
+    """The batcher behind a PrefixCache (8 slots, chunks of 128): two
+    system prompts, 1000 tokens and the same plus 300, so one miss, one
+    extend hit, then exact hits; 12 requests.  Then the same requests over
+    HTTP with "prefix" on a second batcher sharing the cache: greedy
+    requests must return the same tokens."""
+    import http.client
+    import threading
+
+    from kivi_tpu_torch.serving.api import ServingAPI
+    from kivi_tpu_torch.serving.batcher import ContinuousBatcher
+    from kivi_tpu_torch.serving.engine import Engine
+    from kivi_tpu_torch.serving.prefix_cache import PrefixCache
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(22)
+    system = torch.randint(1, cfg.vocab_size, (PREFIX + PREFIX_MORE,),
+                           generator=gen).tolist()
+    pc = PrefixCache(Engine(cfg, qcfg, params, max_seq_len=TMAX,
+                            batch_size=1))
+    reqs = prefix_requests(12, cfg.vocab_size,
+                           (system[:PREFIX], system), seed=9)
+
+    def make():
+        return ContinuousBatcher(cfg, qcfg, params, num_slots=B,
+                                 max_seq_len=TMAX, prefill_chunk=128,
+                                 prefix_cache=pc)
+
+    bat = make()
+
+    def drive():
+        steps = 0
+        for r in reqs:
+            bat.submit(r)
+        while bat.queue or bat.active.any():
+            bat.step()
+            steps += 1
+        bat._retire()
+        return steps
+
+    steps, n, wall = _counted("batcher-prefix", drive)
+    for r in reqs:
+        toks = bat.results[r.uid].tokens
+        if len(toks) != r.max_new_tokens or not all(
+                0 <= t < cfg.vocab_size for t in toks):
+            raise AssertionError(f"batcher-prefix: request {r.uid} returned "
+                                 f"{len(toks)} tokens")
+    if (pc.misses, pc.extends, pc.hits) != (1, 1, len(reqs) - 2):
+        raise AssertionError(f"prefix cache: misses {pc.misses}, extends "
+                             f"{pc.extends}, hits {pc.hits}")
+    n_tok = sum(r.max_new_tokens for r in reqs)
+    PREFIX_STATS["batcher"] = dict(
+        tokens_per_s=n_tok / wall, steps=steps, hits=pc.hits,
+        extends=pc.extends, misses=pc.misses, evictions=pc.evictions,
+        graphs=len(bat.graphs or ()))
+    log(f"[prefix:batcher-prefix] {len(reqs)} requests behind 2 system "
+        f"prompts ({PREFIX}, {PREFIX + PREFIX_MORE} tokens), prompts "
+        f"{min(len(r.prompt) for r in reqs)}-"
+        f"{max(len(r.prompt) for r in reqs)}, {bat.S} slots, chunks of 128:"
+        f" {n_tok} tokens in {steps} steps, {wall:.3f} s = "
+        f"{n_tok / wall:.1f} generated tokens/s, "
+        f"{PREFIX_STATS['batcher']['graphs']} graphs; "
+        f"prefix cache hits {pc.hits}, extends {pc.extends}, misses "
+        f"{pc.misses}, evictions {pc.evictions}, {len(pc)} stored, "
+        f"{pc.nbytes} bytes | card {smi}; launches {n}")
+    direct = {r.uid: bat.results[r.uid].tokens for r in reqs}
+    del bat
+    torch.cuda.empty_cache()
+    out = {}
+
+    def post(port, r):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+        conn.request("POST", "/v1/generate", json.dumps({
+            "prompt": r.prompt, "prefix": r.prefix_tokens,
+            "max_new_tokens": r.max_new_tokens,
+            "temperature": r.temperature, "top_p": r.top_p}),
+            {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        out[r.uid] = (resp.status, json.loads(resp.read())["tokens"])
+        conn.close()
+
+    t0 = time.perf_counter()
+    with ServingAPI(make()) as srv:
+        threads = [threading.Thread(target=post, args=(srv.port, r))
+                   for r in reqs]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    for r in reqs:
+        status, toks = out.get(r.uid, (None, []))
+        if status != 200 or len(toks) != r.max_new_tokens:
+            raise AssertionError(f"HTTP prefix request {r.uid}: {status}, "
+                                 f"{len(toks)} tokens")
+        if r.temperature == 0 and toks != direct[r.uid]:
+            raise AssertionError(f"HTTP prefix request {r.uid}: greedy "
+                                 "tokens differ from the direct run's")
+    log(f"[prefix:api] {len(reqs)} concurrent requests with 'prefix' over "
+        f"HTTP in {wall:.2f} s ({n_tok / wall:.1f} generated tokens/s), "
+        f"greedy ones equal the direct run's; prefix cache now hits "
+        f"{pc.hits}, misses {pc.misses} | card {smi}")
+    return {"batcher-prefix": n}
+
+
+# ---------------------------------------------------------------------------
 # phase 5: main path against the plain path on the host
 # ---------------------------------------------------------------------------
 
@@ -2007,6 +2501,262 @@ def phase_batcher_vs_engine():
     torch.cuda.empty_cache()
 
 
+def _beam_trace(eng, tokens, snap, nb: int, k: int) -> list:
+    """The card's beam search behind snap after each of its steps 1..k:
+    generate_beam(m) for m = 1..k, all under one graph key (one fill
+    bound), so that the replays of run m are the first m steps of run k.
+    Returns [(parent rows (N,), tokens (N,), scores (B, nb))] per step."""
+    trace = []
+    for m in range(1, k + 1):
+        eng.generate_beam(tokens, m, num_beams=nb, prefix=snap)
+        st = eng._beams[tokens.shape[0], nb]
+        trace.append((st.parent.cpu().clone(), st.token[:, 0].cpu().clone(),
+                      st.scores.cpu().clone()))
+    return trace
+
+
+def _beam_forced(eng, tokens, snap, nb: int, trace: list) -> list:
+    """The host's beam search behind snap, each step's advance forced onto
+    the card's parents and tokens (trace), so that both sides hold the
+    same histories and the caches are reordered alike.  Returns per step
+    (the host's log-probability of each chosen continuation (N,), the
+    host's own best nb totals (B, nb), the host's totals of the card's
+    choices (B, nb), max|host logits|)."""
+    steps, rec = iter(trace), []
+
+    def advance(st, logits, eos):
+        parent, token, _ = next(steps)
+        B, nb = st.scores.shape
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        total = st.scores.reshape(-1, 1) + logp          # no EOS: all alive
+        chosen = total[parent, token].reshape(B, nb)
+        rec.append((logp[parent, token], total.reshape(B, -1).topk(
+            nb, dim=-1).values, chosen, logits.abs().max().item()))
+        st.scores.copy_(chosen)
+        st.parent.copy_(parent)
+        st.token.copy_(token[:, None])
+
+    eng._beam_advance = advance
+    eng.generate_beam(tokens, len(trace), num_beams=nb, prefix=snap)
+    return rec
+
+
+def check_beam_vs_plain(trace: list, rec: list, nb: int) -> None:
+    """The card's replayed beam steps against the host's forced onto the
+    same choices: at every step each chosen continuation's log-probability
+    (the card's score increment) within 2 x phase 5's tolerance of the
+    host's (a log-softmax moves by at most twice its logits' error), and
+    the card's choices among the host's best up to a near tie (within
+    twice the sum of those tolerances so far); the reorder must have
+    moved rows after the first step."""
+    N = trace[0][0].numel()
+    prev = torch.full((N // nb, nb), NEG_INF)
+    prev[:, 0] = 0.0
+    worst, bound, moved = 0.0, 0.0, 0
+    for i, ((parent, _, scores), (host_inc, best, chosen, scale)) in \
+            enumerate(zip(trace, rec)):
+        inc = scores.reshape(-1) - prev.reshape(-1)[parent]
+        tol = 2 * 5e-2 * scale
+        err = (inc - host_inc).abs().max().item()
+        bound += tol
+        gap = (best - chosen.sort(dim=-1, descending=True).values).max()
+        if not (err <= tol and gap.item() <= 2 * bound):
+            raise AssertionError(
+                f"beam step {i + 1}: card vs host log-probabilities "
+                f"max|diff| {err:.3e} (tolerance {tol:.3e}), the card's "
+                f"choices {gap.item():.3e} below the host's best (near-tie "
+                f"limit {2 * bound:.3e})")
+        worst = max(worst, err / tol)
+        moved += int(i > 0 and (parent != torch.arange(N)).any())
+        prev = scores
+    if not moved:
+        raise AssertionError("beam: no reorder moved a row after step 1; "
+                             "the check saw no reorder")
+    log(f"[plain:prefix] beam, {N // nb} x {nb} beams, {len(trace)} "
+        f"replayed steps forced alike on the host: log-probabilities of the "
+        f"card's choices within {worst:.3f} of the tolerance at worst; "
+        f"{moved} steps reordered rows; the card's choices are the host's "
+        f"best up to a near tie")
+
+
+def phase_prefix_vs_plain():
+    """The prefix slice at 2 layers and full Llama-2-7B width, card
+    (kernels, graphs) against host (plain versions), same weights, KIVI-2:
+    a 300-token prefix and 2 suffixes of 64.  The suffix extend's logits
+    (generate(prefix=)'s first token) and the teacher-forced logits of
+    the longest ragged row after its whole tail are held within phase 5's
+    tolerance; on each side the stream must give generate()'s tokens;
+    beam search (2 x 2 beams) step by step, the host forced onto the
+    card's choices (check_beam_vs_plain); the greedy token agreement of
+    the prefix, ragged and stream paths between the two sides is
+    reported."""
+    import dataclasses
+
+    import numpy as np
+
+    from kivi_tpu_torch.config import PRESETS, QuantConfig
+    from kivi_tpu_torch.models import modeling
+    from kivi_tpu_torch.serving.engine import Engine
+
+    cfg = dataclasses.replace(PRESETS["llama2-7b"], num_layers=2)
+    params = modeling.init_params(cfg, seed=2, device="cuda")
+    cpu_params = {k: ([{n: t.cpu() for n, t in lp.items()} for lp in v]
+                      if k == "layers" else v.cpu())
+                  for k, v in params.items()}
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(4)
+    system = torch.randint(1, cfg.vocab_size, (300,), generator=gen)
+    suffix = torch.randint(1, cfg.vocab_size, (2, 64), generator=gen)
+    lens, new, nb, beam_steps = [40, 64], 32, 2, 8
+    qcfg = QuantConfig(2, 2, 32, 128, v_flush=128)
+    logits, toks = {}, {}
+    for dev, p in (("cuda", params), ("cpu", cpu_params)):
+        t0 = time.perf_counter()
+        eng = Engine(cfg=cfg, qcfg=qcfg, params=p, max_seq_len=1024,
+                     batch_size=2, device=dev)
+        snap = eng.prefill_prefix(system)
+        suf = suffix.to(dev)
+        pr = eng._ingest_prompt(suf, new, prefix=snap)
+        logits["prefix", dev] = pr.logits.float().cpu().clone()
+        eng.generate(suf, 1, prefix=snap, suffix_lens=lens)
+        # a copy: on the host .cpu() is the decode state's own storage,
+        # which the next generate() overwrites
+        logits["ragged", dev] = eng._dec.logits[
+            int(np.argmax(lens))].cpu().clone()
+        toks["prefix", dev] = eng.generate(suf, new, prefix=snap).cpu()
+        toks["ragged", dev] = eng.generate(suf, new, prefix=snap,
+                                           suffix_lens=lens).cpu()
+        toks["stream", dev] = torch.from_numpy(np.concatenate(list(
+            eng.generate_stream(suf, new, segment=8, prefix=snap)), 1))
+        _equal_tokens(toks["stream", dev], toks["prefix", dev],
+                      f"stream vs generate on {dev}")
+        beng = Engine(cfg=cfg, qcfg=qcfg, params=p, max_seq_len=1024,
+                      batch_size=2 * nb, device=dev)
+        if dev == "cuda":
+            trace = _beam_trace(beng, suf, snap, nb, beam_steps)
+        else:
+            rec = _beam_forced(beng, suf, snap, nb, trace)
+        log(f"[plain:prefix] {dev}: prefix, ragged, stream and beam runs in "
+            f"{time.perf_counter() - t0:.1f} s; the stream equals generate")
+        del eng, beng, snap
+    for what in ("prefix", "ragged"):
+        card, host = logits[what, "cuda"], logits[what, "cpu"]
+        err = (card - host).abs().max().item()
+        scale = host.abs().max().item()
+        tol = 5e-2 * scale                   # as phase 5's other paths
+        log(f"[plain:prefix] {what}: 2 layers full width, prefix 300, "
+            f"suffixes {lens if what == 'ragged' else 64}: logits "
+            f"max|card - host| = {err:.3e} (max|host| {scale:.3e}, "
+            f"tolerance {tol:.3e})")
+        if not err <= tol:
+            raise AssertionError(f"prefix {what}: card and host logits "
+                                 "disagree")
+    check_beam_vs_plain(trace, rec, nb)
+    agree = {w: round((toks[w, "cuda"] == toks[w, "cpu"]).float().mean()
+                      .item(), 3) for w in ("prefix", "ragged", "stream")}
+    log(f"[plain:prefix] greedy token agreement card vs host over {new} "
+        f"tokens: {agree}")
+    del params, cpu_params
+    torch.cuda.empty_cache()
+
+
+def prefix_batcher_vs_engine():
+    """Batcher requests with prefix_tokens (4 slots, chunks of 128, a
+    PrefixCache over a batch-1 engine) against the batch-1 engine's
+    generate(prefix=) of the same snapshot, where the admission computes
+    what the engine does: KIVI-2 prompts of one whole chunk (one extend
+    either way), fp16 prompts of 100-201 tokens (the tail's decode steps
+    are exact over the fp cache).  First tokens equal, the first decode
+    step's logits within phase 5's tolerance; then the batcher with
+    debug=True (every admission forward, tail step and decode step a
+    checked call) must give the graphs' tokens on KIVI-2 prompts with
+    tails."""
+    from kivi_tpu_torch.config import QuantConfig
+    from kivi_tpu_torch.serving.batcher import ContinuousBatcher, Request
+    from kivi_tpu_torch.serving.engine import Engine
+    from kivi_tpu_torch.serving.prefix_cache import PrefixCache
+
+    cfg, params = _small_model(seed=5)
+    tmax, new = 1024, 32
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(7)
+    system = torch.randint(1, cfg.vocab_size, (300,), generator=gen).tolist()
+
+    def prompts(sizes):
+        return [torch.randint(1, cfg.vocab_size, (n,), generator=gen).tolist()
+                for n in sizes]
+
+    kivi = QuantConfig(2, 2, 32, 128, v_flush=128)
+    for label, qcfg, sizes in (("KIVI-2", kivi, (128,) * 4),
+                               ("fp16", QuantConfig(16, 16, 32, 128),
+                                (100, 128, 150, 201))):
+        ps = prompts(sizes)
+        eng = Engine(cfg=cfg, qcfg=qcfg, params=params, max_seq_len=tmax,
+                     batch_size=1)
+        bat = ContinuousBatcher(cfg, qcfg, params, num_slots=len(ps),
+                                max_seq_len=tmax, prefill_chunk=128,
+                                prefix_cache=PrefixCache(eng))
+        for i, p in enumerate(ps):
+            bat.submit(Request(uid=i, prompt=p, max_new_tokens=new,
+                               prefix_tokens=system))
+        bat.step()                    # admits every request, decodes once
+        slot_of = {bat.slot_req[s].uid: s for s in range(bat.S)}
+        step_logits = bat.last_logits.float().cpu().clone()
+        firsts = {i: bat.slot_out[slot_of[i]][0] for i in range(len(ps))}
+        while bat.queue or bat.active.any():
+            bat.step()
+        bat._retire()
+        snap = bat.prefix_cache.get(system)
+        worst, agree = 0.0, []
+        for i, p in enumerate(ps):
+            pr = eng._ingest_prompt([p], new, prefix=snap)
+            tok0 = int(pr.logits.argmax(-1))
+            if tok0 != firsts[i]:
+                raise AssertionError(f"{label} prefix request {i}: first "
+                                     f"token {firsts[i]} != engine's {tok0}")
+            lg, _ = eng.decode_step(
+                torch.tensor([[tok0]], device="cuda"),
+                torch.tensor([[300 + len(p)]], device="cuda"), pr.caches,
+                flush=True)
+            lg = lg[0].float().cpu()
+            err = (step_logits[slot_of[i]] - lg).abs().max().item()
+            if not err <= 5e-2 * lg.abs().max().item():
+                raise AssertionError(f"{label} prefix request {i}: decode "
+                                     f"logits max|batcher - engine| {err:.3e}")
+            worst = max(worst, err / lg.abs().max().item())
+            want = eng.generate(torch.tensor([p], device="cuda"), new,
+                                prefix=snap)[0].tolist()
+            agree.append(sum(a == b for a, b in
+                             zip(bat.results[i].tokens, want)) / new)
+        log(f"[batcher-vs-engine:prefix] {label}, 2 layers full width, "
+            f"prefix 300, prompts {sizes}: first tokens equal; first "
+            f"decode step's logits max|batcher - engine| / max|engine| = "
+            f"{worst:.3e} (tolerance 5e-2); greedy token agreement over "
+            f"{new} tokens {[round(a, 3) for a in agree]}")
+        del bat, eng
+    ps = prompts((100, 150, 201, 20))
+    outs = []
+    for debug in (False, True):
+        eng = Engine(cfg=cfg, qcfg=kivi, params=params, max_seq_len=tmax,
+                     batch_size=1)
+        bat = ContinuousBatcher(cfg, kivi, params, num_slots=4,
+                                max_seq_len=tmax, prefill_chunk=128,
+                                prefix_cache=PrefixCache(eng), debug=debug)
+        res = bat.run([Request(uid=i, prompt=p, max_new_tokens=new,
+                               prefix_tokens=system)
+                       for i, p in enumerate(ps)])
+        outs.append([res[i].tokens for i in range(len(ps))])
+        del bat, eng
+    if outs[0] != outs[1]:
+        raise AssertionError("prefix batcher: debug=True tokens differ from "
+                             "the graphs'")
+    log(f"[batcher-vs-engine:prefix] KIVI-2 prompts {[len(p) for p in ps]} "
+        f"behind the prefix (chunks and tails): debug=True tokens equal the "
+        f"graphs'")
+    del params
+    torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------------------
 # phase 7: ServingAPI on the loopback interface
 # ---------------------------------------------------------------------------
@@ -2086,12 +2836,16 @@ def main():
     stamp("kernels")
     launches = phase_main(args.layers, smi)
     stamp("main")
+    launches.update(phase_prefix(args.layers, smi))
+    stamp("prefix")
     launches["probe"] = phase_probe()
     stamp("probe")
     phase_vs_plain()
     phase_long_vs_plain()
+    phase_prefix_vs_plain()
     stamp("vs plain")
     phase_batcher_vs_engine()
+    prefix_batcher_vs_engine()
     phase_api()
     stamp("batcher vs engine, api")
     sources = {
@@ -2162,7 +2916,8 @@ def main():
         log(f"[decode] {path}: " + " | ".join(
             f"{mode} {m['tokens_per_s']:.1f} tokens/s, host "
             f"{m['host_ms_per_step']:.3f} ms a step, idle "
-            f"{m['idle_share']:.4f}" for mode, m in modes.items())
+            + (f"{m['idle_share']:.4f}" if "idle_share" in m
+               else "not measured") for mode, m in modes.items())
             + f" | card {smi}")
     log(f"[decode] {json.dumps(DECODE)}")
     log(f"[done] {time.perf_counter() - START:.1f} s")

@@ -185,6 +185,79 @@ def clear(cache):
     return cache
 
 
+def broadcast_rows(cache, batch: int):
+    """Tile a batch-1 cache to `batch` rows as new tensors (the prefix
+    fan-out, kivi_tpu/cache/kivi_cache.py:274-284); batch 1 is a copy.
+    Works on KiviLayerCache and FpLayerCache alike (every tensor field
+    has the row axis first).  Host-int counters are copied as ints,
+    device counters repeated: nothing of the result shares storage with
+    the source, which a caller may then write in place."""
+    return type(cache)(**{
+        f.name: (x.expand(batch, *x.shape[1:]).clone()
+                 if isinstance(x, torch.Tensor) else int(x))
+        for f in dataclasses.fields(cache)
+        for x in (getattr(cache, f.name),)})
+
+
+def broadcast_rows_into(dst, src):
+    """broadcast_rows written into an existing cache of B rows: every row
+    of each tensor of dst becomes src's one row (copy_), and dst takes
+    src's host-int counters.  dst's tensors keep their addresses (the
+    engine's captured decode steps read them).  Raises ValueError when
+    src was built for another cache length, dtype or geometry."""
+    for f in dataclasses.fields(dst):
+        d, s = getattr(dst, f.name), getattr(src, f.name)
+        if not isinstance(d, torch.Tensor):
+            setattr(dst, f.name, int(s))
+            continue
+        if s.shape[0] != 1 or s.shape[1:] != d.shape[1:] or \
+                s.dtype != d.dtype:
+            raise ValueError(
+                f"{f.name}: a snapshot of {tuple(s.shape)} {s.dtype} does "
+                f"not fit a cache of {tuple(d.shape)} {d.dtype} (build the "
+                "snapshot with the same config, cache length and dtype)")
+        d.copy_(s.expand_as(d))
+    return dst
+
+
+def reorder(cache, idx: torch.Tensor):
+    """Select or permute batch rows (the beam-search reorder,
+    kivi_tpu/cache/kivi_cache.py:525-538): a new cache whose row b is
+    row idx[b] of every tensor, device counters included; host-int
+    counters (uniform over the batch) carry over."""
+    return type(cache)(**{
+        f.name: (x.index_select(0, idx) if isinstance(x, torch.Tensor)
+                 else x)
+        for f in dataclasses.fields(cache)
+        for x in (getattr(cache, f.name),)})
+
+
+# the token axis of each store that grows with the sequence (KIVI and fp
+# caches); the windows and counters have none
+_TOKEN_AXIS = {"k_codes": 3, "k_scale": 2, "k_mn": 2, "v_codes": 3,
+               "v_scale": 3, "v_mn": 3, "k": 3, "v": 2}
+
+
+def reorder_into(cache, idx: torch.Tensor, bound: Optional[int] = None):
+    """reorder in place: every tensor of the cache keeps its address (the
+    body of a captured beam step).  bound: gather the stores only below
+    this token position (the windows and counters whole).  Exact when
+    every row holds the same bytes at and past the bound, as rows fanned
+    out from one snapshot or prefilled into a cleared cache do while
+    their fill stays below it; the JAX package gathers every buffer at
+    full length."""
+    T = cache.max_seq_len
+    for f in dataclasses.fields(cache):
+        x = getattr(cache, f.name)
+        if not isinstance(x, torch.Tensor):
+            continue
+        ax = _TOKEN_AXIS.get(f.name)
+        if bound is not None and ax is not None and bound < T:
+            x = x.narrow(ax, 0, -(-x.shape[ax] * bound // T))
+        x.copy_(x.index_select(0, idx))
+    return cache
+
+
 def write_slot(slot_cache, s: int, one_cache):
     """Copy a batch-1 host-int cache (an admission prefill's output) into
     row s of a slot cache and set the row's counters: the counterpart of

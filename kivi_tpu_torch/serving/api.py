@@ -14,9 +14,10 @@ client's concern):
                        "temperature"?, "top_k"?, "top_p"?,
                        "repetition_penalty"?, "eos_token_id"?,
                        "stream"?: bool, "prefix"?: [int, ...]}
-    "prefix" needs a prefix cache, which comes with a later slice of the
-    port: such a request gets 400, as the JAX server answers one when it
-    was built without a prefix cache.
+    "prefix" (token ids) is served through the batcher's PrefixCache:
+    a repeated system prompt is prefilled once and reused (exact hit,
+    or the longest stored prefix extended).  A server whose batcher was
+    built without `prefix_cache=` answers such a request with 400.
     stream=false → {"uid": int, "tokens": [int, ...]}
     stream=true  → Server-Sent Events: one `data: {"token": t}` per
                    generated token as it decodes, closed by
@@ -134,7 +135,7 @@ class ServingAPI:
                                 uid=uid,
                                 on_token=q.put if stream else None,
                                 **fields))
-                        except (ValueError, NotImplementedError) as e:
+                        except ValueError as e:
                             self.send_error(400, explain=str(e))
                             return
                         if stream:

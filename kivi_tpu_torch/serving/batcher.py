@@ -1,6 +1,5 @@
 """Continuous batching over slot caches: port of
-`kivi_tpu/serving/batcher.py` (bucketed and chunked admission; the
-prefix paths come with a later slice of the port).
+`kivi_tpu/serving/batcher.py`.
 
 A fixed pool of `num_slots` sequence slots, each with its own cache
 position, admitted and retired independently, while one batched decode
@@ -18,6 +17,13 @@ step advances every slot together.
     cache, LEFT-padded to its bucket (one-shot, through flash_attention)
     or to a multiple of `prefill_chunk` (chunked, through the extend
     path), and `kivi_cache.write_slot` copies it into a free slot.
+  * Prefix admission (a batcher-wide `prefix` snapshot, or
+    `Request.prefix_tokens` through a `PrefixCache`): the snapshot is
+    copied into the batch-1 cache and only the request's own tokens are
+    ingested, unpadded: whole `prefill_chunk` chunks through the extend
+    path, then the ragged tail teacher-forced through decode steps, one
+    a token (`_tail_step`, over the batch-1 cache's counters moved to
+    the device; on CUDA one graph per fill bound).
   * Retirement: a slot frees when EOS is sampled or max_new_tokens is
     reached; freed slots keep decoding garbage, but their cache writes
     are masked (frozen counters) and their tokens dropped.
@@ -42,16 +48,14 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from kivi_tpu_torch.cache import fp_cache as FC
 from kivi_tpu_torch.cache import kivi_cache as KC
 from kivi_tpu_torch.config import ModelConfig, QuantConfig
 from kivi_tpu_torch.models import modeling
 from kivi_tpu_torch.serving import sampling
 from kivi_tpu_torch.serving.engine import FILL_BUCKET, phase_period
 from kivi_tpu_torch.utils.graphs import StepGraphs
-
-_PREFIX_LATER = ("prefix admission (prefix=, prefix_cache=, "
-                 "Request.prefix_tokens) comes with a later slice of the "
-                 "port")
+from kivi_tpu_torch.utils.guards import checked_call
 
 
 @dataclasses.dataclass
@@ -71,7 +75,9 @@ class Request:
     # harvested (the first at admission, then one per decode step).
     # Exceptions propagate to the step()/run() caller.
     on_token: Optional[Callable[[int], None]] = None
-    # per-request prefix through a PrefixCache: a later slice of the port
+    # per-request prefix: token ids resolved through the batcher's
+    # PrefixCache at admission (exact hit, extend of the longest stored
+    # prefix, or a fresh prefill); overrides the batcher-wide `prefix`
     prefix_tokens: Optional[List[int]] = None
 
 
@@ -96,16 +102,26 @@ class ContinuousBatcher:
 
     params: the port's parameter dict, already on `device`.  Sampled
     tokens are drawn from a torch.Generator seeded with 0 (the JAX
-    batcher's PRNGKey(0))."""
+    batcher's PRNGKey(0)).
+
+    prefix: an `Engine.prefill_prefix` snapshot shared by every request
+    (system-prompt serving); prefix_cache: a `PrefixCache` serving
+    `Request.prefix_tokens`.  Both must come from an Engine of this
+    batcher's config, cache length and cache dtype.  debug=True: the
+    same program run eagerly, every admission forward, tail step and
+    decode step a checked call (utils/guards.py, as Engine(debug=True)).
+    """
 
     def __init__(self, cfg: ModelConfig, qcfg: QuantConfig, params,
                  num_slots: int, max_seq_len: int, device=None,
                  prompt_buckets=(128, 256, 512, 1024, 2048, 4096),
                  prefill_chunk: int = 0, prefix=None, prefix_cache=None,
-                 cache_dtype=torch.bfloat16):
-        if prefix is not None or prefix_cache is not None:
-            raise NotImplementedError(_PREFIX_LATER)
+                 cache_dtype=torch.bfloat16, debug: bool = False):
         self.cfg, self.qcfg, self.params = cfg, qcfg, params
+        self.prefix, self.prefix_cache = prefix, prefix_cache
+        self.debug = debug
+        self._forward = (checked_call(modeling.forward) if debug
+                         else modeling.forward)
         self.S, self.T = num_slots, max_seq_len
         self.device = modeling.resolve_device(device)
         # the bucket list always tops out at max_seq_len: any prompt that
@@ -165,7 +181,16 @@ class ContinuousBatcher:
         # per-slot cache tokens (pads included) on the host: the decode
         # step's fill bound comes from them, with no device read
         self.fill = np.zeros(num_slots, np.int64)
-        self.graphs = StepGraphs(dev) if dev.type == "cuda" else None
+        self.graphs = (StepGraphs(dev) if dev.type == "cuda" and not debug
+                       else None)
+        # the prefix admission's tail step state, at fixed addresses: the
+        # token fed and its position (1, 1), the step's logits (1, V), and
+        # the batch-1 cache's device counters
+        self._tail_tok = torch.zeros((1, 1), dtype=torch.int64, device=dev)
+        self._tail_pos = torch.zeros((1, 1), dtype=torch.int64, device=dev)
+        self._tail_logits = torch.zeros((1, cfg.vocab_size),
+                                        dtype=torch.float32, device=dev)
+        self._one_ctr: Optional[torch.Tensor] = None
 
     # -- device work ----------------------------------------------------------
 
@@ -197,7 +222,7 @@ class ContinuousBatcher:
             positions = torch.clamp(
                 t0 + torch.arange(C, device=self.device)[None, :] - pad,
                 min=0)
-            logits, _ = modeling.forward(
+            logits, _ = self._forward(
                 self.params, toks[:, t0:t0 + C], self._one, self.cfg,
                 self.qcfg, positions, mode=mode, last_only=True,
                 pad_len=padv, prev_len=t0)
@@ -234,6 +259,8 @@ class ContinuousBatcher:
         T / 512 graphs, the bound growing with the fullest slot), on the
         CPU the body itself."""
         body = functools.partial(self._decode_all, fb)
+        if self.debug:
+            return checked_call(body)
         if self.graphs is None:
             return body
 
@@ -243,11 +270,68 @@ class ContinuousBatcher:
 
         return replay
 
+    def _tail_step(self, fill_bound: int) -> None:
+        """One step of the prefix admission's tail
+        (kivi_tpu/serving/batcher.py:243-273): the tail token in
+        _tail_tok through a decode step of the batch-1 cache (its
+        counters on the device, each window flushed as it fills), its
+        logits kept.  Every write is in place (the body a CUDA graph
+        captures); fill_bound: a static bound on the cache's fill."""
+        logits, _ = modeling.forward(
+            self.params, self._tail_tok, self._one, self.cfg, self.qcfg,
+            self._tail_pos, mode="decode", fill_bound=fill_bound)
+        self._tail_logits.copy_(logits[:, -1])
+        self._tail_pos += 1
+
+    def _ingest_prefixed(self, prefix, prompt: List[int]) -> torch.Tensor:
+        """Admission behind a prefix snapshot: the snapshot copied into
+        the batch-1 cache, then only the prompt's own tokens, unpadded:
+        whole prefill_chunk chunks through the extend path at prev_len =
+        P + i, then the ragged tail one decode step a token (the cache's
+        counters on the device meanwhile; the JAX batcher runs blocks of
+        TAIL masked steps, one compiled scan for every length).  The
+        snapshot is read, never written.  Returns the last prompt token's
+        logits (1, V)."""
+        P, dev = prefix.length, self.device
+        for c, s in zip(self._one, prefix.caches):
+            KC.broadcast_rows_into(c, s)
+        toks = torch.tensor([prompt], dtype=torch.int64, device=dev)
+        C, i, logits = self.prefill_chunk, 0, None
+        while C and len(prompt) - i >= C:
+            positions = (P + i + torch.arange(C, device=dev))[None]
+            logits, _ = self._forward(
+                self.params, toks[:, i:i + C], self._one, self.cfg,
+                self.qcfg, positions, mode="extend", last_only=True,
+                prev_len=P + i)
+            logits = logits[:, -1]
+            i += C
+        if i == len(prompt):
+            return logits
+        cm = KC if self.qcfg.quantize_kv else FC
+        self._one_ctr = cm.counters_to_device(self._one, self._one_ctr)
+        fb = min(-(-(P + len(prompt)) // FILL_BUCKET) * FILL_BUCKET, self.T)
+        step = functools.partial(self._tail_step, fb)
+        if self.debug:
+            step = checked_call(step)
+        self._tail_pos.fill_(P + i)
+        for i in range(i, len(prompt)):
+            self._tail_tok.copy_(toks[:, i:i + 1])
+            if self.graphs is not None:
+                self.graphs.run(("tail", fb), step)
+            else:
+                step()
+        cm.counters_to_host(self._one, self._one_ctr)
+        return self._tail_logits
+
     # -- host-side loop -------------------------------------------------------
 
     def submit(self, req: Request):
-        if req.prefix_tokens:
-            raise NotImplementedError(_PREFIX_LATER)
+        if req.prefix_tokens is not None and not req.prefix_tokens:
+            req = dataclasses.replace(req, prefix_tokens=None)
+        if req.prefix_tokens is not None and self.prefix_cache is None:
+            raise ValueError(
+                "Request.prefix_tokens needs ContinuousBatcher("
+                "prefix_cache=PrefixCache(...))")
         self.queue.append(req)
 
     def cancel(self, uid: int) -> bool:
@@ -295,27 +379,45 @@ class ContinuousBatcher:
     def _admit(self):
         while self.queue and not self.active.all():
             req = self.queue[0]
-            # cache usage is bucket + max_new (pad slots occupy cache
-            # positions), so admission checks the BUCKETED length; an
-            # empty prompt has no logits to sample a first token from
-            bucket = self._bucket_for(len(req.prompt))
+            # the capacity check comes before any prefix work: the
+            # prefix's length is its token count, so an oversized request
+            # is refused without paying its prefix prefill
+            has_prefix = (req.prefix_tokens is not None
+                          or self.prefix is not None)
+            P = (len(req.prefix_tokens) if req.prefix_tokens is not None
+                 else self.prefix.length if self.prefix is not None else 0)
+            # cache usage is P + bucket + max_new (pad slots occupy cache
+            # positions), so admission checks the BUCKETED length; a
+            # prefix admission is unpadded.  An empty prompt has no
+            # logits to sample a first token from
+            bucket = ((len(req.prompt) or None) if has_prefix
+                      else self._bucket_for(len(req.prompt)))
             if (not req.prompt or bucket is None
-                    or bucket + req.max_new_tokens > self.T):
+                    or P + bucket + req.max_new_tokens > self.T):
                 self.queue.popleft()
                 self.results[req.uid] = Result(req.uid, [])  # rejected
                 continue
+            # a per-request prefix (through the prefix cache) overrides
+            # the batcher-wide one
+            prefix = (self.prefix_cache.get(req.prefix_tokens)
+                      if req.prefix_tokens is not None else self.prefix)
             slot = int(np.argmin(self.active))
             req = self.queue.popleft()
             prompt = [int(t) for t in req.prompt]
-            logits, pad = self._prefill_one(prompt, bucket)
-            seen0 = self._host_seen([prompt])
+            if prefix is None:
+                logits, pad = self._prefill_one(prompt, bucket)
+                seen0 = self._host_seen([prompt])
+            else:
+                logits, pad = self._ingest_prefixed(prefix, prompt), 0
+                seen0 = self._host_seen([prefix.tokens[0].cpu().numpy(),
+                                         prompt])
             nxt = self._first_token(logits, seen0, req)
             # write slot state
             for big, one in zip(self.caches, self._one):
                 KC.write_slot(big, slot, one)
             self.cur_tok[slot, 0] = nxt[0]
             # rope position of the first generated token = true length
-            self.pos[slot, 0] = len(prompt)
+            self.pos[slot, 0] = P + len(prompt)
             self.pad_dev[slot] = pad
             self.act_dev[slot] = True
             self.temp_dev[slot] = req.temperature
@@ -326,7 +428,10 @@ class ContinuousBatcher:
             self.active[slot] = True
             self.slot_req[slot] = req
             self.slot_out[slot] = [int(nxt[0])]
-            self.fill[slot] = bucket   # cache tokens, pads included
+            # cache tokens, pads included: a prefix admission holds
+            # P + prompt unpadded, a bucketed one the whole bucket
+            self.fill[slot] = P + len(prompt) if prefix is not None \
+                else bucket
             if req.on_token is not None:
                 req.on_token(self.slot_out[slot][0])
 

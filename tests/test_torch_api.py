@@ -4,9 +4,9 @@ over its continuous batcher, mirroring tests/test_api.py.
 Wire-protocol checks on a tiny random-weight model: non-streaming JSON
 responses are token-equal to driving a fresh batcher directly (greedy),
 SSE streaming delivers the same tokens one event at a time, concurrent
-connections share the slot pool, and malformed or unservable requests
-(a "prefix", which needs the prefix cache of a later slice) get 4xx
-instead of wedging the stepper.
+connections share the slot pool, a "prefix" is served through the
+batcher's prefix cache (and refused with 400 by a server built without
+one), and malformed requests get 4xx instead of wedging the stepper.
 """
 
 import http.client
@@ -208,13 +208,53 @@ def test_step_exception_fails_pending_and_503s():
 
 
 def test_prefix_without_cache_is_400():
-    """The port has no prefix cache yet: a "prefix" gets the 400 the JAX
-    server gives when it was built without one."""
+    """A server whose batcher has no prefix cache answers a "prefix" with
+    400, as the JAX server does."""
     with ServingAPI(_batcher()) as srv:
         conn, resp = _post(srv.port, {"prompt": _prompt(9), "prefix": [1],
                                       "max_new_tokens": 2})
         assert resp.status == 400
         conn.close()
+
+
+def test_prefix_is_served_through_the_prefix_cache():
+    """A "prefix" goes through the batcher's PrefixCache (a miss, then an
+    exact hit), streamed or not, and its tokens equal a direct batcher
+    request with the same prefix_tokens."""
+    from kivi_tpu_torch.serving.engine import Engine
+    from kivi_tpu_torch.serving.prefix_cache import PrefixCache
+
+    def make():
+        eng = Engine(CFG, QCFG, PARAMS, max_seq_len=256, batch_size=1,
+                     device="cpu")
+        return ContinuousBatcher(CFG, QCFG, PARAMS, num_slots=2,
+                                 max_seq_len=256, device="cpu",
+                                 prefill_chunk=32,
+                                 prefix_cache=PrefixCache(eng))
+
+    prefix, prompt = _prompt(20, 45), _prompt(21, 40)
+    want = make().run([Request(uid=0, prompt=prompt, max_new_tokens=6,
+                               prefix_tokens=prefix)])[0].tokens
+    bat = make()
+    with ServingAPI(bat) as srv:
+        conn, resp = _post(srv.port, {"prompt": prompt, "prefix": prefix,
+                                      "max_new_tokens": 6})
+        assert resp.status == 200
+        assert json.loads(resp.read())["tokens"] == want
+        conn.close()
+        conn, resp = _post(srv.port, {"prompt": prompt, "prefix": prefix,
+                                      "max_new_tokens": 6, "stream": True})
+        toks = []
+        for raw in resp:
+            line = raw.decode().strip()
+            if line == "data: [DONE]":
+                break
+            if line.startswith("data: "):
+                toks.append(json.loads(line[6:])["token"])
+        conn.close()
+        assert toks == want
+    pc = bat.prefix_cache
+    assert (pc.misses, pc.hits, len(pc)) == (1, 1, 1)
 
 
 def test_bad_requests_get_4xx_and_health(api):

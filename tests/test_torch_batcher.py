@@ -169,20 +169,30 @@ def test_cancel_queued_and_active():
 
 def test_streaming_and_unported_prefix():
     """on_token streams each token as it is harvested; the prefix paths
-    raise and name a later slice."""
+    are served: prefix_tokens without a prefix cache is refused with the
+    JAX batcher's ValueError, and a batcher-wide prefix streams through
+    on_token too."""
     _, tb = _batchers(2, prompt_buckets=BUCKETS)
     seen = []
     p = _prompts(1, (12,))[0]
     res = tb.run([Request(uid=0, prompt=p, max_new_tokens=5,
                           on_token=seen.append)])
     assert seen == res[0].tokens and len(seen) == 5
-    with pytest.raises(NotImplementedError, match="later slice"):
+    with pytest.raises(ValueError, match="prefix_cache"):
         tb.submit(Request(uid=1, prompt=p, max_new_tokens=2,
                           prefix_tokens=[1, 2]))
     _, tp = _params()
-    with pytest.raises(NotImplementedError, match="later slice"):
-        ContinuousBatcher(CFG, QuantConfig(**_kw(2)), tp, 1, MAX,
-                          device="cpu", prefix=object())
+    eng = Engine(CFG, QuantConfig(**_kw(2)), tp, max_seq_len=MAX,
+                 batch_size=1, device="cpu", cache_dtype=torch.float32)
+    snap = eng.prefill_prefix(_prompts(2, (40,))[0])
+    pb = ContinuousBatcher(CFG, QuantConfig(**_kw(2)), tp, 1, MAX,
+                           device="cpu", prefix=snap,
+                           cache_dtype=torch.float32)
+    seen = []
+    res = pb.run([Request(uid=2, prompt=p, max_new_tokens=5,
+                          on_token=seen.append)])
+    assert seen == res[2].tokens and len(seen) == 5
+    assert pb.fill[0] == 40 + 12 + 4
 
 
 def test_fp16_fork_is_a_near_tie():

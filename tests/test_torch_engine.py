@@ -159,11 +159,15 @@ def test_generate_options_and_unported_paths():
     first = int((one[0] == eos).nonzero()[0])
     assert cut[0, :first + 1].tolist() == one[0, :first + 1].tolist()
     assert (cut[0, first:] == eos).all()
-    # prefix snapshots and ragged suffixes come with a later slice
-    with pytest.raises(NotImplementedError):
-        teng.generate(toks, 4, prefix=object())
-    with pytest.raises(NotImplementedError):
-        teng.generate(toks, 4, prefill_chunk_size=128, prefix=object())
+    # prefix snapshots are served: the 64 tokens as a prefix and the last
+    # 8 as the suffix give the one-shot prompt's first token (the suffix
+    # extend attends the quantized prefix: the first token, not the whole
+    # stream, is held); the prefix refuses chunked prefill
+    snap = teng.prefill_prefix(toks[0, :56])
+    first = teng.generate(toks[:, 56:], 4, prefix=snap)
+    assert first.shape == (1, 4) and int(first[0, 0]) == int(one[0, 0])
+    with pytest.raises(ValueError, match="prefill_chunk_size"):
+        teng.generate(toks[:, 56:], 4, prefill_chunk_size=128, prefix=snap)
     if not torch.cuda.is_available():
         # no card and no device="cpu": raise, never run on the host
         with pytest.raises(RuntimeError):

@@ -16,7 +16,11 @@ and the port only, so that it runs where JAX is not installed:
     where it is violated (max|kernel - plain| <= 1e-5 * max|plain| +
     1e-5, chip_smoke's tolerance);
   * `_build.LAUNCHES` counts the kernels of every replay;
-  * a violated fill bound raises under a checked call.
+  * a violated fill bound raises under a checked call;
+  * the prefix paths (generate(prefix=), ragged suffixes, the stream,
+    beam search with and without a prefix) and the batcher's prefix
+    admission (its tail a batch-1 graph) give the eager body's tokens
+    when replayed, and Engine(debug=True)'s.
 """
 
 import functools
@@ -253,3 +257,68 @@ def test_violated_fill_bound_raises(cuda):
     with pytest.raises(guards.GuardError, match="t_bound violated"):
         call(q, c, KIVI, fill_bound=0)
     decode_attention(q, c, KIVI, fill_bound=0)     # unchecked: no raise
+
+
+def _prefix_run(eng, path, snap, sampled):
+    toks = _tokens(5, (B, 96))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    kw = dict(temperature=0.8, top_p=0.9, generator=gen) if sampled else {}
+    if path == "prefix":
+        return eng.generate(toks, NEW, prefix=snap, **kw)
+    if path == "ragged":
+        return eng.generate(toks, NEW, prefix=snap,
+                            suffix_lens=[24, 50, 96, 70], **kw)
+    if path == "stream":
+        import numpy as np
+        return torch.from_numpy(np.concatenate(list(eng.generate_stream(
+            toks, NEW, prefix=snap, segment=16, **kw)), 1))
+    return eng.generate_beam(toks[:2], NEW, num_beams=2,
+                             prefix=snap if path == "beam-prefix" else None)
+
+
+@pytest.mark.parametrize("path,sampled", [
+    ("prefix", False), ("prefix", True), ("ragged", False),
+    ("stream", False), ("stream", True), ("beam", False),
+    ("beam-prefix", False)])
+def test_prefix_paths_graph_matches_eager(cuda, path, sampled):
+    """A 300-token prefix (44 keys in the window), 96-token suffixes: the
+    replayed steps (decode, teacher-forced decode, beam with its reorder)
+    against the same bodies run eagerly and under debug=True."""
+    outs = []
+    for kw in (dict(), dict(graphs=False), dict(debug=True)):
+        eng = _engine(KIVI, **kw)
+        snap = eng.prefill_prefix(_tokens(6, (PROMPT,)))
+        outs.append(_prefix_run(eng, path, snap, sampled).cpu())
+        if not kw:
+            again = _prefix_run(eng, path, snap, sampled).cpu()
+            assert torch.equal(again, outs[0])     # replays only
+    assert torch.equal(outs[0], outs[1]), (outs[0] != outs[1]).nonzero()[:4]
+    assert torch.equal(outs[2], outs[1]), (outs[2] != outs[1]).nonzero()[:4]
+
+
+@pytest.mark.parametrize("bits", [2, 16])
+def test_batcher_prefix_graph_matches_eager(cuda, bits):
+    """Requests behind two prefixes (one an extension of the other)
+    through a PrefixCache, chunks of 128 and tails, half sampled: the
+    replayed tail and decode steps give the eager body's tokens."""
+    from kivi_tpu_torch.serving.prefix_cache import PrefixCache
+    qcfg = KIVI if bits == 2 else FP16
+    system = _tokens(7, (400,)).tolist()
+    results = []
+    for graphs in (True, False):
+        pc = PrefixCache(Engine(CFG, qcfg, _params(), max_seq_len=TMAX,
+                                batch_size=1, device="cuda"))
+        bat = ContinuousBatcher(CFG, qcfg, _params(), num_slots=3,
+                                max_seq_len=TMAX, device="cuda",
+                                prefill_chunk=128, prefix_cache=pc)
+        if not graphs:
+            bat.graphs = None
+        reqs = _requests(9, 6)
+        for i, r in enumerate(reqs):
+            r.prompt = r.prompt[:20 + 37 * i]
+            r.prefix_tokens = system if i % 2 else system[:300]
+        res = bat.run(reqs)
+        assert (pc.misses, pc.extends, pc.hits) == (1, 1, 4)
+        results.append({u: r.tokens for u, r in res.items()})
+    assert results[0] == results[1]
