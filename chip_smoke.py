@@ -24,6 +24,10 @@ Phases (any failure raises; the exit code is then non-zero):
      full grid, and timed beside it; the split decode route's two kernels (rows 7 and 8) at
      n_quant around their 256-position splits, bit-equal across two
      runs, QK's masked positions exactly -1e30, beside a control each);
+     row 3's per-row entry (flash_extend_attention_rows) at 8
+     slots of FILLS, T1 5 and 9, pads, bits 2/4/8, GQA, a window: per
+     query row within EXTEND_RTOL, bit-equal to the host-int entry row by
+     row, a control that advances one row's n_k_quant refused;
      the split routes (split decode against
      the fused kernel and against row 6 under the long slice's fill
      bound, the qhist extend route and the fused extend
@@ -87,6 +91,24 @@ Phases (any failure raises; the exit code is then non-zero):
      requests of 20-300 prompt tokens, half sampled: one miss, one
      extend hit, exact hits), directly and over HTTP with "prefix"
      (greedy tokens equal);
+     then the speculative slice (`phase_spec`) at Llama-2-7B
+     width: the target Engine (KIVI-2) at batch 1 timed alone on
+     prompts of 1000 and 2500 tokens (128 greedy tokens); a 2-layer
+     "shallow" draft written as an HF safetensors directory by hand,
+     read back by load_hf_checkpoint and through save_checkpoint /
+     load_checkpoint, bit-equal each time; SpeculativeEngine (k = 8)
+     with draft "self" (the target's weights over an fp16 cache) and
+     "shallow": generate on both prompts (tokens/s beside the target,
+     mean accepted, clamps, host ms an iteration, busy and idle share),
+     the stream equal to generate, a sampled run (temperature 0.8,
+     top-k 50, top-p 0.95) equal twice under one seed, generate_device
+     equal to generate, debug=True equal to the graphs; then
+     SpeculativeBatcher (shallow draft, 8 slots, k = 4) over the 12
+     requests, its first 40 steps eagerly from the same start equal to
+     the graphs'; every path's kernels (row 3's per-row entry on each)
+     must launch, and every greedy stream is teacher-forced through the
+     target, each token within 5e-2 of the top logit (the share equal
+     to Engine.generate's reported);
      then the probe path: `python3 -m kivi_tpu_torch.profile_wide_32k
      --quick` (B = 4, 32 KV heads, a 32K history), whose wide kernel,
      split decode route and probe variants must launch;
@@ -100,7 +122,9 @@ Phases (any failure raises; the exit code is then non-zero):
      generate on each side; 2 x 2 beams over 8 replayed steps, the
      host forced onto the card's choices, each chosen continuation's
      log-probability within twice the logit tolerance; token agreement
-     of the prefix, ragged and stream paths reported);
+     of the prefix, ragged and stream paths reported); one speculative
+     verify's logits (the engine's over device counters, k + 1 = 9, and
+     4 batcher slots, k + 1 = 5) within the same tolerance;
   6. the batcher against the engine on the card (2 layers, full width):
      first tokens equal and one decode step's logits per slot within the
      phase-5 tolerance of batch-1 Engine runs of the same left-padded
@@ -679,6 +703,111 @@ def check_extend(gen, results):
             q, k, v, attn_mask=mask)))
     log(f"[kernel] {name} timed at {T0} cached tokens + T1={T1}, "
         f"KIVI-2, B={B}")
+
+
+def check_extend_rows(gen, results):
+    """Row 3's per-row entry (flash_extend_attention_rows, the speculative
+    verify over slot caches) at 8 slots of row 6's FILLS (one empty),
+    T1 = k + 1 = 5 and 9, left pads on some rows, bits 2/4/8, GQA and a
+    sliding window: per query row within EXTEND_RTOL of the per-row plain
+    version, and bit-equal to the host-int entry launched row by row at
+    each row's counters; a control that advances one row's n_k_quant by
+    one group must be refused.  Timed at the batcher's verify (KIVI-2,
+    T1 = 5) beside its bound and SDPA over each row's cache dequantized
+    to bf16 (a per-row causal mask)."""
+    import torch.nn.functional as F
+
+    from kivi_tpu_torch.config import QuantConfig
+    from kivi_tpu_torch.core import quant as Q
+    from kivi_tpu_torch.kernels import flash_extend as FE
+    name = "flash_extend_attention_rows"
+    S = len(FILLS)
+    pads = torch.tensor([0, 0, 37, 100, 0, 5, 999, 0], device="cuda",
+                        dtype=torch.int32)
+    # (bits, v_flush, KV heads, query rows per KV head, T1, pads, window)
+    cases = [(2, 128, H, 1, 5, False, 0), (2, 128, H, 1, 9, True, 0),
+             (4, 32, H, 1, 9, True, 0), (8, 32, 8, 4, 5, True, 0),
+             (2, 128, 8, 4, 9, False, 1000)]
+    worst, timed = 0.0, None
+    for bits, vf, heads, r, t1, padded, sw in cases:
+        qcfg = QuantConfig(bits, bits, 32, 128, v_flush=vf)
+        c = _slot_cache(gen, qcfg, heads)
+        counts = torch.stack([c.n_k_quant, c.n_k_win, c.n_v_quant],
+                             dim=1).contiguous()
+        arrays = (_randn(gen, (S, heads, r * t1, D)), c.k_codes, c.k_scale,
+                  c.k_mn, c.v_codes, c.v_scale, c.v_mn, c.k_win, c.v_win,
+                  _randn(gen, (S, heads, t1, D)),
+                  _randn(gen, (S, heads, t1, D)))
+        pad = pads if padded else None
+        kw = dict(group_size=32, k_bits=bits, v_bits=bits, t1=t1,
+                  sliding_window=sw, pad_len=pad)
+        got = FE.flash_extend_attention_rows(*arrays, counts, **kw)
+        want = FE.flash_extend_attention_rows_plain(*arrays, counts, **kw)
+        torch.cuda.synchronize()
+        rows = counts.tolist()
+        what = (f"{name} bits={bits} vf={vf} Hkv={heads} r={r} T1={t1} "
+                f"pads={padded} window={sw} counters {rows}")
+        worst = max(worst, _rows_err(got, want, what, TOL.EXTEND_RTOL))
+        for s_, (nkq, nkw, nvq) in enumerate(rows):
+            one = FE.flash_extend_attention(
+                *(a[s_:s_ + 1] for a in arrays), nkq, nkw, nvq,
+                **dict(kw, pad_len=None if pad is None else pad[s_:s_ + 1]))
+            if not torch.equal(one[0], got[s_]):
+                raise AssertionError(f"{what}: row {s_} differs from the "
+                                     "host-int entry at its counters")
+        log(f"[kernel] {what}: every row bit-equal to the host-int entry "
+            "launched alone at its counters")
+        if timed is None:
+            timed = (c, qcfg, counts, arrays, kw, want, t1)
+    c, qcfg, counts, arrays, kw, want, t1 = timed
+    # control: one row (fill 137) reads one more group of history
+    s_ = FILLS.index(137)
+    bad = counts.clone()
+    bad[s_, 0] += 32
+    ctrl = FE.flash_extend_attention_rows(*arrays, bad, **kw)
+    _refused(TOL.row_share(ctrl[s_], want[s_], TOL.EXTEND_RTOL).max().item(),
+             f"{name}: control that advances row {s_}'s n_k_quant by one "
+             "group")
+    rows = counts.tolist()
+    sb = c.k_scale.element_size()
+    q = arrays[0]
+    T0 = [nkq + nkw for nkq, nkw, _ in rows]
+    nbytes = (sum(H * _live_bytes(qcfg, sb, nkq, nkw, nvq, nkq + nkw - nvq)
+                  for nkq, nkw, nvq in rows)
+              + 3 * q.numel() * 2 + q.numel() * 4 + S * 3 * 4)
+    pairs = sum(t1 * t0 + t1 * (t1 + 1) // 2 for t0 in T0)
+    bms, by = bound(nbytes, 4 * H * D * pairs)
+    # yardstick: SDPA over each row's history + window + new keys in bf16
+    L = max(T0) + t1
+    k = torch.zeros((S, H, L, D), dtype=torch.bfloat16, device="cuda")
+    v = torch.zeros_like(k)
+    k_deq = Q.dequantize_k(c.k_codes, c.k_scale, c.k_mn, 32,
+                           2).transpose(-1, -2)
+    v_deq = Q.dequantize_v(c.v_codes, c.v_scale, c.v_mn, 32, 2)
+    kn, vn = arrays[9], arrays[10]
+    mask = torch.zeros((S, 1, t1, L), dtype=torch.bool, device="cuda")
+    for s_, (nkq, nkw, nvq) in enumerate(rows):
+        t0, nvw = nkq + nkw, nkq + nkw - nvq
+        k[s_, :, :nkq] = k_deq[s_, :, :nkq].to(torch.bfloat16)
+        k[s_, :, nkq:t0] = c.k_win[s_, :, :nkw]
+        v[s_, :, :nvq] = v_deq[s_, :, :nvq].to(torch.bfloat16)
+        v[s_, :, nvq:t0] = c.v_win[s_, :, :nvw]
+        k[s_, :, t0:t0 + t1] = kn[s_]
+        v[s_, :, t0:t0 + t1] = vn[s_]
+        mask[s_, 0] = (torch.arange(L, device="cuda")[None, :]
+                       <= t0 + torch.arange(t1, device="cuda")[:, None])
+    del k_deq, v_deq
+    results[name] = dict(
+        max_abs_err=worst,
+        ms=cuda_ms(lambda: FE.flash_extend_attention_rows(*arrays, counts,
+                                                          **kw)),
+        plain_ms=cuda_ms(lambda: FE.flash_extend_attention_rows_plain(
+            *arrays, counts, **kw)),
+        bound_ms=bms, bound_by=by,
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask)))
+    log(f"[kernel] {name} timed at S={S} slots, fills {FILLS}, T1={t1}, "
+        f"KIVI-2 (vf 128), H={H}: live bytes {nbytes / 1e6:.2f} MB")
 
 
 def _logit_err(got, want, nq: int, what: str) -> float:
@@ -1333,6 +1462,7 @@ def phase_kernels():
     check_decode(gen, results)
     check_fused_decode_rows(gen, results)
     check_extend(gen, results)
+    check_extend_rows(gen, results)
     check_wgmma_tile(gen)
     check_flash(gen, results)
     check_fp_decode(gen, results)
@@ -1352,7 +1482,7 @@ def phase_kernels():
 SPLIT_KERNELS = ("qk_dequant_matmul", "pv_dequant_matmul",
                  "flash_extend_qhist")
 KIVI_KERNELS = ("quantize_pack_k", "quantize_pack_v", "flash_extend_attention",
-                "fused_decode_attention_wide",
+                "flash_extend_attention_rows", "fused_decode_attention_wide",
                 "fused_decode_attention") + SPLIT_KERNELS
 PROBE = ("trimmed",)        # the ablation probe runs on the probe path only
 # path -> (kernels that must launch, kernels that must not).  The engine's
@@ -2281,6 +2411,539 @@ def prefix_batcher(cfg, qcfg, params, smi: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 4c: speculative serving at full width
+# ---------------------------------------------------------------------------
+
+SPEC_K, SPEC_BATCH_K = 8, 4      # speculation depth: engine, batcher
+SPEC_PROMPTS = (1000, 2500)      # the second past SPLIT_MIN_HISTORY
+SPEC_NEW, SPEC_SAMPLED_NEW, SPEC_DEBUG_NEW, SPEC_PROFILED = 128, 64, 24, 32
+SPEC = {}                        # what phase_spec measured, for the summary
+_SPEC_RUN = ("flash_attention", "quantize_pack_k", "quantize_pack_v",
+             "flash_extend_attention_rows")
+_SPEC_NOT = ("fused_decode_attention_wide",
+             "flash_extend_attention") + SPLIT_KERNELS + PROBE
+for _p, _draft_kernel, _other in (
+        ("spec-self", "fp_decode_attention_kernel", "fused_decode_attention"),
+        ("spec-shallow", "fused_decode_attention",
+         "fp_decode_attention_kernel")):
+    for _suffix in ("", "-device", "-debug"):
+        PATHS[_p + _suffix] = (_SPEC_RUN + (_draft_kernel,),
+                               _SPEC_NOT + (_other,))
+PATHS["spec-batcher"] = (_SPEC_RUN + ("fused_decode_attention",),
+                         _SPEC_NOT + ("fp_decode_attention_kernel",))
+
+
+def write_hf_checkpoint(path: str, params: dict, cfg) -> None:
+    """The port's parameters as an HF Llama checkpoint: config.json and
+    one model.safetensors (BF16, HF names and (out, in) layout), the
+    format written by hand: an 8-byte little-endian header length, the
+    JSON header, the raw bytes."""
+    import os
+    import struct
+
+    tensors = {"model.embed_tokens.weight": params["embed"],
+               "model.norm.weight": params["ln_f"],
+               "lm_head.weight": params["lm_head"].t()}
+    names = {"wq": "self_attn.q_proj", "wk": "self_attn.k_proj",
+             "wv": "self_attn.v_proj", "wo": "self_attn.o_proj",
+             "wg": "mlp.gate_proj", "wu": "mlp.up_proj",
+             "wd": "mlp.down_proj"}
+    for i, lp in enumerate(params["layers"]):
+        pre = f"model.layers.{i}."
+        tensors[pre + "input_layernorm.weight"] = lp["ln_attn"]
+        tensors[pre + "post_attention_layernorm.weight"] = lp["ln_mlp"]
+        for n, hf in names.items():
+            tensors[pre + hf + ".weight"] = lp[n].t()
+    header, blobs, off = {}, [], 0
+    for name, t in tensors.items():
+        raw = t.contiguous().to(torch.bfloat16).view(torch.int16).cpu(
+        ).numpy().tobytes()
+        header[name] = {"dtype": "BF16", "shape": list(t.shape),
+                        "data_offsets": [off, off + len(raw)]}
+        blobs.append(raw)
+        off += len(raw)
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "model.safetensors"), "wb") as f:
+        f.write(struct.pack("<Q", len(head)))
+        f.write(head)
+        for raw in blobs:
+            f.write(raw)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump({"architectures": ["LlamaForCausalLM"],
+                   "model_type": "llama", "vocab_size": cfg.vocab_size,
+                   "hidden_size": cfg.hidden_size,
+                   "intermediate_size": cfg.intermediate_size,
+                   "num_hidden_layers": cfg.num_layers,
+                   "num_attention_heads": cfg.num_heads,
+                   "num_key_value_heads": cfg.num_kv_heads,
+                   "rms_norm_eps": cfg.rms_norm_eps,
+                   "rope_theta": cfg.rope_theta,
+                   "max_position_embeddings": cfg.max_position_embeddings,
+                   "tie_word_embeddings": False,
+                   "torch_dtype": "bfloat16"}, f)
+
+
+def _same_params(a: dict, b: dict, what: str) -> None:
+    """Every tensor of two parameter dicts bit-equal (dtype and shape
+    too)."""
+    pairs = [(k, a[k], b[k]) for k in ("embed", "ln_f", "lm_head")]
+    pairs += [(f"layers.{i}.{n}", la[n], lb[n])
+              for i, (la, lb) in enumerate(zip(a["layers"], b["layers"]))
+              for n in la]
+    if len(a["layers"]) != len(b["layers"]):
+        raise AssertionError(f"{what}: layer counts differ")
+    for name, x, y in pairs:
+        if x.dtype != y.dtype or x.shape != y.shape or not torch.equal(
+                x, y.to(x.device)):
+            raise AssertionError(f"{what}: {name} is not bit-equal")
+
+
+def shallow_draft(cfg, smi: str):
+    """The shallow draft (2 layers at the target's width, seeded random
+    weights) brought onto the card the way a real checkpoint comes: its
+    weights written as an HF directory (model.safetensors, BF16, and
+    config.json), read back through load_hf_checkpoint, then through
+    save_checkpoint / load_checkpoint, each bit-equal to the written
+    tensors."""
+    import dataclasses
+    import tempfile
+
+    from kivi_tpu_torch.models import modeling
+    from kivi_tpu_torch.models.checkpoint import (load_checkpoint,
+                                                  save_checkpoint)
+    from kivi_tpu_torch.models.hf_loader import load_hf_checkpoint
+    dcfg = dataclasses.replace(cfg, num_layers=2)
+    written = modeling.init_params(dcfg, seed=11, device="cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        write_hf_checkpoint(f"{tmp}/hf", written, dcfg)
+        t_write = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        lcfg, loaded = load_hf_checkpoint(f"{tmp}/hf", device="cuda")
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        if lcfg != dcfg:
+            raise AssertionError(f"config_from_hf: {lcfg} != {dcfg}")
+        _same_params(written, loaded, "load_hf_checkpoint")
+        save_checkpoint(f"{tmp}/native", loaded, lcfg)
+        ncfg, native = load_checkpoint(f"{tmp}/native", device="cuda")
+        if ncfg != dcfg:
+            raise AssertionError(f"load_checkpoint: {ncfg} != {dcfg}")
+        _same_params(written, native, "save/load_checkpoint")
+    del written, loaded
+    log(f"[spec] shallow draft (2 layers, llama2-7b width): written as an "
+        f"HF safetensors directory in {t_write:.1f} s, read back by "
+        f"load_hf_checkpoint in {t_load:.1f} s, every tensor bit-equal; "
+        f"save_checkpoint + load_checkpoint bit-equal | card {smi}")
+    return dcfg, native
+
+
+def teacher_gaps(eng, prompts, pad_lens, streams, per_row: bool = False):
+    """Each row's greedy stream fed through the target engine eng (batch
+    = rows, host-int decode_step after a one-shot prefill, as the
+    speculative paths prefill): at every position, the gap between the
+    engine's top logit and the logit of the stream's token there, over
+    max|logit|.  Returns (the widest gap, the share of positions where
+    the stream's token is the engine's top one), or with per_row a list
+    of them, one per row."""
+    Bn, T = prompts.shape
+    L = max(len(s) for s in streams)
+    toks = torch.tensor([s + [s[-1]] * (L - len(s)) for s in streams],
+                        device="cuda")
+    valid = torch.tensor([[i < len(s) for i in range(L)] for s in streams],
+                         device="cuda")
+    logits, caches = eng._prefill(prompts, eng.own_caches(), pad_lens)
+    pos = torch.full((Bn, 1), T, device="cuda")
+    if pad_lens is not None:
+        pos = pos - torch.tensor(pad_lens, device="cuda")[:, None]
+    gaps = []
+    for i in range(L):
+        top = logits.max(-1).values
+        gaps.append((top - logits.gather(-1, toks[:, i:i + 1])[:, 0])
+                    / logits.abs().max(-1).values)
+        if i + 1 < L:
+            logits, caches = eng.decode_step(toks[:, i:i + 1], pos + i,
+                                             caches, pad_lens=pad_lens,
+                                             flush=True)
+    gaps, valid = torch.stack(gaps, 1).cpu(), valid.cpu()
+    if per_row:
+        return [(float(g[v].max()), float((g[v] == 0).float().mean()))
+                for g, v in zip(gaps, valid)]
+    gaps = gaps[valid]
+    return float(gaps.max()), float((gaps == 0).float().mean())
+
+
+def _hold_to_target(what: str, gap: float, top_share: float,
+                    equal: float) -> None:
+    log(f"[spec] {what}: widest gap to the target's top logit "
+        f"{gap:.3e} x max|logit| (tolerance 5e-2, phase 5's), the "
+        f"target's top token at {top_share:.3f} of the positions, equal "
+        f"to Engine.generate's stream at {equal:.3f}")
+    if not gap <= 5e-2:
+        raise AssertionError(f"{what}: a greedy token lies past the "
+                             "tolerance below the target's top logit")
+
+
+def _share_equal(a, b) -> float:
+    a, b = list(a), list(b)
+    return sum(x == y for x, y in zip(a, b)) / max(len(b), 1)
+
+
+def run_spec_engine(draft: str, spec, dbg, prompts: dict, ref: dict,
+                    smi: str) -> tuple:
+    """One draft's speculative engine paths at batch 1: generate (each
+    step replayed as a CUDA graph) on every prompt, timed after a
+    warm-up and profiled; the stream, equal to generate; a sampled run
+    twice under one seed, equal; generate_device, equal to generate;
+    the debug=True engine (every step a checked call) over the first
+    SPEC_DEBUG_NEW tokens, equal.  Returns ({path: launches}, {prompt
+    length: greedy stream (1, SPEC_NEW)})."""
+    import numpy as np
+
+    from kivi_tpu_torch.kernels import _build
+    path = f"spec-{draft}"
+    launches = {}
+    outs = {}
+    _build.LAUNCHES.clear()
+    for n, toks in prompts.items():
+        spec.generate(toks, 16)                  # warm-up: the captures
+        spec.stats = dict.fromkeys(spec.stats, 0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = spec.generate(toks, SPEC_NEW)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        acc = spec.last_acceptance
+        outs[n] = out
+        prof = busy_ms(f"{path} {n}",
+                       lambda: spec.generate(toks, SPEC_PROFILED))
+        m = SPEC.setdefault(path, {})[n] = dict(
+            tokens_per_s=SPEC_NEW / wall, iterations=len(acc),
+            mean_accepted=float(np.mean(acc)),
+            tokens_per_iteration=(SPEC_NEW - 1) / len(acc),
+            clamped=spec.stats["clamped"],
+            boundary_flushes=spec.stats["boundary_flush_k"]
+            + spec.stats["boundary_flush_v"],
+            host_ms_per_iteration=wall * 1e3 / len(acc),
+            busy_ms=prof[0], profiled_wall_ms=prof[1],
+            idle_share=1 - prof[0] / prof[1])
+        log(f"[spec:{path}] prompt {n}, k={spec.k}, {SPEC_NEW} greedy "
+            f"tokens: {m['tokens_per_s']:.1f} tokens/s (target "
+            f"Engine.generate {ref[n]['tokens_per_s']:.1f}), "
+            f"{len(acc)} iterations, mean accepted {m['mean_accepted']:.2f}"
+            f" ({m['tokens_per_iteration']:.2f} tokens an iteration), "
+            f"clamped {m['clamped']}, boundary flushes "
+            f"{m['boundary_flushes']}, host {m['host_ms_per_iteration']:.2f}"
+            f" ms an iteration | {SPEC_PROFILED} tokens profiled: busy "
+            f"{prof[0]:.1f} of {prof[1]:.1f} ms, idle share "
+            f"{m['idle_share']:.4f} | card {smi}")
+    launches[path] = dict(_build.LAUNCHES)
+    check_launches(path, launches[path])
+    log(f"[spec:{path}] launches {launches[path]}")
+
+    first = next(iter(prompts))
+    toks = prompts[first]
+    stream = np.concatenate(list(spec.generate_stream(toks, SPEC_NEW)))
+    _equal_tokens(stream[None], outs[first], f"{path} stream vs generate")
+    kw = dict(temperature=0.8, top_k=50, top_p=0.95)
+    sampled = []
+    for _ in range(2):
+        g = torch.Generator(device="cuda")
+        g.manual_seed(21)
+        sampled.append(spec.generate(toks, SPEC_SAMPLED_NEW, generator=g,
+                                     **kw))
+    _equal_tokens(sampled[0], sampled[1], f"{path} sampled, one seed")
+    if sampled[0].shape != (1, SPEC_SAMPLED_NEW) or sampled[0].max() >= \
+            spec.target.cfg.vocab_size:
+        raise AssertionError(f"{path}: bad sampled tokens")
+    _build.LAUNCHES.clear()
+    for n, t in prompts.items():
+        dev = spec.generate_device(t, SPEC_NEW)
+        _equal_tokens(dev, outs[n], f"{path} generate_device vs generate, "
+                                    f"prompt {n}")
+    launches[path + "-device"] = dict(_build.LAUNCHES)
+    check_launches(path + "-device", launches[path + "-device"])
+    _build.LAUNCHES.clear()
+    for n, t in prompts.items():
+        got = dbg.generate(t, SPEC_DEBUG_NEW)
+        _equal_tokens(got, outs[n][:, :SPEC_DEBUG_NEW],
+                      f"{path} debug=True vs graphs, prompt {n}")
+    launches[path + "-debug"] = dict(_build.LAUNCHES)
+    check_launches(path + "-debug", launches[path + "-debug"])
+    log(f"[spec:{path}] stream equal to generate; sampled (temperature "
+        f"0.8, top-k 50, top-p 0.95) equal twice under one seed; "
+        f"generate_device equal to generate on every prompt; debug=True "
+        f"equal over {SPEC_DEBUG_NEW} tokens; launches device "
+        f"{launches[path + '-device']}, debug {launches[path + '-debug']}")
+    return launches, outs
+
+
+def run_spec_batcher(cfg, qcfg, params, dcfg, dparams, smi: str) -> dict:
+    """SpeculativeBatcher (shallow draft, 8 slots, k = 4) over the 12
+    requests of batcher_requests, each step two graph replays, its
+    launches counted; the same requests from the same start with the
+    bodies run eagerly for EAGER_STEPS steps must give the graphs'
+    tokens; every greedy request's stream teacher-forced through a
+    target Engine at its bucket's left pad."""
+    from kivi_tpu_torch.kernels import _build
+    from kivi_tpu_torch.serving.engine import Engine
+    from kivi_tpu_torch.serving.spec_batcher import SpeculativeBatcher
+    buckets = (128, 256, 512, 1024)
+    reqs = batcher_requests(12, cfg.vocab_size, seed=5)
+
+    def make():
+        return SpeculativeBatcher(cfg, qcfg, params, dcfg, qcfg, dparams,
+                                  num_slots=B, max_seq_len=TMAX,
+                                  k=SPEC_BATCH_K, prompt_buckets=buckets)
+
+    bat = make()
+    _build.LAUNCHES.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for r in reqs:
+        bat.submit(r)
+    steps = 0
+    while bat.queue or bat.active.any():
+        bat.step()
+        steps += 1
+    bat._retire()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"spec-batcher": dict(_build.LAUNCHES)}
+    check_launches("spec-batcher", launches["spec-batcher"])
+    V = cfg.vocab_size
+    for r in reqs:
+        toks = bat.results[r.uid].tokens
+        if len(toks) != r.max_new_tokens or not all(0 <= t < V
+                                                    for t in toks):
+            raise AssertionError(f"spec-batcher: request {r.uid} returned "
+                                 f"{len(toks)} tokens")
+    st = bat.stats
+    n_tok = sum(r.max_new_tokens for r in reqs)
+    SPEC["spec-batcher"] = dict(
+        generated_tokens_per_s=n_tok / wall, steps=steps,
+        mean_accepted=st["accepted"] / st["slot_steps"],
+        clamped=st["clamped"], host_ms_per_step=wall * 1e3 / steps)
+    log(f"[spec:spec-batcher] {len(reqs)} requests, {bat.S} slots, k="
+        f"{bat.k}, shallow draft: {n_tok} tokens in {steps} steps, "
+        f"{wall:.3f} s = {n_tok / wall:.1f} generated tokens/s, mean "
+        f"accepted {SPEC['spec-batcher']['mean_accepted']:.3f} a slot "
+        f"step, clamped {st['clamped']}, {len(bat.graphs)} graph(s) | "
+        f"{cfg.num_layers} layers | card {smi}")
+    log(f"[spec:spec-batcher] launches {launches['spec-batcher']}")
+
+    eager = make()
+    eager.graphs = None
+    for r in reqs:
+        eager.submit(r)
+    for _ in range(EAGER_STEPS):
+        eager.step()
+    so_far = {u: r.tokens for u, r in eager.results.items()}
+    so_far.update({req.uid: eager.slot_out[s]
+                   for s, req in enumerate(eager.slot_req) if req})
+    for uid, toks in so_far.items():
+        if toks != bat.results[uid].tokens[:len(toks)]:
+            raise AssertionError(f"spec-batcher: request {uid}'s tokens "
+                                 "differ between the graphs and the eager "
+                                 "bodies")
+    log(f"[spec:spec-batcher] eager bodies, first {EAGER_STEPS} steps: "
+        f"{sum(map(len, so_far.values()))} tokens of {len(so_far)} "
+        "requests equal the graphs'")
+    results = {u: r.tokens for u, r in bat.results.items()}
+    del eager, bat
+    torch.cuda.empty_cache()
+    # the greedy streams against the target, one Engine per bucket
+    greedy = [r for r in reqs if r.temperature == 0.0]
+    worst, tops, equal = 0.0, [], []
+    for bucket in buckets:
+        group = [r for r in greedy
+                 if next(b for b in buckets if len(r.prompt) <= b) == bucket]
+        if not group:
+            continue
+        pads = [bucket - len(r.prompt) for r in group]
+        prompts = torch.tensor([[0] * p + r.prompt
+                                for p, r in zip(pads, group)], device="cuda")
+        eng = Engine(cfg=cfg, qcfg=qcfg, params=params, max_seq_len=TMAX,
+                     batch_size=len(group))
+        streams = [results[r.uid] for r in group]
+        gap, top = teacher_gaps(eng, prompts, pads, streams)
+        want = eng.generate(prompts, max(r.max_new_tokens for r in group),
+                            pad_lens=pads).tolist()
+        worst = max(worst, gap)
+        tops.append(top)
+        equal += [_share_equal(s, w[:len(s)]) for s, w in zip(streams,
+                                                               want)]
+        del eng
+    SPEC["spec-batcher"].update(gap=worst, equal_share=equal)
+    _hold_to_target(f"spec-batcher ({len(greedy)} greedy requests)", worst,
+                    min(tops), min(equal))
+    log(f"[spec:spec-batcher] per-request share equal to Engine.generate: "
+        f"{[round(e, 3) for e in equal]}")
+    return launches
+
+
+def phase_spec(layers: int, smi: str) -> dict:
+    """The speculative paths at Llama-2-7B width, `layers` deep: the
+    target (KIVI-2, the main path's QuantConfig) at batch 1 timed alone
+    on prompts of SPEC_PROMPTS tokens, then SpeculativeEngine (k = 8)
+    with draft "self" (the target's weights over an fp16 cache) and draft
+    "shallow" (2 layers over KIVI-2, loaded from an HF directory), then
+    SpeculativeBatcher with the shallow draft.  Returns {path:
+    launches}."""
+    import dataclasses
+
+    from kivi_tpu_torch.config import PRESETS, QuantConfig
+    from kivi_tpu_torch.models import modeling
+    from kivi_tpu_torch.serving.engine import Engine
+    from kivi_tpu_torch.serving.speculative import SpeculativeEngine
+
+    cfg = dataclasses.replace(PRESETS["llama2-7b"], num_layers=layers)
+    params = modeling.init_params(cfg, seed=0, device="cuda")
+    kivi = QuantConfig(2, 2, 32, 128, v_flush=128)
+    fp16 = QuantConfig(16, 16, 32, 128)
+    dcfg, dparams = shallow_draft(cfg, smi)
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(13)
+    prompts = {n: torch.randint(1, cfg.vocab_size, (1, n),
+                                generator=gen).cuda() for n in SPEC_PROMPTS}
+    target = Engine(cfg=cfg, qcfg=kivi, params=params, max_seq_len=TMAX,
+                    batch_size=1)
+    ref = {}
+    for n, toks in prompts.items():
+        target.generate(toks, 16)                  # warm-up: the captures
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = target.generate(toks, SPEC_NEW)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        prof = busy_ms(f"target {n}",
+                       lambda: target.generate(toks, SPEC_PROFILED))
+        ref[n] = dict(tokens=out[0].tolist(), tokens_per_s=SPEC_NEW / wall,
+                      busy_ms=prof[0], profiled_wall_ms=prof[1],
+                      idle_share=1 - prof[0] / prof[1])
+        log(f"[spec:target] Engine.generate at batch 1, prompt {n}, "
+            f"{SPEC_NEW} greedy tokens (one-shot prefill included): "
+            f"{ref[n]['tokens_per_s']:.1f} tokens/s | {SPEC_PROFILED} "
+            f"tokens profiled: busy {prof[0]:.1f} of {prof[1]:.1f} ms, "
+            f"idle share {ref[n]['idle_share']:.4f} | {layers} layers | "
+            f"card {smi}")
+    SPEC["target"] = {n: {k: v for k, v in r.items() if k != "tokens"}
+                      for n, r in ref.items()}
+    dbg_target = Engine(cfg=cfg, qcfg=kivi, params=params, max_seq_len=TMAX,
+                        batch_size=1, debug=True)
+    launches, streams = {}, {}
+    drafts = (("self", (cfg, fp16, params)), ("shallow", (dcfg, kivi,
+                                                          dparams)))
+    for name, (dc, dq, dp) in drafts:
+        draft = Engine(cfg=dc, qcfg=dq, params=dp, max_seq_len=TMAX,
+                       batch_size=1)
+        dbg_draft = Engine(cfg=dc, qcfg=dq, params=dp, max_seq_len=TMAX,
+                           batch_size=1, debug=True)
+        got, streams[name] = run_spec_engine(
+            name, SpeculativeEngine(target, draft, k=SPEC_K),
+            SpeculativeEngine(dbg_target, dbg_draft, k=SPEC_K), prompts,
+            ref, smi)
+        launches.update(got)
+        del draft, dbg_draft
+        torch.cuda.empty_cache()
+        stamp(f"spec-{name}")
+    del target, dbg_target
+    torch.cuda.empty_cache()
+    # both drafts' greedy streams of a prompt teacher-forced through the
+    # target at once (batch 2, the prompt in both rows)
+    tf = Engine(cfg=cfg, qcfg=kivi, params=params, max_seq_len=TMAX,
+                batch_size=len(drafts))
+    for n, toks in prompts.items():
+        rows = [streams[name][n][0].tolist() for name, _ in drafts]
+        gaps = teacher_gaps(tf, toks.expand(len(drafts), -1), None, rows,
+                            per_row=True)
+        for (name, _), row, (gap, top) in zip(drafts, rows, gaps):
+            equal = _share_equal(row, ref[n]["tokens"])
+            _hold_to_target(f"spec-{name} prompt {n}", gap, top, equal)
+            SPEC[f"spec-{name}"][n].update(gap=gap, top_share=top,
+                                           equal_share=equal)
+    del tf
+    torch.cuda.empty_cache()
+    launches.update(run_spec_batcher(cfg, kivi, params, dcfg, dparams, smi))
+    del params, dparams
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_spec_vs_plain():
+    """The speculative verify, card (kernels: row 3's per-row entry)
+    against host (plain versions), 2 layers at full width, same weights,
+    from the same prefilled state: one width-(k+1) verify's logits over
+    the engine's caches with their counters on the device (batch 1, a
+    300-token prompt), and over 4 batcher slots admitted at bucketed
+    left pads; each slot within phase 5's tolerance of the host."""
+    from kivi_tpu_torch.cache import kivi_cache as KC
+    from kivi_tpu_torch.config import QuantConfig
+    from kivi_tpu_torch.models import modeling
+    from kivi_tpu_torch.serving.batcher import Request
+    from kivi_tpu_torch.serving.engine import Engine
+    from kivi_tpu_torch.serving.spec_batcher import SpeculativeBatcher
+
+    cfg, params = _small_model(seed=9)
+    cpu_params = {k: ([{n: t.cpu() for n, t in lp.items()} for lp in v]
+                      if k == "layers" else v.cpu())
+                  for k, v in params.items()}
+    kivi = QuantConfig(2, 2, 32, 128, v_flush=128)
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(17)
+    V, k, bk = cfg.vocab_size, SPEC_K, SPEC_BATCH_K
+    prompt = torch.randint(1, V, (1, 300), generator=gen)
+    block = torch.randint(1, V, (1, k + 1), generator=gen)
+    lens = (100, 256, 150, 201)
+    prompts = [torch.randint(1, V, (n,), generator=gen).tolist()
+               for n in lens]
+    blocks = torch.randint(1, V, (len(lens), bk + 1), generator=gen)
+    out = {}
+    for dev, p in (("cuda", params), ("cpu", cpu_params)):
+        t0 = time.perf_counter()
+        eng = Engine(cfg=cfg, qcfg=kivi, params=p, max_seq_len=512,
+                     batch_size=1, device=dev)
+        _, caches = eng._prefill(prompt.to(dev), eng.own_caches())
+        KC.counters_to_device(caches)
+        positions = (300 + torch.arange(k + 1, device=dev))[None]
+        lg, _ = modeling.forward(p, block.to(dev), caches, cfg, kivi,
+                                 positions, mode="extend", last_only=False,
+                                 ingest="window")
+        bat = SpeculativeBatcher(cfg, kivi, p, cfg, kivi, p,
+                                 num_slots=len(lens), max_seq_len=512,
+                                 k=bk, device=dev, prompt_buckets=(128, 256))
+        for i, pr in enumerate(prompts):
+            bat.submit(Request(uid=i, prompt=pr, max_new_tokens=8))
+        bat._admit()
+        positions = bat.pos + torch.arange(bk + 1, device=dev)
+        lg2, _ = modeling.forward(p, blocks.to(dev), bat.caches, cfg, kivi,
+                                  positions, mode="extend", last_only=False,
+                                  pad_len=bat.pad_dev, active=bat.act_dev,
+                                  ingest="window")
+        out[dev] = (lg.float().cpu(), lg2.float().cpu())   # synchronizes
+        log(f"[plain:spec] {dev}: prefills and the two verifies in "
+            f"{time.perf_counter() - t0:.1f} s")
+        del eng, bat
+    for i, what in enumerate(("engine verify (k+1 = 9)",
+                              "batcher verify (k+1 = 5)")):
+        card, host = out["cuda"][i], out["cpu"][i]
+        for s in range(card.shape[0]):
+            err = (card[s] - host[s]).abs().max().item()
+            scale = host[s].abs().max().item()
+            tol = 5e-2 * scale                   # as phase 5's other paths
+            log(f"[plain:spec] 2 layers llama2-7b width, {what}, row {s}: "
+                f"logits max|card - host| = {err:.3e} (max|host| "
+                f"{scale:.3e}, tolerance {tol:.3e})")
+            if not err <= tol:
+                raise AssertionError(f"spec {what} row {s}: card and host "
+                                     "verify logits disagree")
+    del params, cpu_params
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 # phase 5: main path against the plain path on the host
 # ---------------------------------------------------------------------------
 
@@ -2838,11 +3501,14 @@ def main():
     stamp("main")
     launches.update(phase_prefix(args.layers, smi))
     stamp("prefix")
+    launches.update(phase_spec(args.layers, smi))
+    stamp("spec")
     launches["probe"] = phase_probe()
     stamp("probe")
     phase_vs_plain()
     phase_long_vs_plain()
     phase_prefix_vs_plain()
+    phase_spec_vs_plain()
     stamp("vs plain")
     phase_batcher_vs_engine()
     prefix_batcher_vs_engine()
@@ -2854,6 +3520,10 @@ def main():
         "quantize_pack_v": ("kivi_tpu_torch/kernels/csrc/quant_pack.cu",
                             "kivi_tpu/kernels/quant_pack.py:177"),
         "flash_extend_attention": (
+            "kivi_tpu_torch/kernels/csrc/flash_extend.cu",
+            "kivi_tpu/kernels/flash_extend.py:373"),
+        # row 3's per-row entry: the same kernel over per-row counters
+        "flash_extend_attention_rows": (
             "kivi_tpu_torch/kernels/csrc/flash_extend.cu",
             "kivi_tpu/kernels/flash_extend.py:373"),
         "fused_decode_attention_wide": (
@@ -2889,6 +3559,9 @@ def main():
                                       "dequantized to bf16",
                  "flash_extend_qhist": "SDPA over the history dequantized "
                                        "to bf16",
+                 "flash_extend_attention_rows": "SDPA, per-row causal "
+                                                "mask, over each row's "
+                                                "cache dequantized to bf16",
                  "trimmed": "SDPA over the history dequantized to bf16"}
     kernels = []
     for k, (src, rep) in sources.items():
@@ -2920,6 +3593,7 @@ def main():
                else "not measured") for mode, m in modes.items())
             + f" | card {smi}")
     log(f"[decode] {json.dumps(DECODE)}")
+    log(f"[spec] {json.dumps(SPEC)} | card {smi}")
     log(f"[done] {time.perf_counter() - START:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

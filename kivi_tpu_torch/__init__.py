@@ -13,10 +13,21 @@ It holds the KIVI serving main path (chunked prefill through the extend
 attention, or one-shot prefill through flash attention, then
 greedy/sampled decode), the fp16-cache baseline engine beside it, and
 the continuous batcher with its HTTP front end (serving/batcher.py,
-serving/api.py) over either cache.
+serving/api.py) over either cache, speculative decoding at batch 1 and
+over the batcher's slots (serving/speculative.py,
+serving/spec_batcher.py), and the HF checkpoint loader
+(models/hf_loader.py) with the port's own checkpoint format
+(models/checkpoint.py).
 """
 
 from kivi_tpu_torch.config import (PRESETS, ModelConfig, QuantConfig,
                                    tiny_config)
+from kivi_tpu_torch.models.hf_loader import (config_from_hf,
+                                             load_hf_checkpoint,
+                                             params_from_state_dict)
+from kivi_tpu_torch.serving.spec_batcher import SpeculativeBatcher
+from kivi_tpu_torch.serving.speculative import SpeculativeEngine
 
-__all__ = ["PRESETS", "ModelConfig", "QuantConfig", "tiny_config"]
+__all__ = ["PRESETS", "ModelConfig", "QuantConfig", "tiny_config",
+           "SpeculativeEngine", "SpeculativeBatcher", "config_from_hf",
+           "params_from_state_dict", "load_hf_checkpoint"]

@@ -100,6 +100,27 @@ def fp_append_masked(cache: FpLayerCache, k_new, v_new,
     return cache
 
 
+def rollback(cache: FpLayerCache, n_tokens,
+             active: Optional[torch.Tensor] = None) -> FpLayerCache:
+    """The fp cache's counter rollback to n_tokens committed tokens (the
+    speculative decoders', kivi_tpu/serving/speculative.py:141-147,
+    spec_batcher.py:298-311): the length alone, since the rows past it
+    are invisible to attention.  A host-int length takes an int; a
+    per-row device length an int or a (B,) tensor, written in place
+    (rows where active is false keep theirs)."""
+    if not isinstance(cache.length, torch.Tensor):
+        cache.length = int(n_tokens)
+        return cache
+    new = torch.as_tensor(n_tokens, dtype=cache.length.dtype,
+                          device=cache.length.device).expand_as(cache.length)
+    if active is not None:
+        act = active.to(device=cache.length.device,
+                        dtype=torch.bool).reshape(-1)
+        new = torch.where(act, new, cache.length)
+    cache.length.copy_(new)
+    return cache
+
+
 def counters_to_device(caches, buf: Optional[torch.Tensor] = None
                        ) -> torch.Tensor:
     """kivi_cache.counters_to_device for fp caches: every layer's host-int
@@ -126,26 +147,34 @@ def fp_extend_attention(q, k_new, v_new, cache: FpLayerCache,
     predicate, so a fully padded row keeps a finite softmax.
 
     The JAX package computes this with plain einsums and no Pallas
-    kernel; so does the port, on the CPU and the card alike.  It reads
-    only the live history [0, length): the masked positions past it
-    contribute exact zeros in the JAX version."""
+    kernel; so does the port, on the CPU and the card alike.  A host-int
+    length reads only the live history [0, length): the masked positions
+    past it contribute exact zeros in the JAX version.  A per-row device
+    length (B,) (the speculative batcher's verify over slot caches) reads
+    the whole store, each row masked past its own length, with no host
+    read."""
     B, Hq, T1, D = q.shape
     Hkv = cache.k.shape[1]
     r = Hq // Hkv
-    T0 = cache.length
     dev = q.device
+    per_row = isinstance(cache.length, torch.Tensor)
+    Th = cache.max_seq_len if per_row else cache.length
+    T0 = (cache.length.to(device=dev, dtype=torch.int64).reshape(
+        B, 1, 1, 1, 1) if per_row else cache.length)
     qg = q.reshape(B, Hkv, r, T1, D).float()
 
-    att_h = torch.einsum("bhrqd,bhdt->bhrqt", qg, cache.k[..., :T0].float())
-    pos = torch.arange(T0, device=dev)
+    att_h = torch.einsum("bhrqd,bhdt->bhrqt", qg, cache.k[..., :Th].float())
+    pos = torch.arange(Th, device=dev)
+    if per_row:
+        att_h = att_h.masked_fill(pos >= T0, NEG_INF)
     att_s = torch.einsum("bhrqd,bhjd->bhrqj", qg, k_new.float())
     qi = torch.arange(T1, device=dev)[:, None]
     kj = torch.arange(T1, device=dev)[None, :]
     att_s = att_s.masked_fill(kj > qi, NEG_INF)
 
     if sliding_window:
-        lo = (T0 + torch.arange(T1, device=dev)
-              - (sliding_window - 1)).reshape(1, 1, 1, T1, 1)
+        lo = (T0 + torch.arange(T1, device=dev).reshape(1, 1, 1, T1, 1)
+              - (sliding_window - 1))
         att_h = att_h.masked_fill(pos < lo, NEG_INF)
         att_s = att_s.masked_fill(kj + T0 < lo, NEG_INF)
 
@@ -158,9 +187,9 @@ def fp_extend_attention(q, k_new, v_new, cache: FpLayerCache,
 
     att = torch.cat([att_h, att_s], dim=-1) / math.sqrt(D)
     p = torch.softmax(att, dim=-1)
-    out = torch.einsum("bhrqt,bhtd->bhrqd", p[..., :T0],
-                       cache.v[:, :, :T0].float())
-    out = out + torch.einsum("bhrqj,bhjd->bhrqd", p[..., T0:],
+    out = torch.einsum("bhrqt,bhtd->bhrqd", p[..., :Th],
+                       cache.v[:, :, :Th].float())
+    out = out + torch.einsum("bhrqj,bhjd->bhrqd", p[..., Th:],
                              v_new.float())
     return out.reshape(B, Hq, T1, D)
 

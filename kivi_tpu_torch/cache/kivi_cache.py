@@ -511,3 +511,92 @@ def decode_append_masked(cache: KiviLayerCache, k_new, v_new,
     cache.n_k_win += inc
     cache.n_v_win += inc
     return cache
+
+
+# ---------------------------------------------------------------------------
+# window-only ingest and counter rollback (kivi_tpu/cache/kivi_cache.py:
+# 404-455): the speculative decoders' ingest.  A speculation block never
+# crosses a flush boundary (the decoders clamp its width to the next one),
+# so rejecting its tail is a pure counter rollback
+# ---------------------------------------------------------------------------
+
+def _append_capped(win: torch.Tensor, new: torch.Tensor, n, act):
+    """Write new (B, H, T1, D) into the window win (B, H, W, D) at each
+    row's count n, dropping the tokens past W: the window's last row is
+    never overwritten (a clamped write at n == W would land on the
+    newest real token, which the next flush would quantize for good).
+    Host-int n: a slice copy, returns the new count.  Device n (B,): a
+    gather-select-scatter over the min(T1, W) slots from
+    clamp(n, 0, W - min(T1, W)), whose tokens outside [n, n + T1) or on
+    rows where act is false keep the window's own bytes; n is advanced
+    in place.  Traffic O(T1) per row; no host read."""
+    B, H, W, D = win.shape
+    T1 = new.shape[2]
+    if not isinstance(n, torch.Tensor):
+        m = max(0, min(T1, W - n))
+        if m:
+            win[:, :, n:n + m].copy_(new[:, :, :m])
+        return n + m
+    L = min(T1, W)
+    n64 = n.to(torch.int64)
+    p = n64.clamp(0, W - L)[:, None] + torch.arange(L, device=win.device)
+    j = p - n64[:, None]                       # token index at slot p
+    sel = (j >= 0) & (j < T1)
+    if act is not None:
+        sel = sel & act[:, None]
+    shape = (B, 1, L, 1)
+    idx = p.reshape(shape).expand(B, H, L, D)
+    src = new.gather(2, j.clamp(0, T1 - 1).reshape(shape).expand(
+        B, H, L, D)).to(win.dtype)
+    win.scatter_(2, idx, torch.where(sel.reshape(shape), src,
+                                     win.gather(2, idx)))
+    inc = (W - n).clamp(0, T1)
+    n += inc if act is None else inc * act.to(n.dtype)
+    return n
+
+
+def window_append_capped(cache: KiviLayerCache, k_new, v_new,
+                         active: Optional[torch.Tensor] = None
+                         ) -> KiviLayerCache:
+    """Append T1 tokens' post-RoPE K/V (B, H, T1, D) to the fp windows
+    ONLY: no flush, no quantization, no quantized watermark moved.
+    Tokens that would overflow a window are dropped, never written over
+    its last row (kivi_tpu/cache/kivi_cache.py:404-440).  Dropped or
+    stale rows sit past the valid counts, invisible to attention and
+    overwritten by later appends before any flush can see them.
+
+    Host-int counters (uniform over the batch): slice copies, active
+    must be None.  Per-row device counters: each row at its own count,
+    rows where active (B,) is false frozen (their writes carry the
+    window's own bytes); every tensor keeps its storage and nothing is
+    read back, so the call can be captured in a CUDA graph."""
+    per_row = isinstance(cache.n_k_win, torch.Tensor)
+    if active is not None and not per_row:
+        raise ValueError("active= needs per-row device counters")
+    act = None if active is None else _row_pred(cache, active)
+    cache.n_k_win = _append_capped(cache.k_win, k_new, cache.n_k_win, act)
+    cache.n_v_win = _append_capped(cache.v_win, v_new, cache.n_v_win, act)
+    return cache
+
+
+def rollback_counters(cache: KiviLayerCache, n_tokens,
+                      active: Optional[torch.Tensor] = None
+                      ) -> KiviLayerCache:
+    """Roll the window counters back so that the cache holds exactly
+    n_tokens committed tokens (kivi_tpu/cache/kivi_cache.py:443-455).
+    Valid only while no quantized watermark moved past n_tokens, which
+    the window-only ingest guarantees; the stale window rows beyond the
+    new counts are invisible to attention.  Host-int counters take an
+    int; per-row device counters an int or a (B,) tensor, written in
+    place (rows where active is false keep theirs)."""
+    if not isinstance(cache.n_k_win, torch.Tensor):
+        n = int(n_tokens)
+        cache.n_k_win = n - cache.n_k_quant
+        cache.n_v_win = n - cache.n_v_quant
+        return cache
+    act = None if active is None else _row_pred(cache, active)
+    for win, quant in ((cache.n_k_win, cache.n_k_quant),
+                       (cache.n_v_win, cache.n_v_quant)):
+        new = n_tokens - quant
+        win.copy_(new if act is None else torch.where(act, new, win))
+    return cache

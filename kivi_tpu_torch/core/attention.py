@@ -48,9 +48,9 @@ import torch
 from kivi_tpu_torch.cache.kivi_cache import KiviLayerCache
 from kivi_tpu_torch.config import QuantConfig
 from kivi_tpu_torch.kernels.flash import flash_attention
-from kivi_tpu_torch.kernels.flash_extend import (_extend_ws_logits,
-                                                 flash_extend_attention,
-                                                 flash_extend_qhist)
+from kivi_tpu_torch.kernels.flash_extend import (
+    _extend_ws_logits, flash_extend_attention, flash_extend_attention_rows,
+    flash_extend_qhist)
 from kivi_tpu_torch.kernels.fused_decode import fused_decode_attention
 from kivi_tpu_torch.kernels.fused_decode_wide import SPLIT as _WIDE_SPLIT
 from kivi_tpu_torch.kernels.fused_decode_wide import (
@@ -252,11 +252,26 @@ def extend_attention(q: torch.Tensor, k_new: torch.Tensor,
     positions keep the causal diagonal, so the softmax never empties even
     on a fully padded chunk.
 
-    The full extend kernel serves the call unless `use_split` sends it
-    to the qhist route (`_extend_attention_qhist`)."""
+    Host-int counters: the full extend kernel serves the call unless
+    `use_split` sends it to the qhist route (`_extend_attention_qhist`).
+    Per-row device counters (the speculative decoders' verify over slot
+    caches or replayed steps) go to the kernel's per-row entry,
+    `flash_extend_attention_rows`, which reads each row's counters on
+    the device."""
     B, Hq, T1, D = q.shape
     Hkv = cache.k_win.shape[1]
     r = Hq // Hkv
+    if isinstance(cache.n_k_quant, torch.Tensor):
+        counts = torch.stack([cache.n_k_quant, cache.n_k_win,
+                              cache.n_v_quant], dim=1).to(torch.int32)
+        out = flash_extend_attention_rows(
+            q.reshape(B, Hkv, r * T1, D).contiguous(), cache.k_codes,
+            cache.k_scale, cache.k_mn, cache.v_codes, cache.v_scale,
+            cache.v_mn, cache.k_win, cache.v_win, k_new.contiguous(),
+            v_new.contiguous(), counts, group_size=qcfg.group_size,
+            k_bits=qcfg.k_bits, v_bits=qcfg.v_bits, t1=T1,
+            sliding_window=sliding_window or 0, pad_len=pad_len)
+        return out.reshape(B, Hq, T1, D)
     if use_split(-(-r * T1 // EXTEND_ROWS) * B * Hkv, cache.n_k_quant):
         out = _extend_attention_qhist(
             q.reshape(B, Hkv, r, T1, D), k_new.contiguous(),

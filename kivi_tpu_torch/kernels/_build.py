@@ -73,6 +73,10 @@ SIGNATURES = {
         # k_bits, v_bits, n_k_quant, n_k_win, n_v_quant, sliding_window,
         # scale_is_f32, sm_scale, stream
         "kivi_flash_extend": [_P] * 13 + [_I] * 15 + [_F, _P],
+        # q, k_codes, k_scale, k_mn, v_codes, v_scale, v_mn, k_win,
+        # v_win, k_new, v_new, pad, counts, out, B, H, R, T1, D, Tmax, W,
+        # gs, k_bits, v_bits, sliding_window, scale_is_f32, sm_scale, stream
+        "kivi_flash_extend_rows": [_P] * 14 + [_I] * 12 + [_F, _P],
     },
     "flash_extend_qhist": {
         # q, k_codes, k_scale, k_mn, v_codes, v_scale, v_mn, v_win, pad,

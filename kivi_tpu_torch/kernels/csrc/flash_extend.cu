@@ -46,6 +46,17 @@
 // on wgmma; the groups' q . mn is added to S through a quad shuffle,
 // the online softmax runs on the accumulator fragment (every mask from
 // an element's row and column), and O += P V reads V transposed.
+//
+// Two entries.  kivi_flash_extend takes the three counters as host ints,
+// uniform over the batch (the engine's chunked prefill).
+// kivi_flash_extend_rows takes them per batch row from a (B, 3) int32
+// device array (n_k_quant, n_k_win, n_v_quant), as the speculative
+// batcher's verify runs over slot caches whose rows sit at different
+// fills: each block reads its own row's counters (b = blockIdx.y / H)
+// at its start, and never another row's.  The grid does not depend on
+// the counters, so the launch can be captured in a CUDA graph and
+// replayed at other fills.  The kernel cannot refuse bad counters; the
+// wrapper checks them (kivi_tpu_torch/kernels/flash_extend.py).
 
 #include <limits.h>
 
@@ -106,9 +117,11 @@ flash_extend_kernel(const __nv_bfloat16* __restrict__ q,
                     const __nv_bfloat16* __restrict__ k_new,
                     const __nv_bfloat16* __restrict__ v_new,
                     const int* __restrict__ pad_ptr,
+                    const int* __restrict__ counts,
                     float* __restrict__ out, int H, int R, int T1, int D,
                     int Tmax, int W, int gs, int k_bits, int v_bits,
-                    int nkq, int nkw, int nvq, int sw, float sm_scale) {
+                    int nkq_h, int nkw_h, int nvq_h, int sw,
+                    float sm_scale) {
     extern __shared__ __align__(128) uint8_t smem[];
     __shared__ int lo_s[2], hi_s[2];
     constexpr int SB = sizeof(ST);
@@ -120,6 +133,10 @@ flash_extend_kernel(const __nv_bfloat16* __restrict__ q,
     const int tid = threadIdx.x, lane = tid & 31, wgi = tid >> 7;
     const int bh = blockIdx.y, b = bh / H;
     const int row0 = blockIdx.x * QROWS;
+    // this block's row's counters: from the per-row array, or the host's
+    const int nkq = counts ? counts[3 * b] : nkq_h;
+    const int nkw = counts ? counts[3 * b + 1] : nkw_h;
+    const int nvq = counts ? counts[3 * b + 2] : nvq_h;
     const int T0 = nkq + nkw, Tend = T0 + T1;
     const int hist_end = max(nkq, nvq);   // chunks below it stage words
     const int KDw = D / (32 / k_bits), VDw = D / (32 / v_bits);
@@ -261,7 +278,8 @@ template <typename ST>
 int launch(const void* q, const void* kc, const void* ks, const void* km,
            const void* vc, const void* vs, const void* vm, const void* kw,
            const void* vw, const void* kn, const void* vn, const void* pad,
-           void* out, int B, int H, int R, int T1, int D, int Tmax, int W,
+           const void* counts, void* out, int B, int H, int R, int T1,
+           int D, int Tmax, int W,
            int gs, int kb, int vb, int nkq, int nkw, int nvq, int sw,
            float sm_scale, cudaStream_t stream) {
     const hq::Raw rl = hq::raw_layout<CK>(
@@ -278,7 +296,8 @@ int launch(const void* q, const void* kc, const void* ks, const void* km,
         (const ST*)km, (const uint32_t*)vc, (const ST*)vs, (const ST*)vm,
         (const __nv_bfloat16*)kw, (const __nv_bfloat16*)vw,
         (const __nv_bfloat16*)kn, (const __nv_bfloat16*)vn,
-        (const int*)pad, (float*)out, H, R, T1, D, Tmax, W, gs, kb, vb, nkq,
+        (const int*)pad, (const int*)counts, (float*)out, H, R, T1, D, Tmax,
+        W, gs, kb, vb, nkq,
         nkw, nvq, sw, sm_scale);
     return (int)cudaGetLastError();
 }
@@ -303,9 +322,35 @@ extern "C" int kivi_flash_extend(const void* q, const void* k_codes,
     cudaStream_t st = (cudaStream_t)stream;
 #define KIVI_EXTEND(ST_)                                                      \
     return launch<ST_>(q, k_codes, k_scale, k_mn, v_codes, v_scale, v_mn,    \
-                       k_win, v_win, k_new, v_new, pad, out, B, H, R, T1, D,  \
-                       Tmax, W, gs, k_bits, v_bits, n_k_quant, n_k_win,       \
-                       n_v_quant, sliding_window, sm_scale, st)
+                       k_win, v_win, k_new, v_new, pad, nullptr, out, B, H,   \
+                       R, T1, D, Tmax, W, gs, k_bits, v_bits, n_k_quant,      \
+                       n_k_win, n_v_quant, sliding_window, sm_scale, st)
+    if (scale_is_f32) KIVI_EXTEND(float);
+    KIVI_EXTEND(__nv_bfloat16);
+#undef KIVI_EXTEND
+}
+
+// counts: (B, 3) int32 on the device, row b's (n_k_quant, n_k_win,
+// n_v_quant); every row's must satisfy the host-int entry's contract
+// (n_k_quant a multiple of gs, n_v_quant <= n_k_quant + n_k_win <= Tmax,
+// n_k_win <= W, n_k_quant + n_k_win - n_v_quant <= W)
+extern "C" int kivi_flash_extend_rows(
+    const void* q, const void* k_codes, const void* k_scale,
+    const void* k_mn, const void* v_codes, const void* v_scale,
+    const void* v_mn, const void* k_win, const void* v_win,
+    const void* k_new, const void* v_new, const void* pad,
+    const void* counts, void* out, int B, int H, int R, int T1, int D,
+    int Tmax, int W, int gs, int k_bits, int v_bits, int sliding_window,
+    int scale_is_f32, float sm_scale, void* stream) {
+    if (D > DP || D % 16 || gs < 8 || (gs & (gs - 1)) || Tmax % gs
+        || counts == nullptr)
+        return (int)cudaErrorInvalidValue;
+    cudaStream_t st = (cudaStream_t)stream;
+#define KIVI_EXTEND(ST_)                                                      \
+    return launch<ST_>(q, k_codes, k_scale, k_mn, v_codes, v_scale, v_mn,    \
+                       k_win, v_win, k_new, v_new, pad, counts, out, B, H, R, \
+                       T1, D, Tmax, W, gs, k_bits, v_bits, 0, 0, 0,           \
+                       sliding_window, sm_scale, st)
     if (scale_is_f32) KIVI_EXTEND(float);
     KIVI_EXTEND(__nv_bfloat16);
 #undef KIVI_EXTEND

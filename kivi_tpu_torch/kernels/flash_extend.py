@@ -14,6 +14,12 @@ compute_dtype=bf16, and share the history's dequantization
 (`csrc/hist_tile.cuh`); `utils/tolerance.py` holds them to the plain
 versions per query row.
 
+`flash_extend_attention_rows` is the same kernel's second entry, over
+counters given per batch row as a (B, 3) device tensor (the speculative
+batcher's verify over slot caches, and the speculative engine's verify
+replayed as a CUDA graph): each block reads its own row's counters, and
+nothing is read back to the host.
+
 `flash_extend_qhist` computes the quantized-history part alone, as an
 unnormalized flash state split over T, for the caller to merge with the
 window and self logits (`core.attention._extend_attention_qhist`).
@@ -34,6 +40,7 @@ from kivi_tpu_torch.core import quant as Q
 from kivi_tpu_torch.kernels import _build
 from kivi_tpu_torch.kernels.fused_decode_wide import (NEG_INF,
                                                       _gather_v_window_probs)
+from kivi_tpu_torch.utils.guards import checking, debug_check
 
 
 @functools.lru_cache(maxsize=32)
@@ -151,8 +158,36 @@ def flash_extend_attention(
             group_size=group_size, k_bits=k_bits, v_bits=v_bits, t1=t1,
             sliding_window=sliding_window, pad_len=pad_len)
     name = "flash_extend_attention"
+    nkq, nkw, nvq = int(n_k_quant), int(n_k_win), int(n_v_quant)
+    _check_extend(name, qg, k_codes, k_scale, k_mn, v_codes, v_scale, v_mn,
+                  k_win, v_win, k_new, v_new, group_size, k_bits, v_bits, t1)
     B, H, R, D = qg.shape
     Tmax, W, gs = k_codes.shape[-1], k_win.shape[2], group_size
+    if not (0 <= nvq <= nkq + nkw <= Tmax and 0 <= nkw <= W
+            and nkq + nkw - nvq <= W and nkq % gs == 0):
+        raise ValueError(f"{name}: counters n_k_quant={nkq} n_k_win={nkw} "
+                         f"n_v_quant={nvq} W={W} Tmax={Tmax} gs={gs}")
+    out = torch.empty((B, H, R, D), dtype=torch.float32, device=qg.device)
+    err = _build.library("flash_extend").kivi_flash_extend(
+        qg.data_ptr(), k_codes.data_ptr(), k_scale.data_ptr(),
+        k_mn.data_ptr(), v_codes.data_ptr(), v_scale.data_ptr(),
+        v_mn.data_ptr(), k_win.data_ptr(), v_win.data_ptr(),
+        k_new.data_ptr(), v_new.data_ptr(),
+        _build.ptr(_pad_arg(pad_len, B, qg.device)), out.data_ptr(), B, H,
+        R, t1, D, Tmax, W, gs, k_bits, v_bits, nkq, nkw, nvq,
+        int(sliding_window or 0), int(k_scale.dtype == torch.float32),
+        1.0 / math.sqrt(D), _build.stream_handle(qg.device))
+    _build.check(err, name)
+    _build.LAUNCHES[name] += 1
+    return out
+
+
+def _check_extend(name, qg, k_codes, k_scale, k_mn, v_codes, v_scale, v_mn,
+                  k_win, v_win, k_new, v_new, gs: int, k_bits: int,
+                  v_bits: int, t1: int) -> None:
+    """The CUDA extend kernel's contract on its arrays (both entries)."""
+    B, H, R, D = qg.shape
+    Tmax, W = k_codes.shape[-1], k_win.shape[2]
     sdt = k_scale.dtype
     if (R % t1 or D > 128 or D % 16 or D % gs or gs < 8 or gs & (gs - 1)
             or Tmax % gs):
@@ -162,11 +197,6 @@ def flash_extend_attention(
         raise ValueError(f"{name}: bits must be 2, 4 or 8")
     if sdt not in (torch.bfloat16, torch.float32):
         raise TypeError(f"{name}: scales must be bf16 or f32, got {sdt}")
-    nkq, nkw, nvq = int(n_k_quant), int(n_k_win), int(n_v_quant)
-    if not (0 <= nvq <= nkq + nkw <= Tmax and 0 <= nkw <= W
-            and nkq + nkw - nvq <= W and nkq % gs == 0):
-        raise ValueError(f"{name}: counters n_k_quant={nkq} n_k_win={nkw} "
-                         f"n_v_quant={nvq} W={W} Tmax={Tmax} gs={gs}")
     _build.check_tensors(name, qg.device, {
         "qg": (qg, (B, H, R, D), torch.bfloat16),
         "k_codes": (k_codes, (B, H, Q.num_words(D, k_bits), Tmax),
@@ -184,18 +214,136 @@ def flash_extend_attention(
     })
     _build.check_aligned(name, qg, k_codes, k_scale, k_mn, v_codes,
                          v_scale, v_mn, k_win, v_win, k_new, v_new)
-    if pad_len is not None:
-        pad_len = pad_len.to(device=qg.device, dtype=torch.int32)
-        pad_len = pad_len.reshape(B).contiguous()
+
+
+def _pad_arg(pad_len, B: int, device):
+    if pad_len is None:
+        return None
+    return pad_len.to(device=device, dtype=torch.int32).reshape(B).contiguous()
+
+
+def flash_extend_attention_rows_plain(
+        qg, k_codes, k_scale, k_mn, v_codes, v_scale, v_mn, k_win, v_win,
+        k_new, v_new, counts: torch.Tensor, *, group_size: int, k_bits: int,
+        v_bits: int, t1: int, sliding_window: int = 0,
+        pad_len: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """flash_extend_attention_plain with the counters given per batch
+    row: counts (B, 3) int, row b's (n_k_quant, n_k_win, n_v_quant).
+    Row b is the host-int plain version at row b's counters: every mask
+    is built from the counter columns by broadcasting, with no loop over
+    rows and no counter read to the host.  The values behind each key
+    position are gathered per row: history position t reads the V store
+    below n_v_quant and v_win row t - n_v_quant above it; window slot w
+    (position n_k_quant + w) reads v_win row n_k_quant - n_v_quant + w.
+    Returns (B, Hkv, R, D) f32."""
+    B, Hkv, R, D = qg.shape
+    r = R // t1
+    Tmax, W = k_codes.shape[-1], k_win.shape[2]
+    dev = qg.device
+    c = counts.to(device=dev, dtype=torch.int64)
+    nkq, nkw, nvq = (c[:, i].reshape(B, 1, 1, 1, 1) for i in range(3))
+    T0 = nkq + nkw
+    q5 = qg.float().reshape(B, Hkv, r, t1, D)
+    qi = torch.arange(t1, device=dev).reshape(1, 1, 1, t1, 1)
+    lo = T0 + qi - (sliding_window - 1) if sliding_window else None
+    pad = (None if pad_len is None else
+           pad_len.to(device=dev, dtype=torch.int64).reshape(B, 1, 1, 1, 1))
+
+    # the window + self block [window (W) || suffix keys (t1)]
+    j = torch.arange(W + t1, device=dev)
+    is_win = j < W
+    apos = torch.where(is_win, nkq + j, T0 - W + j)
+    keep = torch.where(is_win, j < nkw, j - W <= qi)
+    if lo is not None:
+        keep = keep & (apos >= lo)
+    if pad is not None:
+        keep = keep & ((apos >= pad) | (j - W == qi))
+    att_ws = torch.einsum("bhrqd,bhjd->bhrqj", q5,
+                          torch.cat([k_win, k_new], dim=2).float())
+    att_ws = att_ws.masked_fill(~keep, NEG_INF)
+
+    # the quantized history [0, n_k_quant)
+    pos = torch.arange(Tmax, device=dev)
+    k_deq = Q.dequantize_k(k_codes, k_scale, k_mn, group_size, k_bits)
+    att_q = torch.einsum("bhrqd,bhdt->bhrqt", q5, k_deq)
+    valid = pos < nkq
+    if lo is not None:
+        valid = valid & (pos >= lo)
+    if pad is not None:
+        valid = valid & (pos >= pad)
+    att_q = att_q.masked_fill(~valid, NEG_INF)
+
+    att = torch.cat([att_q, att_ws], dim=-1) * (1.0 / math.sqrt(D))
+    att = att - att.amax(dim=-1, keepdim=True)
+    p = torch.exp(att)
+    p = p / p.sum(dim=-1, keepdim=True)
+
+    vwin = v_win.float()
+    nvq4, lag = c[:, 2].reshape(B, 1, 1, 1), (c[:, 0] - c[:, 2]).reshape(
+        B, 1, 1, 1)
+    pos4 = pos.reshape(1, 1, Tmax, 1)
+    v_hist = torch.where(
+        pos4 < nvq4, Q.dequantize_v(v_codes, v_scale, v_mn, group_size,
+                                    v_bits),
+        vwin.gather(2, (pos4 - nvq4).clamp(0, W - 1).expand(B, Hkv, Tmax,
+                                                            D)))
+    w4 = torch.arange(W, device=dev).reshape(1, 1, W, 1) + lag
+    v_w = torch.where(w4 < W, vwin.gather(2, w4.clamp(max=W - 1).expand(
+        B, Hkv, W, D)), 0.0)
+    out = (torch.einsum("bhrqt,bhtd->bhrqd", p[..., :Tmax], v_hist)
+           + torch.einsum("bhrqw,bhwd->bhrqd", p[..., Tmax:Tmax + W], v_w)
+           + torch.einsum("bhrqj,bhjd->bhrqd", p[..., Tmax + W:],
+                          v_new.float()))
+    return out.reshape(B, Hkv, R, D)
+
+
+def flash_extend_attention_rows(
+        qg, k_codes, k_scale, k_mn, v_codes, v_scale, v_mn, k_win, v_win,
+        k_new, v_new, counts: torch.Tensor, *, group_size: int, k_bits: int,
+        v_bits: int, t1: int, sliding_window: int = 0,
+        pad_len: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """flash_extend_attention over per-row counters counts (B, 3) int32
+    on the device (see flash_extend_attention_rows_plain): the same
+    kernel, whose blocks each read their own row's counters; its grid
+    does not depend on them, so a captured call replays at any fill.
+    The kernel cannot refuse a bad counter, so they are checked here:
+    inside a checked call (utils.guards, debug=True) as a staged check,
+    and otherwise by one host read whenever the call is not being
+    captured into a CUDA graph."""
+    if not qg.is_cuda:
+        return flash_extend_attention_rows_plain(
+            qg, k_codes, k_scale, k_mn, v_codes, v_scale, v_mn, k_win,
+            v_win, k_new, v_new, counts, group_size=group_size,
+            k_bits=k_bits, v_bits=v_bits, t1=t1,
+            sliding_window=sliding_window, pad_len=pad_len)
+    name = "flash_extend_attention_rows"
+    _check_extend(name, qg, k_codes, k_scale, k_mn, v_codes, v_scale, v_mn,
+                  k_win, v_win, k_new, v_new, group_size, k_bits, v_bits, t1)
+    B, H, R, D = qg.shape
+    Tmax, W, gs = k_codes.shape[-1], k_win.shape[2], group_size
+    _build.check_tensors(name, qg.device,
+                         {"counts": (counts, (B, 3), torch.int32)})
+    if checking() or not torch.cuda.is_current_stream_capturing():
+        nkq, nkw, nvq = counts[:, 0], counts[:, 1], counts[:, 2]
+        ok = ((nvq >= 0) & (nvq <= nkq + nkw) & (nkq + nkw <= Tmax)
+              & (nkw >= 0) & (nkw <= W) & (nkq + nkw - nvq <= W)
+              & (nkq % gs == 0)).all()
+        msg = (f"{name}: the per-row counters (n_k_quant, n_k_win, "
+               f"n_v_quant) break the contract at W={W} Tmax={Tmax} "
+               f"gs={gs}")
+        if checking():
+            debug_check(ok, msg)
+        elif not bool(ok):
+            raise ValueError(f"{msg}: {counts.tolist()}")
     out = torch.empty((B, H, R, D), dtype=torch.float32, device=qg.device)
-    lib = _build.library("flash_extend")
-    err = lib.kivi_flash_extend(
+    err = _build.library("flash_extend").kivi_flash_extend_rows(
         qg.data_ptr(), k_codes.data_ptr(), k_scale.data_ptr(),
         k_mn.data_ptr(), v_codes.data_ptr(), v_scale.data_ptr(),
         v_mn.data_ptr(), k_win.data_ptr(), v_win.data_ptr(),
-        k_new.data_ptr(), v_new.data_ptr(), _build.ptr(pad_len),
+        k_new.data_ptr(), v_new.data_ptr(),
+        _build.ptr(_pad_arg(pad_len, B, qg.device)), counts.data_ptr(),
         out.data_ptr(), B, H, R, t1, D, Tmax, W, gs, k_bits, v_bits,
-        nkq, nkw, nvq, int(sliding_window or 0), int(sdt == torch.float32),
+        int(sliding_window or 0), int(k_scale.dtype == torch.float32),
         1.0 / math.sqrt(D), _build.stream_handle(qg.device))
     _build.check(err, name)
     _build.LAUNCHES[name] += 1
@@ -296,9 +444,7 @@ def flash_extend_qhist(
     })
     _build.check_aligned(name, qg, k_codes, k_scale, k_mn, v_codes,
                          v_scale, v_mn, v_win)
-    if pad_len is not None:
-        pad_len = pad_len.to(device=qg.device, dtype=torch.int32)
-        pad_len = pad_len.reshape(B).contiguous()
+    pad_len = _pad_arg(pad_len, B, qg.device)
     nsplit = -(-nkq // QHIST_SPLIT)
     f32 = dict(dtype=torch.float32, device=qg.device)
     part_acc = torch.empty((B * H * nsplit * R * D,), **f32)

@@ -15,7 +15,10 @@ whose counters are per-row device tensors (the continuous batcher's
 slot caches, `init_slot_caches`; the engine's caches while it replays
 its decode step): the masked, per-row appends, with `active=` selecting
 the rows that advance, and attention reading the counters on the
-device under an optional static `fill_bound`.  Under a checked call
+device under an optional static `fill_bound`.  `ingest="window"` (the
+speculative decoders' ingest) appends to the fp windows only, in
+decode and extend modes, so that a rejected block is a counter
+rollback.  Under a checked call
 (`utils.guards`, `Engine(debug=True)`) every layer's appended K/V and
 the logits are checked finite.
 """
@@ -107,7 +110,8 @@ def swiglu_mlp(x: torch.Tensor, wg, wu, wd) -> torch.Tensor:
 def _attention_block(x, lp, cache, cfg: ModelConfig, qcfg: QuantConfig,
                      positions, *, mode: str, flush: bool = True,
                      pad_len=None, prev_len: int = 0, active=None,
-                     fill_bound: Optional[int] = None, layer: int = 0):
+                     fill_bound: Optional[int] = None, layer: int = 0,
+                     ingest: str = "quant"):
     """mode: 'prefill' (T tokens into an empty cache), 'extend' (T suffix
     tokens onto a cache holding prev_len tokens: chunked prefill) or
     'decode' (T == 1).  The cache is a KiviLayerCache or an
@@ -115,7 +119,18 @@ def _attention_block(x, lp, cache, cfg: ModelConfig, qcfg: QuantConfig,
     appends: active (B,) bool selects the rows that advance (None: every
     row), and flush=False skips their window flushes (the engine runs
     them on its schedule).  fill_bound: decode only, a static bound on
-    every row's fill (core.attention.decode_attention)."""
+    every row's fill (core.attention.decode_attention).
+
+    ingest: "quant" runs the cache's own ingest (prefill_extend /
+    decode_append, which may quantize a full window); "window" appends
+    to the fp windows only (KC.window_append_capped: no flush, no
+    quantized watermark moved, tokens past a full window dropped), in
+    extend and decode modes (kivi_tpu/models/modeling.py:112-130).  Over
+    per-row device counters, active (B,) then freezes rows in extend
+    mode too; the fp cache appends as in decode."""
+    if ingest not in ("quant", "window"):
+        raise ValueError(f"unknown ingest {ingest!r}")
+    window = ingest == "window"
     B, T, _ = x.shape
     Hq, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     fp = isinstance(cache, FpLayerCache)
@@ -130,7 +145,7 @@ def _attention_block(x, lp, cache, cfg: ModelConfig, qcfg: QuantConfig,
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
 
-    if mode in ("prefill", "extend") and pad_len is not None:
+    if mode in ("prefill", "extend") and pad_len is not None and not window:
         # Pad slots occupy real cache positions but must never leak:
         # attention masks them, and their stored K/V are zeroed so the K
         # quantization groups straddling the pad boundary see 0s (token i
@@ -151,17 +166,22 @@ def _attention_block(x, lp, cache, cfg: ModelConfig, qcfg: QuantConfig,
         else:
             KC.prefill_ingest(cache, k, v, qcfg)
     elif mode == "extend":
-        # attention reads the PRE-extension cache
+        # attention reads the PRE-extension cache; only the window-only
+        # ingest can freeze rows (kivi_tpu/models/modeling.py:205)
+        assert active is None or window, "extend active= needs window ingest"
         if fp:
             out = fp_extend_attention(q, k, v, cache,
                                       sliding_window=cfg.sliding_window,
                                       pad_len=pad_len)
-            fp_append(cache, k, v)
+            fp_append_masked(cache, k, v, active)
         else:
             out = extend_attention(q, k, v, cache, qcfg,
                                    sliding_window=cfg.sliding_window,
                                    pad_len=pad_len)
-            KC.prefill_extend(cache, k, v, qcfg, prev_len)
+            if window:
+                KC.window_append_capped(cache, k, v, active=active)
+            else:
+                KC.prefill_extend(cache, k, v, qcfg, prev_len)
     elif mode == "decode":
         per_row = isinstance(cache.seq_len, torch.Tensor)
         if fp:
@@ -174,7 +194,9 @@ def _attention_block(x, lp, cache, cfg: ModelConfig, qcfg: QuantConfig,
                                       pad_len=pad_len,
                                       fill_bound=fill_bound)
         else:
-            if per_row:
+            if window:
+                KC.window_append_capped(cache, k, v, active=active)
+            elif per_row:
                 # per-row windows on the device: masked slice writes,
                 # each row flushing its own (the batcher) or none
                 KC.decode_append_masked(cache, k, v, qcfg, active=active,
@@ -193,11 +215,12 @@ def _attention_block(x, lp, cache, cfg: ModelConfig, qcfg: QuantConfig,
 
 def _decoder_layer(x, lp, cache, cfg, qcfg, positions, *, mode, flush=True,
                    pad_len=None, prev_len=0, active=None, fill_bound=None,
-                   layer=0):
+                   layer=0, ingest="quant"):
     h = _attention_block(rms_norm(x, lp["ln_attn"], cfg.rms_norm_eps), lp,
                          cache, cfg, qcfg, positions, mode=mode,
                          flush=flush, pad_len=pad_len, prev_len=prev_len,
-                         active=active, fill_bound=fill_bound, layer=layer)
+                         active=active, fill_bound=fill_bound, layer=layer,
+                         ingest=ingest)
     x = x + h
     return x + swiglu_mlp(rms_norm(x, lp["ln_mlp"], cfg.rms_norm_eps),
                           lp["wg"], lp["wu"], lp["wd"])
@@ -214,7 +237,7 @@ def forward(params: dict, tokens: torch.Tensor, caches: List, cfg:
             pad_len: Optional[torch.Tensor] = None,
             prev_len: int = 0,
             active: Optional[torch.Tensor] = None,
-            fill_bound: Optional[int] = None
+            fill_bound: Optional[int] = None, ingest: str = "quant"
             ) -> Tuple[torch.Tensor, List]:
     """tokens (B, T) int; positions (B, T) int RoPE positions (for
     left-padded rows: cache index minus pad_len, clamped at 0).  The
@@ -229,13 +252,19 @@ def forward(params: dict, tokens: torch.Tensor, caches: List, cfg:
     row's cache fill for this call (kivi_tpu/models/modeling.py:117,
     263-268), passed to the decode kernels as their grid bound.
 
+    ingest: "window" appends K/V to the fp windows only (decode and
+    extend modes; `_attention_block`), the speculative decoders' ingest;
+    with last_only=False an extend returns every position's logits, as
+    their verify needs.
+
     Returns (logits (B, T, vocab) f32, caches); with last_only the logits
     are (B, 1, vocab) for the final position."""
     x = params["embed"][tokens]
     for i, (lp, cache) in enumerate(zip(params["layers"], caches)):
         x = _decoder_layer(x, lp, cache, cfg, qcfg, positions, mode=mode,
                            flush=flush, pad_len=pad_len, prev_len=prev_len,
-                           active=active, fill_bound=fill_bound, layer=i)
+                           active=active, fill_bound=fill_bound, layer=i,
+                           ingest=ingest)
     if last_only:
         x = x[:, -1:]
     x = rms_norm(x, params["ln_f"], cfg.rms_norm_eps)

@@ -26,6 +26,12 @@ Two windows, each run once without and once under torch.profiler:
     V-window flush), each step a replay of the engine's CUDA graph (the
     first pass captures it).
 
+With --path spec-self or spec-shallow the windows are two batch-1
+generations of S tokens after a 1000-token prompt: the target Engine's
+own generate(), then SpeculativeEngine.generate() (k = 8) with draft
+"self" (the target's weights over an fp16 cache) or "shallow" (2 random
+layers at the same width over KIVI-2), each run once to capture its
+graphs, then timed, then profiled.
 With --path batcher the one window is S batcher steps (one batched
 decode step each, a replay of the batcher's CUDA graph for the step's
 fill bound: the masked per-slot appends, whose quantizers launch every
@@ -65,6 +71,7 @@ OURS = {"qpack_tile_kernel": "quantize_pack_k/v",
         "qpack_any_kernel": "quantize_pack_k/v",
         "Ablation<0>, false>": "fused_decode_attention_wide",
         "Ablation<0>, true>": "fused_decode_attention",
+        # both entries (host-int and per-row) launch the one kernel
         "flash_extend_kernel": "flash_extend_attention",
         "flash_prefill_kernel": "flash_attention",
         "fp_decode_split_kernel": "fp_decode_attention_kernel",
@@ -76,7 +83,10 @@ QCFG = {"chunked": QuantConfig(2, 2, 32, 128, v_flush=128),
         "oneshot": QuantConfig(2, 2, 32, 128, v_flush=128),
         "fp16": QuantConfig(16, 16, 32, 128),
         "batcher": QuantConfig(2, 2, 32, 128, v_flush=128),
-        "long": QuantConfig(2, 2, 32, 32)}
+        "long": QuantConfig(2, 2, 32, 32),
+        "spec-self": QuantConfig(2, 2, 32, 128, v_flush=128),
+        "spec-shallow": QuantConfig(2, 2, 32, 128, v_flush=128)}
+SPEC_PROMPT, SPEC_K = 1000, 8
 GEMM = re.compile(r"gemm|nvjet|cutlass|xmma|cublas", re.I)
 # the masked per-slot window appends (quant_pack.masked_store_write)
 SCATTER = re.compile(r"scatter|gather", re.I)
@@ -182,6 +192,54 @@ def profile_batcher(cfg, steps: int, smi: str) -> None:
           f"{wall / steps * 1e3:.3f} ms per step")
 
 
+def profile_spec(cfg, path: str, steps: int, smi: str) -> None:
+    """A batch-1 generation of `steps` tokens by the target Engine, then
+    by SpeculativeEngine over the draft `path` names, each timed after a
+    warm call (its captures) and then profiled."""
+    from kivi_tpu_torch.serving.speculative import SpeculativeEngine
+    qcfg = QCFG[path]
+    params = modeling.init_params(cfg, seed=0, device="cuda")
+    target = Engine(cfg=cfg, qcfg=qcfg, params=params, max_seq_len=TMAX,
+                    batch_size=1)
+    if path == "spec-self":
+        draft = Engine(cfg=cfg, qcfg=QuantConfig(16, 16, 32, 128),
+                       params=params, max_seq_len=TMAX, batch_size=1)
+    else:
+        dcfg = dataclasses.replace(cfg, num_layers=2)
+        draft = Engine(cfg=dcfg, qcfg=qcfg,
+                       params=modeling.init_params(dcfg, seed=11,
+                                                   device="cuda"),
+                       max_seq_len=TMAX, batch_size=1)
+    spec = SpeculativeEngine(target, draft, k=SPEC_K)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    tokens = torch.randint(1, cfg.vocab_size, (1, SPEC_PROMPT),
+                           generator=gen, device="cuda")
+    print(f"[config] llama2-7b width, {cfg.num_layers} layers, KIVI-2 "
+          f"target at batch 1, prompt {SPEC_PROMPT} one-shot, {steps} "
+          f"tokens; draft {path[5:]}, k {SPEC_K}; CUDA graphs | card {smi}")
+    for what, run in (("target", lambda: target.generate(tokens, steps)),
+                      (path, lambda: spec.generate(tokens, steps))):
+        run()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        report(what, prof, wall)
+        extra = ""
+        if what != "target":
+            acc = spec.last_acceptance
+            extra = (f", {len(acc)} iterations, mean accepted "
+                     f"{sum(acc) / len(acc):.3f}")
+        print(f"[{what}] {steps / wall:.1f} tokens/s (prefill included)"
+              f"{extra}")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--path", choices=sorted(QCFG), default="chunked")
@@ -199,6 +257,9 @@ def main():
     cfg = dataclasses.replace(PRESETS[preset], num_layers=args.layers)
     if args.path == "batcher":
         profile_batcher(cfg, args.steps, smi)
+        return
+    if args.path.startswith("spec"):
+        profile_spec(cfg, args.path, args.steps, smi)
         return
     Bp, prompt, tmax = (1, LONG_PROMPT, LONG_TMAX) if long else (B, PROMPT,
                                                                   TMAX)
