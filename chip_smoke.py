@@ -109,6 +109,31 @@ Phases (any failure raises; the exit code is then non-zero):
      must launch, and every greedy stream is teacher-forced through the
      target, each token within 5e-2 of the top logit (the share equal
      to Engine.generate's reported);
+     then the parallel tier (`phase_parallel`, `[parallel:*]` lines) on
+     the (1, 1) mesh one card allows: (a) multihost.initialize at world
+     1 over NCCL, global_mesh (1, 1), an all_reduce and an all_gather
+     over each axis' group; (b) Engine.prefill_seqpar (the ring, plain
+     f32 torch, in place of row 10) at the long slice's geometry,
+     contiguous and striped, against the one-shot prefill on the same
+     Llama-3.1-8B weights: logits within phase 5's tolerance, layer 0's
+     packed K/V words >= 99.9% equal and the 2-bit codes of every
+     deeper layer >= 95% equal (the one-shot reference attends in bf16,
+     the ring in f32), the one-shot run's 64 greedy tokens
+     teacher-forced off the seqpar caches (row 6) each within 5e-2 of
+     the top logit; (c) Engine(mesh=) over shard_params of the main
+     path's Llama-2-7B weights and prompts, its tokens equal to the
+     unsharded one-shot generate; (d) ElasticBatcher (8 slots, the 12
+     batcher requests, greedy), recovered onto global_mesh after 20
+     steps with requests in flight, every step under a StepWatchdog
+     that must not fire, over the fp16 cache and over KIVI-2: every
+     request completes, each pre-failure stream is a prefix of its
+     final one, and every stream made after the recovery is
+     teacher-forced through a batch-1 Engine over the same cache, each
+     token within 5e-2 of the top logit; over fp16 the streams not in
+     flight at the failure also equal an uninterrupted
+     ContinuousBatcher's, and a resumed stream may leave the
+     uninterrupted one only at a near tie of the Engine's logits
+     (5e-2); recovery ms and generated tokens/s;
      then the probe path: `python3 -m kivi_tpu_torch.profile_wide_32k
      --quick` (B = 4, 32 KV heads, a 32K history), whose wide kernel,
      split decode route and probe variants must launch;
@@ -124,7 +149,10 @@ Phases (any failure raises; the exit code is then non-zero):
      log-probability within twice the logit tolerance; token agreement
      of the prefix, ragged and stream paths reported); one speculative
      verify's logits (the engine's over device counters, k + 1 = 9, and
-     4 batcher slots, k + 1 = 5) within the same tolerance;
+     4 batcher slots, k + 1 = 5) within the same tolerance; the
+     sequence-parallel prefill's logits over the (1, 1) mesh, and its
+     K/V stores as (b) holds them (layer 0's packed words >= 99.9%
+     equal, layer 1's codes >= 95%);
   6. the batcher against the engine on the card (2 layers, full width):
      first tokens equal and one decode step's logits per slot within the
      phase-5 tolerance of batch-1 Engine runs of the same left-padded
@@ -1914,8 +1942,10 @@ def phase_main(layers: int, smi: str) -> dict:
                        ("fp16", fp16)):
         eng = Engine(cfg=cfg, qcfg=qcfg, params=params, max_seq_len=TMAX,
                      batch_size=B)
-        launches.update(run_path(path, eng, tokens, new, smi,
-                                 chunk=128 if path == "chunked" else None)[0])
+        got, out, _ = run_path(path, eng, tokens, new, smi,
+                               chunk=128 if path == "chunked" else None)
+        launches.update(got)
+        MAIN_TOKENS[path] = out.cpu()
         del eng
         torch.cuda.empty_cache()
         stamp(path)
@@ -2540,14 +2570,16 @@ def shallow_draft(cfg, smi: str):
     return dcfg, native
 
 
-def teacher_gaps(eng, prompts, pad_lens, streams, per_row: bool = False):
+def teacher_gaps(eng, prompts, pad_lens, streams, per_row: bool = False,
+                 positions: bool = False):
     """Each row's greedy stream fed through the target engine eng (batch
     = rows, host-int decode_step after a one-shot prefill, as the
     speculative paths prefill): at every position, the gap between the
     engine's top logit and the logit of the stream's token there, over
     max|logit|.  Returns (the widest gap, the share of positions where
     the stream's token is the engine's top one), or with per_row a list
-    of them, one per row."""
+    of them, one per row, or with positions each row's gaps, one a
+    position of its stream."""
     Bn, T = prompts.shape
     L = max(len(s) for s in streams)
     toks = torch.tensor([s + [s[-1]] * (L - len(s)) for s in streams],
@@ -2568,6 +2600,8 @@ def teacher_gaps(eng, prompts, pad_lens, streams, per_row: bool = False):
                                              caches, pad_lens=pad_lens,
                                              flush=True)
     gaps, valid = torch.stack(gaps, 1).cpu(), valid.cpu()
+    if positions:
+        return [g[v] for g, v in zip(gaps, valid)]
     if per_row:
         return [(float(g[v].max()), float((g[v] == 0).float().mean()))
                 for g, v in zip(gaps, valid)]
@@ -2872,6 +2906,510 @@ def phase_spec(layers: int, smi: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 4d: the parallel tier (one card: the (1, 1) mesh over NCCL)
+# ---------------------------------------------------------------------------
+
+PARALLEL = {}      # what phase_parallel measured, for the summary line
+MAIN_TOKENS = {}   # phase_main's generate() tokens by path (held by (c))
+PAR_NEW = 64       # tokens teacher-forced off the sequence-parallel caches
+ELASTIC_FAIL = 20  # batcher steps before the elastic batcher's recovery
+WATCHDOG_S = 120.0   # StepWatchdog deadline a batcher step must meet
+# the kernels outside a one-shot KIVI serving path (prefill row 10 or the
+# ring, ingest rows 1-2, decode row 6)
+_PAR_NOT = ("flash_extend_attention", "flash_extend_attention_rows",
+            "flash_extend_qhist", "fused_decode_attention_wide",
+            "qk_dequant_matmul", "pv_dequant_matmul",
+            "fp_decode_attention_kernel") + PROBE
+PATHS.update({
+    # Engine.generate at the long slice's geometry, one-shot prefill
+    "parallel-oneshot": (("flash_attention", "quantize_pack_k",
+                          "quantize_pack_v", "fused_decode_attention"),
+                         _PAR_NOT),
+    # prefill_seqpar (the ring, plain f32 torch, instead of row 10), then
+    # the teacher-forced decode steps
+    "parallel-seqpar": (("quantize_pack_k", "quantize_pack_v",
+                         "fused_decode_attention"),
+                        _PAR_NOT + ("flash_attention",)),
+    "parallel-striped": (("quantize_pack_k", "quantize_pack_v",
+                          "fused_decode_attention"),
+                         _PAR_NOT + ("flash_attention",)),
+    "parallel-tp": PATHS["oneshot"],
+    "parallel-elastic-fp16": PATHS["batcher-fp16"],
+    "parallel-elastic": PATHS["batcher"],
+})
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def parallel_group(smi: str):
+    """(a) multihost.initialize at world 1 over NCCL (a TCP store on a
+    free local port), global_mesh (1, 1) on cuda, and one NCCL
+    all_reduce and one all_gather over each of the mesh's groups.
+    Returns the mesh."""
+    import torch.distributed as dist
+
+    from kivi_tpu_torch.parallel import multihost
+    dev = multihost.initialize(f"127.0.0.1:{_free_port()}", 1, 0)
+    mesh = multihost.global_mesh(num_kv_heads=8)
+    if (tuple(mesh.mesh.shape) != (1, 1) or mesh.device_type != "cuda"
+            or dist.get_backend() != "nccl" or dev.type != "cuda"):
+        raise AssertionError(f"parallel: mesh {tuple(mesh.mesh.shape)} on "
+                             f"{mesh.device_type}, backend "
+                             f"{dist.get_backend()}")
+    for axis in ("data", "model"):
+        g = mesh.get_group(axis)
+        x = torch.arange(1, 5, dtype=torch.float32, device="cuda")
+        dist.all_reduce(x, group=g)
+        out = torch.empty(4 * g.size(), dtype=torch.float32, device="cuda")
+        dist.all_gather_into_tensor(out, x, group=g)
+        want = torch.arange(1, 5, dtype=torch.float32, device="cuda")
+        if not (torch.equal(x, want) and torch.equal(out, want)):
+            raise AssertionError(f"parallel: NCCL collectives over "
+                                 f"'{axis}' gave {x.tolist()}, "
+                                 f"{out.tolist()}")
+    log(f"[parallel:group] initialize at world 1: backend "
+        f"{dist.get_backend()}, mesh {tuple(mesh.mesh.shape)} "
+        f"('data', 'model') on {dev}; an all_reduce and an all_gather over "
+        f"each axis' group as expected | card {smi}")
+    return mesh
+
+
+def _live_codes_equal(a, b, bits: int) -> tuple:
+    """(the share of equal packed words, the share of equal `bits`-bit
+    codes) of two caches' K and V stores over the filled positions, the
+    lower of K's and V's each."""
+    words, codes = [], []
+    shift = torch.arange(0, 32, bits, device="cuda")
+    for f, n in (("k_codes", a.n_k_quant), ("v_codes", a.n_v_quant)):
+        x, y = getattr(a, f)[..., :n], getattr(b, f)[..., :n]
+        words.append((x == y).float().mean().item())
+        cx = (x[..., None] >> shift) & ((1 << bits) - 1)
+        cy = (y[..., None] >> shift) & ((1 << bits) - 1)
+        codes.append((cx == cy).float().mean().item())
+    return min(words), min(codes)
+
+
+def check_ring(smi: str) -> None:
+    """The ring of one on the card against the f32 plain causal attention
+    (flash_attention_plain) at the long slice's heads (32 query, 8 KV,
+    D 128), 2,048 tokens with 32 left pads, score chunks of 256: both
+    f32 from the same bf16 inputs, so within 2e-5 of max|out| on the
+    real rows (a pad row's output is garbage by convention in the
+    ring)."""
+    from kivi_tpu_torch.kernels.flash import flash_attention_plain
+    from kivi_tpu_torch.parallel.ring import ring_attention
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    T, pad = 2048, torch.tensor([32], device="cuda")
+    q = _randn(gen, (1, 32, T, D))
+    k, v = _randn(gen, (1, 8, T, D)), _randn(gen, (1, 8, T, D))
+    got = ring_attention(q.float(), k, v, None, pad_len=pad,
+                         score_chunk=256)[:, :, 32:]
+    want = flash_attention_plain(q, k, v, pad_len=pad)[:, :, 32:]
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    log(f"[parallel:ring] ring_attention (a ring of one, chunks of 256) vs "
+        f"flash_attention_plain on the card, 1 x 32/8 heads x {T} tokens "
+        f"(32 left pads): max|diff| {err:.3e} (max|out| {scale:.3e}, "
+        f"tolerance {2e-5 * scale:.3e}) | card {smi}")
+    if not err <= 2e-5 * scale:
+        raise AssertionError("parallel: the ring disagrees with the f32 "
+                             "plain attention")
+
+
+def _teacher_forced(eng, caches, logits, ref, T: int, pad: int) -> tuple:
+    """The one-shot run's stream ref (1, n) teacher-forced off caches
+    holding a T-token prompt: the gap between the top logit and ref's
+    token at each of its n positions, over max|logit| (the first from
+    the prefill's logits, then n - 1 replayed decode steps over the
+    caches' counters on the device, row 6, each a one-step
+    Engine.decode).  Returns (the widest gap, the share where ref's
+    token is the top one)."""
+    n = ref.shape[1]
+    gaps = []
+    for i in range(n):
+        top = logits.max(-1).values
+        gaps.append(((top - logits.gather(-1, ref[:, i:i + 1].long())[:, 0])
+                     / logits.abs().max(-1).values).max())
+        if i + 1 < n:
+            pos = torch.full((1, 1), T - pad + i, device="cuda")
+            eng.decode(ref[:, i:i + 1], pos, caches, steps=1,
+                       prompt_len=T + i, pad_lens=[pad])
+            logits = eng._dec.logits
+    gaps = torch.stack(gaps).cpu()
+    return float(gaps.max()), float((gaps == 0).float().mean())
+
+
+def parallel_seqpar(mesh, layers: int, smi: str) -> dict:
+    """(b) Engine.prefill_seqpar at the long slice's geometry (Llama-3.1-8B
+    width, KIVI-2 group 32 residual 32, 12,000 tokens left-padded to
+    12,032, a 16,384-token cache), contiguous and striped, against the
+    one-shot Engine.prefill (row 10) on the same weights: the last logits
+    within phase 5's tolerance (5e-2 of max|logit|); layer 0's packed K/V
+    words >= 99.9% equal over the filled positions (its K/V come from the
+    same inputs: the ring's gather, order and pad zeroing are exact);
+    every deeper layer's 2-bit codes >= 95% equal (the one-shot
+    reference's attention runs bf16 operands on the tensor cores, the
+    ring f32, and that rounding, compounding with depth, flips codes near
+    their boundaries: 0.9975 at layer 1 down to 0.981 at layer 31 on
+    this geometry, where a misplaced token would leave ~1/4 equal); then
+    the one-shot run's PAR_NEW greedy tokens teacher-forced off each
+    seqpar's caches, each within phase_spec's 5e-2 of the top logit.  At
+    n = 1 the ring is one block of plain f32 torch and zigzag_perm is the
+    identity."""
+    import dataclasses
+
+    from kivi_tpu_torch.config import PRESETS, QuantConfig
+    from kivi_tpu_torch.kernels import _build
+    from kivi_tpu_torch.models import modeling
+    from kivi_tpu_torch.serving.engine import Engine
+
+    cfg = dataclasses.replace(PRESETS["llama3.1-8b"], num_layers=layers)
+    params = modeling.init_params(cfg, seed=0, device="cuda")
+    eng = Engine(cfg=cfg, qcfg=QuantConfig(2, 2, 32, 32), params=params,
+                 max_seq_len=LTMAX, batch_size=1)
+    tokens = long_prompt(LFILL - LPAD, LPAD, cfg.vocab_size, seed=7).cuda()
+    launches = {}
+    _build.LAUNCHES.clear()
+    ref = eng.generate(tokens, PAR_NEW, pad_lens=[LPAD])
+    torch.cuda.synchronize()
+    launches["parallel-oneshot"] = dict(_build.LAUNCHES)
+    check_launches("parallel-oneshot", launches["parallel-oneshot"])
+    times = {}
+
+    def timed(what, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times[what] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    lg1, c1 = timed("oneshot", lambda: eng._prefill(
+        tokens, eng.init_caches(), [LPAD]))
+    scale = lg1.abs().max().item()
+    for path, striped in (("parallel-seqpar", False),
+                          ("parallel-striped", True)):
+        _build.LAUNCHES.clear()
+        lg2, c2 = timed(path, lambda: eng.prefill_seqpar(
+            tokens, mesh, "data", caches=eng.init_caches(),
+            pad_lens=[LPAD], striped=striped))
+        err = (lg2 - lg1).abs().max().item()
+        shares = [_live_codes_equal(a, b, 2) for a, b in zip(c1, c2)]
+        words0, codes = shares[0][0], min(c for _, c in shares[1:])
+        gap, top = _teacher_forced(eng, c2, lg2, ref, LFILL, LPAD)
+        torch.cuda.synchronize()
+        launches[path] = dict(_build.LAUNCHES)
+        check_launches(path, launches[path])
+        log(f"[{path}] prefill_seqpar over the (1, 1) mesh's 'data' axis "
+            f"(a ring of one), 1 x {LFILL} ({LPAD} left pads), "
+            f"{layers} layers, striped={striped}: {times[path]:.1f} ms, "
+            f"the ring's plain f32 torch, slower than the one-shot "
+            f"Engine.prefill on row 10's tensor cores "
+            f"({times['oneshot']:.1f} ms) as expected; "
+            f"logits max|seqpar - one-shot| = {err:.3e} (max|one-shot| "
+            f"{scale:.3e}, tolerance {5e-2 * scale:.3e}); over the filled "
+            f"positions layer 0's packed K/V words {words0:.5f} equal "
+            f"(>= 0.999), the 2-bit codes of layers 1-{layers - 1} "
+            f"{shares[1][1]:.5f} ... {shares[-1][1]:.5f} equal, min "
+            f"{codes:.5f} (>= 0.95); the one-shot run's {PAR_NEW} greedy "
+            f"tokens "
+            f"teacher-forced off the seqpar caches: widest gap to the top "
+            f"logit {gap:.3e} x max|logit| (5e-2), the top one at "
+            f"{top:.3f} of positions; launches {launches[path]} | "
+            f"card {smi}")
+        if not err <= 5e-2 * scale:
+            raise AssertionError(f"{path}: logits disagree with one-shot")
+        if not (words0 >= 0.999 and codes >= 0.95):
+            raise AssertionError(f"{path}: K/V codes {words0:.5f} / "
+                                 f"{codes:.5f} equal")
+        if not gap <= 5e-2:
+            raise AssertionError(f"{path}: a one-shot token lies past the "
+                                 "tolerance below the top logit")
+        PARALLEL[path] = dict(ms=times[path], logit_err=err,
+                              words_equal_layer0=words0,
+                              codes_equal_min=codes, gap=gap, top_share=top)
+        del c2
+    PARALLEL["oneshot_prefill_ms"] = times["oneshot"]
+    del eng, params, c1
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _resumed_streams(path, cfg, qcfg, params, reqs, got, want, before,
+                     flight, buckets) -> str:
+    """Hold the elastic run's own output after the recovery through a
+    batch-1 Engine over the run's cache config (`qcfg`, the fp16 or the
+    KIVI-2 one): every stream with tokens made after recover() (the
+    resumed ones from prompt + pre-failure tokens, the ones admitted
+    later from their prompt) is teacher-forced from that prompt
+    left-padded to the smallest of `buckets` that holds it (the
+    batcher's layout, pads computed here: as phase 6 and
+    tests/test_batcher.py::_oracle hold the batcher, since KIVI-2's
+    quantization groups follow the pads), and each of its tokens must
+    lie within 5e-2 of max|logit| below the top (as phase_spec holds its
+    streams).  A fault in the resumed admission (the replayed
+    bucketed prompt's positions or pads, the rebuilt slot caches, the
+    graphs captured again) would put tokens far below the top.
+
+    With the uninterrupted batcher's streams `want` (fp16): every
+    pre-failure stream is a prefix of the uninterrupted one, and the
+    requests not in flight at the failure equal it token for token.  A
+    resumed request replays its prompt through row 10's prefill (bf16
+    operands on the tensor cores), which rounds otherwise than the row 9
+    decode steps that made those tokens (f32), so its stream may fork at
+    a near tie: its uninterrupted continuation is teacher-forced too
+    (the same bound), and at the first position where the two streams
+    differ the Engine's logits of the two tokens must lie within 5e-2 of
+    max|logit| of each other (a near tie).  Returns the log's account."""
+    from kivi_tpu_torch.serving.engine import Engine
+    if want is not None:
+        for u, pre in before.items():
+            if want[u][:len(pre)] != pre:
+                raise AssertionError(f"{path}: uid {u}'s pre-failure "
+                                     "stream is not the uninterrupted one's")
+        bad = [u for u in want if u not in flight and got[u] != want[u]]
+        if bad:
+            raise AssertionError(f"{path}: uids {bad}, not in flight at "
+                                 "the failure, differ from the "
+                                 "uninterrupted run")
+    rows = 1 if want is None else 2
+    eng = Engine(cfg=cfg, qcfg=qcfg, params=params, max_seq_len=TMAX,
+                 batch_size=rows)
+    orig = {r.uid: r for r in reqs}
+    after = sorted(u for u in got if u in flight or u not in before)
+    gaps, want_gaps, ties, worst, equal, total = [], [], {}, {}, 0, 0
+    for u in after:
+        pre = before.get(u, [])
+        streams = [got[u][len(pre):]]
+        if want is not None and u in flight:
+            streams.append(want[u][len(pre):])
+        n = len(orig[u].prompt) + len(pre)
+        pad = next(b for b in buckets if n <= b) - n
+        prompt = torch.tensor([[0] * pad + list(orig[u].prompt) + pre]
+                              * rows, device="cuda")
+        held = teacher_gaps(eng, prompt, [pad] * rows,
+                            streams + streams[:1] * (rows - len(streams)),
+                            positions=True)
+        gaps.append(float(held[0].max()))
+        worst[u] = (len(pre) + int(held[0].argmax()), gaps[-1])
+        if len(streams) == 2:
+            want_gaps.append(float(held[1].max()))
+            same = [a == b for a, b in zip(*streams)]
+            equal += sum(same)
+            total += len(same)
+            if not all(same):
+                i = same.index(False)
+                # the two rows share their input up to the fork, so the
+                # gaps there are to one top logit
+                ties[u] = (len(pre) + i,
+                           abs(float(held[0][i] - held[1][i])))
+    del eng
+    torch.cuda.empty_cache()
+    widest = max(gaps + want_gaps)
+    tie = max((t for _, t in ties.values()), default=0.0)
+    PARALLEL[path + "-held"] = dict(
+        streams_held=len(after), widest_gap=max(gaps),
+        uninterrupted_widest_gap=max(want_gaps, default=None),
+        resumed_equal_share=equal / total if total else None,
+        forks={u: i for u, (i, _) in ties.items()}, widest_fork_tie=tie,
+        widest_gap_by_uid=worst)
+    log(f"[{path}] after the recovery, each stream's widest gap to the "
+        f"Engine's top logit (uid: stream position, gap / max|logit|): "
+        f"{worst}")
+    if not widest <= 5e-2:
+        raise AssertionError(f"{path}: a token after the recovery lies past "
+                             "the tolerance below the Engine's top logit")
+    if not tie <= 5e-2:
+        raise AssertionError(f"{path}: a resumed stream forks from the "
+                             "uninterrupted one where the Engine shows no "
+                             "near tie")
+    account = (f"the {len(after)} streams made after the recovery "
+               f"teacher-forced through a batch-1 Engine over the same "
+               f"cache: widest gap to the top logit {max(gaps):.3e} x "
+               f"max|logit| (5e-2)")
+    if want is None:
+        return account + "; every pre-failure stream a prefix of its final one"
+    return (account + f"; streams not in flight equal the uninterrupted "
+            f"batcher's; the {len(flight)} resumed: pre-failure prefixes "
+            f"equal, {equal}/{total} later tokens equal to the "
+            f"uninterrupted run's, whose continuations lie within "
+            f"{max(want_gaps):.3e} of the top; forks (stream position, "
+            f"|logit gap| between the two tokens / max|logit|) {ties}, "
+            f"each a near tie (5e-2)")
+
+
+def _parallel_llama2(layers: int):
+    """The main path's Llama-2-7B config at `layers` and its weights
+    (seed 0), for (c) and (d)."""
+    import dataclasses
+
+    from kivi_tpu_torch.config import PRESETS
+    from kivi_tpu_torch.models import modeling
+    cfg = dataclasses.replace(PRESETS["llama2-7b"], num_layers=layers)
+    return cfg, modeling.init_params(cfg, seed=0, device="cuda")
+
+
+def parallel_tp(mesh, cfg, params, smi: str) -> dict:
+    """(c) Engine(mesh=) at (1, 1) over shard_params of phase_main's
+    Llama-2-7B weights and prompts (8 x 1024, 128 greedy tokens): its
+    tokens must equal phase_main's unsharded one-shot generate (a
+    size-1 group issues no collective)."""
+    from kivi_tpu_torch.config import QuantConfig
+    from kivi_tpu_torch.kernels import _build
+    from kivi_tpu_torch.parallel.mesh import mesh_coords, shard_params
+    from kivi_tpu_torch.serving.engine import Engine
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (B, 1024), generator=gen,
+                           device="cuda")
+    _, _, n_model, rank = mesh_coords(mesh)
+    eng = Engine(cfg=cfg, qcfg=QuantConfig(2, 2, 32, 128, v_flush=128),
+                 max_seq_len=TMAX, batch_size=B,
+                 params=shard_params(params, cfg, n_model, rank), mesh=mesh)
+    _build.LAUNCHES.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = eng.generate(tokens, 128)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"parallel-tp": dict(_build.LAUNCHES)}
+    check_launches("parallel-tp", launches["parallel-tp"])
+    _equal_tokens(out.cpu(), MAIN_TOKENS["oneshot"], "parallel-tp")
+    log(f"[parallel:tp] Engine(mesh=(1, 1)).generate(8 x 1024, 128 greedy) "
+        f"over shard_params: {wall:.2f} s, the tokens equal phase_main's "
+        f"unsharded one-shot generate; launches {launches['parallel-tp']} "
+        f"| card {smi}")
+    del eng
+    torch.cuda.empty_cache()
+    return launches
+
+
+def parallel_elastic(mesh, cfg, params, layers: int, smi: str) -> dict:
+    """(d) ElasticBatcher (8 slots, the batcher cell's 12 requests, all
+    greedy) over the main path's Llama-2-7B weights, each step under a
+    StepWatchdog that must not fire, recovered onto global_mesh after
+    ELASTIC_FAIL steps with requests in flight, over the fp16 cache and
+    over KIVI-2: every request completes, every pre-failure stream is a
+    prefix of its final one, and the streams made after the recovery are
+    held by `_resumed_streams` (over fp16 also to an uninterrupted
+    ContinuousBatcher)."""
+    import dataclasses
+    import functools
+
+    from kivi_tpu_torch.config import QuantConfig
+    from kivi_tpu_torch.kernels import _build
+    from kivi_tpu_torch.parallel import multihost
+    from kivi_tpu_torch.parallel.elastic import ElasticBatcher, StepWatchdog
+    from kivi_tpu_torch.serving.batcher import ContinuousBatcher
+
+    kivi = QuantConfig(2, 2, 32, 128, v_flush=128)
+    fp16 = QuantConfig(16, 16, 32, 128)
+    launches = {}
+    reqs = [dataclasses.replace(r, temperature=0.0, top_p=1.0)
+            for r in batcher_requests(12, cfg.vocab_size, seed=5)]
+    kw = dict(prompt_buckets=(128, 256, 512, 1024))
+    for path, qcfg in (("parallel-elastic-fp16", fp16),
+                       ("parallel-elastic", kivi)):
+        want = None
+        if qcfg is fp16:
+            bat = ContinuousBatcher(cfg, qcfg, params, num_slots=B,
+                                    max_seq_len=TMAX, **kw)
+            want = {u: r.tokens for u, r in bat.run(
+                [dataclasses.replace(r) for r in reqs]).items()}
+            del bat
+            torch.cuda.empty_cache()
+        stalls = []
+        step_under = functools.partial(StepWatchdog, WATCHDOG_S,
+                                       lambda: stalls.append(1))
+        _build.LAUNCHES.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eb = ElasticBatcher(cfg, qcfg, params, num_slots=B, max_seq_len=TMAX,
+                            mesh=mesh, **kw)
+        for r in reqs:
+            eb.submit(dataclasses.replace(r))
+        for _ in range(ELASTIC_FAIL):
+            with step_under():
+                eb.step()
+        before = {u: list(t) for u, t in eb._emitted.items() if t}
+        flight = [u for u, t in before.items()
+                  if len(t) < eb._orig[u].max_new_tokens]
+        if not flight:
+            raise AssertionError(f"{path}: no request in flight at step "
+                                 f"{ELASTIC_FAIL}")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        resumed = eb.recover(multihost.global_mesh(cfg.num_kv_heads))
+        torch.cuda.synchronize()
+        rec_ms = (time.perf_counter() - t1) * 1e3
+        steps = ELASTIC_FAIL
+        while not eb.done:
+            with step_under():
+                eb.step()
+            steps += 1
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[path] = dict(_build.LAUNCHES)
+        check_launches(path, launches[path])
+        got = eb.results()
+        n_tok = sum(len(t) for t in got.values())
+        if stalls:
+            raise AssertionError(f"{path}: the step watchdog fired")
+        for r in reqs:
+            stream = got[r.uid]
+            if len(stream) != r.max_new_tokens:
+                raise AssertionError(f"{path}: uid {r.uid} emitted "
+                                     f"{len(stream)} of {r.max_new_tokens}")
+            pre = before.get(r.uid, [])
+            if stream[:len(pre)] != pre:
+                raise AssertionError(f"{path}: uid {r.uid}'s pre-failure "
+                                     "stream is not a prefix of its final")
+        held = _resumed_streams(path, cfg, qcfg, params, reqs, got, want,
+                                before, flight,
+                                kw["prompt_buckets"] + (TMAX,))
+        PARALLEL[path] = dict(recover_ms=rec_ms, tokens_per_s=n_tok / wall,
+                              steps=steps, resumed=len(resumed),
+                              in_flight=len(flight))
+        log(f"[{path}] ElasticBatcher (8 slots, 12 greedy requests, "
+            f"{layers} layers, mesh (1, 1)): recover() at step "
+            f"{ELASTIC_FAIL} with {len(flight)} requests in flight "
+            f"({len(resumed)} resumed) in {rec_ms:.1f} ms; {n_tok} tokens "
+            f"in {steps} steps, {n_tok / wall:.1f} generated tokens/s "
+            f"(recovery and admissions included); watchdog "
+            f"{WATCHDOG_S:.0f} s never fired; "
+            + held + f"; launches {launches[path]} | card {smi}")
+        del eb
+        torch.cuda.empty_cache()
+    return launches
+
+
+def phase_parallel(layers: int, smi: str) -> dict:
+    """The parallel tier on one card: (a) the process group and the (1, 1)
+    mesh over NCCL, (b) the sequence-parallel prefill at the long slice's
+    geometry, (c) the TP/DP engine at (1, 1), (d) the elastic batcher.
+    Returns {path: launches}; leaves the mesh in PARALLEL["mesh"] for
+    phase 5's (e)."""
+    mesh = parallel_group(smi)
+    PARALLEL["mesh"] = mesh
+    check_ring(smi)
+    launches = parallel_seqpar(mesh, layers, smi)
+    stamp("parallel-seqpar")
+    cfg, params = _parallel_llama2(layers)
+    launches.update(parallel_tp(mesh, cfg, params, smi))
+    launches.update(parallel_elastic(mesh, cfg, params, layers, smi))
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
 def phase_spec_vs_plain():
     """The speculative verify, card (kernels: row 3's per-row entry)
     against host (plain versions), 2 layers at full width, same weights,
@@ -2965,12 +3503,17 @@ def phase_vs_plain():
     gen = torch.Generator(device="cpu")
     gen.manual_seed(3)
     tokens = torch.randint(0, cfg.vocab_size, (Bp, prompt), generator=gen)
-    outs, logits = {}, {}
+    outs, logits, seqpar = {}, {}, {}
     for dev, p in (("cuda", params), ("cpu", cpu_params)):
         eng = Engine(cfg=cfg, qcfg=qcfg, params=p, max_seq_len=tmax,
                      batch_size=Bp, device=dev)
         lg, _ = eng.prefill_chunked(tokens.to(dev), 128)
         logits["chunked", dev] = lg.float().cpu()
+        # (e) the sequence-parallel prefill over the (1, 1) mesh: a ring
+        # of one, so no collective reaches the host's tensors
+        lg, seqpar[dev] = eng.prefill_seqpar(tokens.to(dev),
+                                             PARALLEL["mesh"], "data")
+        logits["seqpar", dev] = lg.float().cpu()
         lg, _ = eng._prefill(tokens.to(dev))
         logits["oneshot", dev] = lg.float().cpu()
         outs[dev] = eng.generate(tokens.to(dev), new,
@@ -2979,10 +3522,27 @@ def phase_vs_plain():
                      batch_size=Bp, device=dev)
         lg, _ = eng._prefill(tokens.to(dev))
         logits["fp16 oneshot", dev] = lg.float().cpu()
+    # (e) each layer's K/V stores, card against host (both rings f32),
+    # over the filled positions, held as phase_parallel's (b) holds its
+    # own: layer 0's packed words >= 99.9% equal (its K/V are one bf16
+    # projection of the same embeddings), deeper layers' 2-bit codes
+    # >= 95% (the two sides' bf16 matmuls round apart, and a 2-bit code
+    # flips at its boundary)
+    shares = [_live_codes_equal(a, dataclasses.replace(
+        b, k_codes=b.k_codes.cuda(), v_codes=b.v_codes.cuda()), 2)
+        for a, b in zip(seqpar["cuda"], seqpar["cpu"])]
+    log("[plain] seqpar: each layer's K/V stores card vs host, packed "
+        "words / 2-bit codes equal over the filled positions: "
+        + ", ".join(f"{w:.5f} / {c:.5f}" for w, c in shares)
+        + " (layer 0's words >= 0.999, deeper layers' codes >= 0.95)")
+    if not (shares[0][0] >= 0.999
+            and min(c for _, c in shares[1:]) >= 0.95):
+        raise AssertionError("seqpar: card and host K/V stores disagree")
+    del seqpar
     agree = (outs["cuda"] == outs["cpu"]).float().mean().item()
     log(f"[plain] greedy token agreement (chunked, KIVI-2) over {new} "
         f"tokens: {agree:.3f}")
-    for path in ("chunked", "oneshot", "fp16 oneshot"):
+    for path in ("chunked", "oneshot", "fp16 oneshot", "seqpar"):
         card, host = logits[path, "cuda"], logits[path, "cpu"]
         err = (card - host).abs().max().item()
         scale = host.abs().max().item()
@@ -3503,6 +4063,8 @@ def main():
     stamp("prefix")
     launches.update(phase_spec(args.layers, smi))
     stamp("spec")
+    launches.update(phase_parallel(args.layers, smi))
+    stamp("parallel")
     launches["probe"] = phase_probe()
     stamp("probe")
     phase_vs_plain()
@@ -3514,6 +4076,8 @@ def main():
     prefix_batcher_vs_engine()
     phase_api()
     stamp("batcher vs engine, api")
+    import torch.distributed as dist
+    dist.destroy_process_group()
     sources = {
         "quantize_pack_k": ("kivi_tpu_torch/kernels/csrc/quant_pack.cu",
                             "kivi_tpu/kernels/quant_pack.py:119"),
@@ -3594,6 +4158,8 @@ def main():
             + f" | card {smi}")
     log(f"[decode] {json.dumps(DECODE)}")
     log(f"[spec] {json.dumps(SPEC)} | card {smi}")
+    summary = {k: v for k, v in PARALLEL.items() if k != "mesh"}
+    log(f"[parallel] {json.dumps(summary)} | card {smi}")
     log(f"[done] {time.perf_counter() - START:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -17,7 +17,10 @@ serving/api.py) over either cache, speculative decoding at batch 1 and
 over the batcher's slots (serving/speculative.py,
 serving/spec_batcher.py), and the HF checkpoint loader
 (models/hf_loader.py) with the port's own checkpoint format
-(models/checkpoint.py).
+(models/checkpoint.py), the parallel tier (parallel/: tensor and data
+parallel over a (data, model) device mesh, ring attention for the
+sequence-parallel prefill, multi-process bring-up over torch.distributed
+and elastic recovery of the serving loop) and the CLI flags (cli.py).
 """
 
 from kivi_tpu_torch.config import (PRESETS, ModelConfig, QuantConfig,
@@ -25,9 +28,11 @@ from kivi_tpu_torch.config import (PRESETS, ModelConfig, QuantConfig,
 from kivi_tpu_torch.models.hf_loader import (config_from_hf,
                                              load_hf_checkpoint,
                                              params_from_state_dict)
+from kivi_tpu_torch.parallel import ElasticBatcher, make_mesh
 from kivi_tpu_torch.serving.spec_batcher import SpeculativeBatcher
 from kivi_tpu_torch.serving.speculative import SpeculativeEngine
 
 __all__ = ["PRESETS", "ModelConfig", "QuantConfig", "tiny_config",
            "SpeculativeEngine", "SpeculativeBatcher", "config_from_hf",
-           "params_from_state_dict", "load_hf_checkpoint"]
+           "params_from_state_dict", "load_hf_checkpoint",
+           "ElasticBatcher", "make_mesh"]

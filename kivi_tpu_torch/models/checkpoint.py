@@ -12,8 +12,8 @@ have; the port writes
 
 and reads it back with `torch.load(weights_only=True)`, as the prefix
 snapshot on disk does (serving/engine.py).  The two formats do not read
-each other.  `load_checkpoint(mesh=)` (restoring straight into a
-sharding) comes with the port of parallel/.
+each other.  `load_checkpoint(mesh=)` keeps only this rank's slices of
+the weights (parallel/mesh.py), read from a memory map of the file.
 """
 
 from __future__ import annotations
@@ -46,17 +46,24 @@ def save_checkpoint(path: str, params: dict, cfg: ModelConfig) -> None:
 def load_checkpoint(path: str, device=None, mesh=None
                     ) -> Tuple[ModelConfig, dict]:
     """(cfg, params) written by save_checkpoint, the tensors on `device`
-    (CUDA unless told otherwise) in the dtypes they were saved in."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "load_checkpoint(mesh=): sharded restore comes with the port "
-            "of parallel/ (ROADMAP Queue 1 item 7)")
+    (CUDA unless told otherwise) in the dtypes they were saved in.
+
+    mesh: a (data, model) DeviceMesh; the params are then this rank's
+    slices (`parallel.mesh.shard_params`), read from a memory map of the
+    file, so no rank copies the whole model to its device.  cfg stays
+    the whole model's (Engine(mesh=) takes it so)."""
     device = resolve_device(device)
     with open(os.path.join(path, "config.json")) as f:
         cfg = ModelConfig(**json.load(f))
-    params = torch.load(os.path.join(path, "params.pt"), map_location=device,
-                        weights_only=True)
-    return cfg, params
+    file = os.path.join(path, "params.pt")
+    if mesh is None:
+        return cfg, torch.load(file, map_location=device, weights_only=True)
+    from kivi_tpu_torch.parallel.mesh import mesh_coords, shard_params
+
+    _, _, n_model, model_rank = mesh_coords(mesh)
+    whole = torch.load(file, map_location="cpu", weights_only=True,
+                       mmap=True)
+    return cfg, _to(shard_params(whole, cfg, n_model, model_rank), device)
 
 
 def convert_hf(hf_dir: str, out_dir: str, dtype=None) -> ModelConfig:

@@ -21,6 +21,17 @@ decode and extend modes, so that a rejected block is a counter
 rollback.  Under a checked call
 (`utils.guards`, `Engine(debug=True)`) every layer's appended K/V and
 the logits are checked finite.
+
+Parallel tier (parallel/): `tp=` is the tensor-parallel process group
+of a (data, model) mesh.  The params and `cfg` are then one rank's
+slice (`parallel.mesh.shard_params`, `local_config`), and the model
+calls the collectives XLA inserts for the JAX package: an all-reduce
+after the attention's output projection and after the MLP's down
+projection, and an all-gather of the vocab-split logits.  `seq_group=`
+(prefill only) is a sequence-parallel layout (`parallel.ring.SeqGroup`):
+the tokens are this rank's block, attention runs as a ring, and K/V are
+gathered back to the whole prompt before the cache ingest
+(kivi_tpu/models/modeling.py:150-190).
 """
 
 from __future__ import annotations
@@ -42,6 +53,7 @@ from kivi_tpu_torch.config import ModelConfig, QuantConfig
 from kivi_tpu_torch.core.attention import (decode_attention,
                                            extend_attention,
                                            prefill_attention)
+from kivi_tpu_torch.utils.collectives import all_gather_last, all_reduce_
 from kivi_tpu_torch.utils.guards import check_finite, checking, debug_check
 # re-exported: entry points resolve their device here
 from kivi_tpu_torch.utils.device import resolve_device  # noqa: F401
@@ -111,7 +123,7 @@ def _attention_block(x, lp, cache, cfg: ModelConfig, qcfg: QuantConfig,
                      positions, *, mode: str, flush: bool = True,
                      pad_len=None, prev_len: int = 0, active=None,
                      fill_bound: Optional[int] = None, layer: int = 0,
-                     ingest: str = "quant"):
+                     ingest: str = "quant", tp=None, seq_group=None):
     """mode: 'prefill' (T tokens into an empty cache), 'extend' (T suffix
     tokens onto a cache holding prev_len tokens: chunked prefill) or
     'decode' (T == 1).  The cache is a KiviLayerCache or an
@@ -127,7 +139,10 @@ def _attention_block(x, lp, cache, cfg: ModelConfig, qcfg: QuantConfig,
     quantized watermark moved, tokens past a full window dropped), in
     extend and decode modes (kivi_tpu/models/modeling.py:112-130).  Over
     per-row device counters, active (B,) then freezes rows in extend
-    mode too; the fp cache appends as in decode."""
+    mode too; the fp cache appends as in decode.
+
+    tp: the tensor-parallel group (None: no collective); seq_group: a
+    sequence-parallel prefill's layout (forward's docstring)."""
     if ingest not in ("quant", "window"):
         raise ValueError(f"unknown ingest {ingest!r}")
     window = ingest == "window"
@@ -149,8 +164,10 @@ def _attention_block(x, lp, cache, cfg: ModelConfig, qcfg: QuantConfig,
         # Pad slots occupy real cache positions but must never leak:
         # attention masks them, and their stored K/V are zeroed so the K
         # quantization groups straddling the pad boundary see 0s (token i
-        # sits at cache position prev_len + i; prev_len is 0 in prefill)
-        cpos = prev_len + torch.arange(T, device=x.device)
+        # sits at cache position prev_len + i; prev_len is 0 in prefill;
+        # under a sequence-parallel layout slot s holds its true position)
+        cpos = (prev_len + torch.arange(T, device=x.device)
+                if seq_group is None else seq_group.positions)
         live = cpos[None, None, :, None] >= pad_len.reshape(B, 1, 1, 1)
         k = torch.where(live, k, torch.zeros_like(k))
         v = torch.where(live, v, torch.zeros_like(v))
@@ -159,8 +176,21 @@ def _attention_block(x, lp, cache, cfg: ModelConfig, qcfg: QuantConfig,
 
     if mode == "prefill":
         assert cache.seq_len == 0, "prefill needs an empty cache"
-        out = prefill_attention(q, k, v, sliding_window=cfg.sliding_window,
-                                pad_len=pad_len)
+        if seq_group is None:
+            out = prefill_attention(q, k, v,
+                                    sliding_window=cfg.sliding_window,
+                                    pad_len=pad_len)
+        else:
+            from kivi_tpu_torch.parallel.ring import ring_attention
+            out = ring_attention(q, k, v, seq_group.group,
+                                 sliding_window=cfg.sliding_window,
+                                 pad_len=pad_len,
+                                 positions=seq_group.positions)
+            # the ingest wants whole quantization groups in token order:
+            # gather the token axis back (O(T) bytes; the ring split the
+            # O(T^2) attention)
+            k = seq_group.gather_tokens(k)
+            v = seq_group.gather_tokens(v)
         if fp:
             fp_append(cache, k, v)
         else:
@@ -210,20 +240,21 @@ def _attention_block(x, lp, cache, cfg: ModelConfig, qcfg: QuantConfig,
         raise ValueError(f"unknown mode {mode!r}")
 
     out = out.transpose(1, 2).reshape(B, T, Hq * D).to(x.dtype)
-    return out @ lp["wo"]
+    return all_reduce_(out @ lp["wo"], tp)
 
 
 def _decoder_layer(x, lp, cache, cfg, qcfg, positions, *, mode, flush=True,
                    pad_len=None, prev_len=0, active=None, fill_bound=None,
-                   layer=0, ingest="quant"):
+                   layer=0, ingest="quant", tp=None, seq_group=None):
     h = _attention_block(rms_norm(x, lp["ln_attn"], cfg.rms_norm_eps), lp,
                          cache, cfg, qcfg, positions, mode=mode,
                          flush=flush, pad_len=pad_len, prev_len=prev_len,
                          active=active, fill_bound=fill_bound, layer=layer,
-                         ingest=ingest)
+                         ingest=ingest, tp=tp, seq_group=seq_group)
     x = x + h
-    return x + swiglu_mlp(rms_norm(x, lp["ln_mlp"], cfg.rms_norm_eps),
-                          lp["wg"], lp["wu"], lp["wd"])
+    mlp = swiglu_mlp(rms_norm(x, lp["ln_mlp"], cfg.rms_norm_eps),
+                     lp["wg"], lp["wu"], lp["wd"])
+    return x + all_reduce_(mlp, tp)
 
 
 # ---------------------------------------------------------------------------
@@ -237,8 +268,8 @@ def forward(params: dict, tokens: torch.Tensor, caches: List, cfg:
             pad_len: Optional[torch.Tensor] = None,
             prev_len: int = 0,
             active: Optional[torch.Tensor] = None,
-            fill_bound: Optional[int] = None, ingest: str = "quant"
-            ) -> Tuple[torch.Tensor, List]:
+            fill_bound: Optional[int] = None, ingest: str = "quant",
+            tp=None, seq_group=None) -> Tuple[torch.Tensor, List]:
     """tokens (B, T) int; positions (B, T) int RoPE positions (for
     left-padded rows: cache index minus pad_len, clamped at 0).  The
     caches are updated in place.
@@ -257,20 +288,44 @@ def forward(params: dict, tokens: torch.Tensor, caches: List, cfg:
     with last_only=False an extend returns every position's logits, as
     their verify needs.
 
+    tp: the tensor-parallel process group (params and cfg are this rank's
+    slice; None: the whole model, no collective).  seq_group: prefill
+    only, a `parallel.ring.SeqGroup`: tokens and positions are this
+    rank's block of slots, attention is the ring over the group, every
+    rank's caches receive the whole prompt in token order, and the
+    logits are the last true token's (B, 1, vocab), computed by the
+    rank holding it and broadcast.
+
     Returns (logits (B, T, vocab) f32, caches); with last_only the logits
     are (B, 1, vocab) for the final position."""
+    if seq_group is not None and mode != "prefill":
+        raise ValueError("seq_group= is a prefill-only layout")
     x = params["embed"][tokens]
     for i, (lp, cache) in enumerate(zip(params["layers"], caches)):
         x = _decoder_layer(x, lp, cache, cfg, qcfg, positions, mode=mode,
                            flush=flush, pad_len=pad_len, prev_len=prev_len,
                            active=active, fill_bound=fill_bound, layer=i,
-                           ingest=ingest)
+                           ingest=ingest, tp=tp, seq_group=seq_group)
+    if seq_group is not None:
+        logits = None
+        if seq_group.rank == seq_group.owner:
+            j = seq_group.last_index % x.shape[1]
+            logits = _logits(x[:, j:j + 1], params, cfg, tp)
+        logits = seq_group.from_owner(
+            logits, (x.shape[0], 1, cfg.vocab_size), torch.float32, x.device)
+        return logits, caches
     if last_only:
         x = x[:, -1:]
+    return _logits(x, params, cfg, tp), caches
+
+
+def _logits(x, params, cfg: ModelConfig, tp) -> torch.Tensor:
+    """Final norm and lm_head, f32; under TP the vocab-split logits are
+    gathered (bit-identical on every rank)."""
     x = rms_norm(x, params["ln_f"], cfg.rms_norm_eps)
-    logits = (x @ params["lm_head"]).float()
+    logits = all_gather_last((x @ params["lm_head"]).float(), tp)
     check_finite(logits, "the logits")
-    return logits, caches
+    return logits
 
 
 def init_caches(cfg: ModelConfig, qcfg: QuantConfig, batch: int,

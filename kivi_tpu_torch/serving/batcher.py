@@ -36,6 +36,16 @@ step advances every slot together.
 
 The step reads one thing back to the host, the sampled tokens; the
 counters, pads, controls and penalty masks stay on the device.
+
+`ContinuousBatcher(mesh=)` splits the model over the mesh's "model"
+axis as `Engine(mesh=)` does (this rank's slice of the params, the
+local head counts, the model group's collectives in every forward;
+kivi_tpu/parallel/elastic.py:273-292 builds the JAX batcher over
+sharded params).  The slots are not split over "data": each data rank
+serves the same slots, as the JAX batcher's unsharded slot caches are
+replicated.  Every rank of a model group samples from a generator with
+the same seed, over the same gathered logits, so all pick the same
+tokens.
 """
 
 from __future__ import annotations
@@ -52,6 +62,7 @@ from kivi_tpu_torch.cache import fp_cache as FC
 from kivi_tpu_torch.cache import kivi_cache as KC
 from kivi_tpu_torch.config import ModelConfig, QuantConfig
 from kivi_tpu_torch.models import modeling
+from kivi_tpu_torch.parallel import mesh as M
 from kivi_tpu_torch.serving import sampling
 from kivi_tpu_torch.serving.engine import FILL_BUCKET, phase_period
 from kivi_tpu_torch.utils.graphs import StepGraphs
@@ -110,18 +121,28 @@ class ContinuousBatcher:
     batcher's config, cache length and cache dtype.  debug=True: the
     same program run eagerly, every admission forward, tail step and
     decode step a checked call (utils/guards.py, as Engine(debug=True)).
+
+    mesh: a (data, model) DeviceMesh; params are then this rank's slice
+    (`parallel.mesh.shard_params`) and `self.cfg` the local config
+    (module docstring).
     """
 
     def __init__(self, cfg: ModelConfig, qcfg: QuantConfig, params,
                  num_slots: int, max_seq_len: int, device=None,
                  prompt_buckets=(128, 256, 512, 1024, 2048, 4096),
                  prefill_chunk: int = 0, prefix=None, prefix_cache=None,
-                 cache_dtype=torch.bfloat16, debug: bool = False):
+                 cache_dtype=torch.bfloat16, debug: bool = False,
+                 mesh=None):
+        cfg = M.local_config(cfg, M.mesh_coords(mesh)[2])
+        M.check_local_params(params, cfg)
         self.cfg, self.qcfg, self.params = cfg, qcfg, params
         self.prefix, self.prefix_cache = prefix, prefix_cache
         self.debug = debug
-        self._forward = (checked_call(modeling.forward) if debug
-                         else modeling.forward)
+        # the model, with this rank's tensor-parallel group
+        self._model = functools.partial(modeling.forward,
+                                        tp=M.group_of(mesh, M.MODEL_AXIS))
+        self._forward = (checked_call(self._model) if debug
+                         else self._model)
         self.S, self.T = num_slots, max_seq_len
         self.device = modeling.resolve_device(device)
         # the bucket list always tops out at max_seq_len: any prompt that
@@ -237,7 +258,7 @@ class ContinuousBatcher:
         on every ACTIVE slot's fill after the step.  Every write is in
         place (the body a CUDA graph captures).  Returns the sampled
         tokens, self.nxt (S,) int32 on the device."""
-        logits, _ = modeling.forward(
+        logits, _ = self._model(
             self.params, self.cur_tok, self.caches, self.cfg, self.qcfg,
             self.pos, mode="decode", pad_len=self.pad_dev,
             active=self.act_dev, fill_bound=fill_bound)
@@ -277,7 +298,7 @@ class ContinuousBatcher:
         counters on the device, each window flushed as it fills), its
         logits kept.  Every write is in place (the body a CUDA graph
         captures); fill_bound: a static bound on the cache's fill."""
-        logits, _ = modeling.forward(
+        logits, _ = self._model(
             self.params, self._tail_tok, self._one, self.cfg, self.qcfg,
             self._tail_pos, mode="decode", fill_bound=fill_bound)
         self._tail_logits.copy_(logits[:, -1])

@@ -1,11 +1,22 @@
 """Generation engine over the KIVI cache or the fp16 cache (the
-baseline): port of `kivi_tpu/serving/engine.py` but for its
-sequence-parallel prefill — one-shot prefill (`prefill`) or chunked
-prefill through the extend path (`prefill_chunked`), then decode; shared
-prompt prefixes (`PrefixSnapshot`, `prefill_prefix`, `extend`, the
-snapshot on disk) with ragged suffixes (`generate(prefix=,
-suffix_lens=)`); streaming (`generate_stream`) and beam search
-(`generate_beam`).
+baseline): port of `kivi_tpu/serving/engine.py` — one-shot prefill
+(`prefill`), chunked prefill through the extend path
+(`prefill_chunked`) or sequence-parallel prefill (`prefill_seqpar`,
+ring attention over a mesh axis), then decode; shared prompt prefixes
+(`PrefixSnapshot`, `prefill_prefix`, `extend`, the snapshot on disk)
+with ragged suffixes (`generate(prefix=, suffix_lens=)`); streaming
+(`generate_stream`) and beam search (`generate_beam`).
+
+`Engine(mesh=)` runs tensor and data parallel over a (data, model)
+DeviceMesh (parallel/mesh.py): its params are this rank's slice
+(`shard_params`), it holds the local config (heads and MLP width over
+"model") and this data rank's rows of the batch, and every forward
+calls the model group's collectives (a group of size 1 issues none).
+Every method takes and returns this rank's rows (`shard_tokens`,
+`multihost.feed_batch`).  The ranks of a model group see the same
+logits (the vocab-split logits are gathered), so with identically
+seeded generators they sample the same tokens; each data rank's rows
+sample with its own generator.
 
 Decode is the port of the JAX engine's compiled `_decode_scan_fn`
 (kivi_tpu/serving/engine.py:312-398).  As there, a KIVI cache's window
@@ -60,6 +71,8 @@ from kivi_tpu_torch.cache import kivi_cache as KC
 from kivi_tpu_torch.cache.kivi_cache import nvq_canonical
 from kivi_tpu_torch.config import ModelConfig, QuantConfig
 from kivi_tpu_torch.models import modeling
+from kivi_tpu_torch.parallel import mesh as M
+from kivi_tpu_torch.parallel.ring import seq_layout
 from kivi_tpu_torch.serving import sampling
 from kivi_tpu_torch.utils.graphs import StepGraphs
 from kivi_tpu_torch.utils.guards import checked_call
@@ -275,18 +288,32 @@ class Engine:
     flush, decode and beam step a checked call (module docstring).
 
     params: the port's parameter dict (modeling.init_params or
-    convert.params_from_jax), already on `device`."""
+    convert.params_from_jax), already on `device`; with a mesh, this
+    rank's slice of it (`parallel.mesh.shard_params`).
+
+    mesh: a (data, model) DeviceMesh (module docstring).  cfg and
+    batch_size stay the whole model's and the global batch's;
+    `self.cfg` and `self.batch_size` become this rank's."""
 
     def __init__(self, cfg: ModelConfig, qcfg: QuantConfig, params: dict,
                  max_seq_len: int, batch_size: int, device=None,
-                 cache_dtype=torch.bfloat16, debug: bool = False):
-        self.cfg, self.qcfg, self.params = cfg, qcfg, params
-        self.max_seq_len, self.batch_size = max_seq_len, batch_size
+                 cache_dtype=torch.bfloat16, debug: bool = False,
+                 mesh=None):
+        n_data, _, n_model, _ = M.mesh_coords(mesh)
+        self.mesh = mesh
+        self.cfg, self.qcfg, self.params = (M.local_config(cfg, n_model),
+                                            qcfg, params)
+        M.check_local_params(params, self.cfg)
+        self.max_seq_len = max_seq_len
+        self.batch_size = M.local_batch(batch_size, n_data)
+        self.tp = M.group_of(mesh, M.MODEL_AXIS)
         self.device = modeling.resolve_device(device)
         self.cache_dtype = cache_dtype
         self.debug = debug
-        self._forward = (checked_call(modeling.forward) if debug
-                         else modeling.forward)
+        # the model, with this rank's tensor-parallel group
+        self._model = functools.partial(modeling.forward, tp=self.tp)
+        self._forward = (checked_call(self._model) if debug
+                         else self._model)
         self._flush = (checked_call(modeling.flush_caches) if debug
                        else modeling.flush_caches)
         self._caches = None   # the caches generate() prefills, reused
@@ -394,22 +421,61 @@ class Engine:
                                           caches, t0, pad)
         return logits, caches
 
+    def prefill_seqpar(self, tokens, mesh, axis: str = M.DATA_AXIS,
+                       caches=None, pad_lens=None, striped: bool = False):
+        """One-shot prefill with the TOKEN axis split over the ranks of
+        `axis` of `mesh` (kivi_tpu/serving/engine.py:508-554): attention
+        runs as a ring (parallel/ring.py), so n ranks split the prompt's
+        O(T^2) attention n ways.  tokens (B, T), the same on every rank,
+        LEFT-padded by pad_lens (B,); T % n == 0.  Each rank embeds,
+        projects and runs the MLP on its T/n block; K/V are gathered per
+        layer before the cache ingest.  Returns (last-token logits (B, V)
+        f32, caches), the same on every rank, the caches holding the
+        whole prompt in token order (the exact-attention accuracy class
+        of `prefill`, not the chunked one).
+
+        striped: lay the tokens out in the zigzag order (needs T % 2n ==
+        0) so every rank does ~equal causal work; the permutation is
+        internal.  The engine's own mesh, if any, may split heads over
+        "model" only: the sequence axis takes the place of "data"."""
+        if axis == M.MODEL_AXIS and self.tp is not None:
+            raise ValueError("the sequence axis cannot be the engine's "
+                             "tensor-parallel axis")
+        if self.mesh is not None and M.mesh_coords(self.mesh)[0] > 1:
+            raise ValueError("prefill_seqpar on an engine whose mesh splits "
+                             "the batch over 'data'")
+        tokens = torch.as_tensor(tokens, device=self.device).long()
+        B, T = tokens.shape
+        seq = seq_layout(T, M.group_of(mesh, axis), striped, self.device)
+        pad = self._pad(pad_lens, B)
+        # this rank's slots hold the tokens at their true positions
+        positions = seq.positions.expand(B, -1)
+        if pad is not None:
+            positions = torch.clamp(positions - pad[:, None], min=0)
+        if caches is None:
+            caches = self.init_caches(B)
+        logits, caches = self._forward(
+            self.params, tokens.index_select(1, seq.positions), caches,
+            self.cfg, self.qcfg, positions, mode="prefill", pad_len=pad,
+            seq_group=seq)
+        return logits[:, -1], caches
+
     def prefill_prefix(self, tokens, chunk_size: Optional[int] = None,
                        seq_mesh=None) -> PrefixSnapshot:
         """Prefill a shared prompt prefix once at batch 1 and snapshot the
         caches (kivi_tpu/serving/engine.py:556-583).  tokens (T0,) or
         (1, T0).  One-shot (exact attention) unless chunk_size is given
         (prefill_chunked: chunks past the first see the quantized
-        history).  seq_mesh= (sequence-parallel prefill) comes with the
-        port of parallel/."""
-        if seq_mesh is not None:
-            raise NotImplementedError(
-                "prefill_prefix(seq_mesh=): sequence-parallel prefill comes "
-                "with the port of parallel/ (ROADMAP Queue 1 item 7)")
+        history).  seq_mesh: (mesh, axis), prefill the prefix
+        sequence-parallel over that mesh axis (`prefill_seqpar`: the
+        exact-attention class, unlike chunking)."""
         tokens = torch.as_tensor(tokens, device=self.device).reshape(1, -1)
         tokens = tokens.to(torch.int64)
         caches = self.init_caches(1)
-        if chunk_size is None:
+        if seq_mesh is not None:
+            self.prefill_seqpar(tokens, seq_mesh[0], seq_mesh[1],
+                                caches=caches)
+        elif chunk_size is None:
             self._prefill(tokens, caches)
         else:
             self.prefill_chunked(tokens, chunk_size, caches)
@@ -552,7 +618,7 @@ class Engine:
         and writes only the state's tensors, in place.  teach: feed the
         teacher token forced[:, step + 1] to the rows that still have one
         (the step index is the state's, on the device)."""
-        logits, _ = modeling.forward(
+        logits, _ = self._model(
             self.params, st.token, st.caches, self.cfg, self.qcfg, st.pos,
             mode="decode", flush=False, pad_len=st.pad if has_pad else None,
             fill_bound=fill_bound)
@@ -880,7 +946,7 @@ class Engine:
         """One beam step, the body a CUDA graph captures: the forward,
         the advance and the caches' reorder by parent (below the fill
         bound), all in place."""
-        logits, _ = modeling.forward(
+        logits, _ = self._model(
             self.params, st.token, st.caches, self.cfg, self.qcfg, st.pos,
             mode="decode", flush=False, pad_len=st.pad if has_pad else None,
             fill_bound=fb)

@@ -169,6 +169,9 @@ class SpeculativeEngine:
             raise ValueError("target and draft must share a vocabulary")
         if target.device != draft.device:
             raise ValueError("target and draft must share a device")
+        if target.tp is not None or draft.tp is not None:
+            raise NotImplementedError(
+                "speculative decoding over a tensor-parallel engine")
         self.target, self.draft, self.k = target, draft, k
         self.device = target.device
         self.debug = target.debug or draft.debug

@@ -256,7 +256,9 @@ def test_safetensors_reader_reads_each_dtype(tmp_path):
 def test_checkpoint_round_trip_and_convert_hf(tmp_path):
     """save_checkpoint / load_checkpoint: the config and every tensor
     bit-equal (dtype kept); convert_hf of an HF directory equals
-    load_hf_checkpoint of it; a sharded restore waits for parallel/."""
+    load_hf_checkpoint of it; a restore onto a one-rank (1, 1) mesh
+    keeps every tensor whole (tests/test_torch_mesh.py holds a two-rank
+    restore to each rank's slice)."""
     hf_cfg, model = _llama(seed=5)
     sd = {k: v.numpy() for k, v in model.state_dict().items()}
     _write_dir(str(tmp_path / "hf"), sd, hf_cfg, "BF16", 1)
@@ -270,5 +272,13 @@ def test_checkpoint_round_trip_and_convert_hf(tmp_path):
     assert cfg3 == cfg
     _assert_params_equal(TCK.load_checkpoint(str(tmp_path / "conv"),
                                              device="cpu")[1], params)
-    with pytest.raises(NotImplementedError, match="parallel"):
-        TCK.load_checkpoint(str(tmp_path / "native"), mesh=object())
+    import torch.distributed as dist
+
+    from kivi_tpu_torch.parallel import multihost
+    multihost.initialize(f"file://{tmp_path / 'store'}", 1, 0, device="cpu")
+    try:
+        mesh = multihost.global_mesh(cfg.num_kv_heads, device="cpu")
+        _assert_params_equal(TCK.load_checkpoint(
+            str(tmp_path / "native"), device="cpu", mesh=mesh)[1], params)
+    finally:
+        dist.destroy_process_group()

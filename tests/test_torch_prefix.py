@@ -210,9 +210,12 @@ def test_broadcast_into_refuses_a_foreign_snapshot():
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("chunk", [None, 64])
-def test_prefill_prefix_and_extend_match_jax(chunk):
+def test_prefill_prefix_and_extend_match_jax(chunk, tmp_path):
     """prefill_prefix (one-shot or chunked) and extend through 2-bit: the
-    snapshots' caches against the JAX package's; the token ids chain."""
+    snapshots' caches against the JAX package's; the token ids chain.
+    prefill_prefix(seq_mesh=) over a one-rank world (a ring of one)
+    against the JAX one-shot snapshot (tests/test_torch_ring.py holds
+    two ranks)."""
     jeng, teng = _engines(2, 1)
     t0, t1 = _toks(3, (70,)), _toks(4, (45,))
     js = jeng.prefill_prefix(jnp.asarray(t0, jnp.int32), chunk_size=chunk)
@@ -223,8 +226,18 @@ def test_prefill_prefix_and_extend_match_jax(chunk):
     assert ts1.length == js1.length == 115
     np.testing.assert_array_equal(ts1.tokens.numpy(), np.asarray(js1.tokens))
     _assert_caches_close(ts1.caches, js1.caches, "extend")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        teng.prefill_prefix(torch.from_numpy(t0), seq_mesh=object())
+    import torch.distributed as dist
+
+    from kivi_tpu_torch.parallel import multihost
+    multihost.initialize(f"file://{tmp_path / 'store'}", 1, 0, device="cpu")
+    try:
+        mesh = multihost.global_mesh(teng.cfg.num_kv_heads, device="cpu")
+        sp = teng.prefill_prefix(torch.from_numpy(t0), seq_mesh=(mesh, "data"))
+    finally:
+        dist.destroy_process_group()
+    js = js if chunk is None else jeng.prefill_prefix(jnp.asarray(t0,
+                                                                  jnp.int32))
+    _assert_caches_close(sp.caches, js.caches, "prefill_prefix(seq_mesh=)")
 
 
 def test_extend_matches_one_shot_snapshot_fp16():
