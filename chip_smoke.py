@@ -137,6 +137,25 @@ Phases (any failure raises; the exit code is then non-zero):
      then the probe path: `python3 -m kivi_tpu_torch.profile_wide_32k
      --quick` (B = 4, 32 KV heads, a 32K history), whose wide kernel,
      split decode route and probe variants must launch;
+     then the last slice (`phase_eval`, `[eval:*]` and `[attr:*]`
+     lines): (a) core.fake_quant's fake_quant_kv over 8 x 32 heads x
+     1024 x 128 K/V, bf16 and f32, 2 and 4 bits, bit-equal to the CPU's,
+     f32 within 1e-5 of the KIVI round trip through core.quant, its
+     straight-through gradient exact; (b) load_hf_checkpoint_native (the
+     C++ mmap reader, built at first use) bit-equal to
+     load_hf_checkpoint on a 2-layer Llama-2-7B-width HF directory, each
+     loader's ms and GB/s; (c) LongBench predict (run_longbench's
+     BucketedGenerator, predict_task, score_dir) on phase_main's
+     Llama-2-7B weights over seeded records of hotpotqa, passage_count
+     and samsum (contexts of 1,000-3,600 words, max_len 4096: the
+     longest is middle-truncated) with a whitespace tokenizer, KIVI-2
+     bucketed one-shot, KIVI-2 in chunks of 128 (the qhist route past
+     SPLIT_MIN_HISTORY) and the fp16 cache: each mode's kernels must
+     launch and the others' not, every prediction's ids equal
+     Engine(debug=True).generate's, predictions a second; (d)
+     `profile_attribution --check` (row 4's ablated variants against
+     their plain versions), then its table at B 72, fills 1280 and
+     3968, each component beside the full kernel (path "attr");
   5. the paths against the plain path: 2 layers at full width on the
      card (kernels) and on the host CPU (plain versions), same weights:
      chunked and one-shot prefill logits of both caches; the long slice
@@ -202,6 +221,11 @@ ATT_RTOL, ATT_ATOL = 1e-5, 1e-5
 B, H, D, TMAX, T1 = 8, 32, 128, 4096, 128
 # per-slot fills of the per-row decode checks: divergent, 0 = empty slot
 FILLS = (1, 137, 640, 1081, 2048, 3000, 4000, 0)
+# the eval runner's decode at batch 1 (run_longbench.BucketedGenerator):
+# (cache bucket, padded prompt, left pad, tokens decoded, max_new): a
+# prompt in chunks of 128 in a 4096 cache (the grid over Tmax), a one-shot
+# one in an 8192 cache (a bounded grid)
+EVAL_DECODE = ((4096, 3584, 100, 64, 128), (8192, 4096, 512, 20, 32))
 # the long-context slice: Llama-3.1-8B's attention (8 KV heads, 4 query
 # rows each) at batch 1, a 16K cache holding a 12,032-token prompt
 LB, LH, LR, LTMAX, LFILL, LPAD, LNEW = 1, 8, 4, 16384, 12032, 32, 64
@@ -514,14 +538,14 @@ def check_decode(gen, results):
     log(f"[kernel] {name} timed at fill {c.seq_len}, KIVI-2, B={B}")
 
 
-def _slot_cache(gen, qcfg, heads, fills=FILLS):
+def _slot_cache(gen, qcfg, heads, fills=FILLS, tmax: int = TMAX):
     """A slot cache (per-row device counters) whose row s holds fills[s]
     tokens, the last one appended by decode_append (0: an empty slot)."""
     from kivi_tpu_torch.cache import kivi_cache as KC
-    slots = KC.init_slot_cache(len(fills), heads, D, TMAX, qcfg,
+    slots = KC.init_slot_cache(len(fills), heads, D, tmax, qcfg,
                                device="cuda")
     for s, fill in enumerate(fills):
-        one = KC.init_layer_cache(1, heads, D, TMAX, qcfg, device="cuda")
+        one = KC.init_layer_cache(1, heads, D, tmax, qcfg, device="cuda")
         if fill > 1:
             KC.prefill_ingest(one, _randn(gen, (1, heads, fill - 1, D)),
                               _randn(gen, (1, heads, fill - 1, D)), qcfg)
@@ -547,9 +571,11 @@ def check_fused_decode_rows(gen, results):
     import torch.nn.functional as F
 
     from kivi_tpu_torch.config import QuantConfig
+    from kivi_tpu_torch.core import attention as ATT
     from kivi_tpu_torch.core import quant as Q
     from kivi_tpu_torch.kernels import fused_decode as FR
     from kivi_tpu_torch.kernels import fused_decode_wide as FD
+    from kivi_tpu_torch.serving import engine as ENG
     name = "fused_decode_attention"
     worst = 0.0
     S = len(FILLS)
@@ -611,6 +637,26 @@ def check_fused_decode_rows(gen, results):
         torch.cuda.synchronize()
         _att_err(got, want, f"{name} bits={bits} uniform fill 1081 vs "
                             "fused_decode_attention_wide")
+    # the eval runner's decode: one row behind a left pad, t_bound as the
+    # engine sets it
+    for tmax, prompt, pad_, done, new in EVAL_DECODE:
+        qcfg = QuantConfig(2, 2, 32, 128, v_flush=128)
+        c = _slot_cache(gen, qcfg, H, fills=(prompt + done,), tmax=tmax)
+        q = _randn(gen, (1, H, 1, D))
+        counts = torch.stack([c.n_k_quant, c.n_k_win, c.n_v_quant], dim=1)
+        args = (q, c.k_codes, c.k_scale, c.k_mn, c.v_codes, c.v_scale,
+                c.v_mn, c.k_win, c.v_win, counts)
+        tb = ATT.t_bound_for(ENG.fill_bound(prompt, new), tmax, 128)
+        kw = dict(group_size=32, k_bits=2, v_bits=2, t_bound=tb,
+                  lo=torch.tensor([pad_], device="cuda", dtype=torch.int32))
+        what = (f"{name} eval decode B=1 Hkv={H} Tmax={tmax} fill "
+                f"{prompt + done} pad {pad_} t_bound={tb} "
+                f"{_row_counts(c)[0][:3]}")
+        got = _twice(lambda: FR.fused_decode_attention(*args, **kw), what)
+        want = FR.fused_decode_attention_plain(*args, **kw)
+        torch.cuda.synchronize()
+        worst = max(worst, _att_err(got, want, what + " (two runs "
+                                                      "bit-equal)"))
 
     c, qcfg, args, kw, q, rows, want = timed
     # control: every row without its first split must be refused
@@ -977,8 +1023,9 @@ def _refused(share: float, what: str) -> None:
 def check_qhist(gen, results):
     """Row 5 against its plain version: the slice's geometry, an empty
     history, bits 2/4/8, n_k_quant > n_v_quant, per-row pads (one past
-    the history), a sliding window and the prefix paths' batch-1 suffix
-    behind the 2304-token snapshot; timed at the slice's shapes."""
+    the history), a sliding window, the prefix paths' batch-1 suffix
+    behind the 2304-token snapshot and the eval runner's padded chunks;
+    timed at the slice's shapes."""
     import torch.nn.functional as F
 
     from kivi_tpu_torch.config import QuantConfig
@@ -998,7 +1045,14 @@ def check_qhist(gen, results):
              # the prefix-qhist path: Llama-2-7B's heads behind the
              # 2304-token snapshot, the 96-token suffix at batch 1
              (PREFIX_LONG, None, 0, 2, 128, 128,
-              dict(heads=H, r=1, t1=SUFFIX, tmax=TMAX))]
+              dict(heads=H, r=1, t1=SUFFIX, tmax=TMAX)),
+             # the eval runner's chunks of 128 (run_longbench, batch 1):
+             # Llama-2-7B's heads in a 4096 cache behind a left pad inside
+             # the first chunk, histories at both ends of its range
+             (2048, (100,), 0, 2, 128, 128,
+              dict(heads=H, r=1, t1=T1, tmax=TMAX)),
+             (3456, (100,), 0, 2, 128, 128,
+              dict(heads=H, r=1, t1=T1, tmax=TMAX))]
     for fill, pads, sw, bits, W, vf, geo in cases:
         geo = {**slice_geo, **geo}
         qcfg = QuantConfig(bits, bits, 32, W, v_flush=vf)
@@ -1283,7 +1337,9 @@ def check_fp_decode(gen, results):
     import torch.nn.functional as F
 
     from kivi_tpu_torch.cache import fp_cache as FC
+    from kivi_tpu_torch.core import attention as ATT
     from kivi_tpu_torch.kernels import fp_decode as FD
+    from kivi_tpu_torch.serving import engine as ENG
     name = "fp_decode_attention_kernel"
     worst = 0.0
     S = FD.SPLIT
@@ -1349,6 +1405,28 @@ def check_fp_decode(gen, results):
             raise AssertionError(f"{what}: the empty row is not 0")
         if (heads, mask) == (H, None):
             rows = (c, q)
+    # the eval runner's decode on the fp16 cache: one row behind a left
+    # pad, t_bound as the engine sets it
+    for tmax, prompt, pad_, done, new in EVAL_DECODE:
+        c = FC.init_fp_slot_cache(1, H, D, tmax, device="cuda")
+        c.k.copy_(_randn(gen, c.k.shape))
+        c.v.copy_(_randn(gen, c.v.shape))
+        c.length.fill_(prompt + done)
+        q = _randn(gen, (1, H, 1, D))
+        kw = dict(pad_len=torch.tensor([pad_], device="cuda",
+                                       dtype=torch.int32),
+                  t_bound=ATT.t_bound_for(ENG.fill_bound(prompt, new), tmax))
+        got = FD.fp_decode_attention_kernel(q, c.k, c.v, c.length, **kw)
+        want = FD.fp_decode_attention_plain(q, c.k, c.v, c.length, **kw)
+        again = FD.fp_decode_attention_kernel(q, c.k, c.v, c.length, **kw)
+        torch.cuda.synchronize()
+        what = (f"{name} eval decode B=1 Hkv={H} Tmax={tmax} length "
+                f"{prompt + done} pad {pad_} t_bound={kw['t_bound']}")
+        if not torch.equal(got, again):
+            raise AssertionError(f"{what}: two runs differ")
+        worst = max(worst, _att_err(got, want, f"{what} (two runs "
+                                               "bit-equal)"))
+        del c
     c_rows, q_rows = rows
     rows_bytes = (2 * H * sum(FILLS) * D * 2 + q_rows.numel() * 2
                   + q_rows.numel() * 4 + S * 4)
@@ -3410,6 +3488,321 @@ def phase_parallel(layers: int, smi: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 4f: the eval suite, fake quantization, the native reader, row 4's
+# attribution
+# ---------------------------------------------------------------------------
+
+EVAL = {}          # what phase_eval measured, for the summary line
+EVAL_TASKS = ("hotpotqa", "passage_count", "samsum")
+EVAL_MAX_LEN = 4096                      # max_prompt 3584: one is cut
+EVAL_WORDS = {"hotpotqa": (1000, 2000), "passage_count": (1500, 2800),
+              "samsum": (1200, 3600)}    # context words of the 2 records
+PATHS.update({
+    "eval:oneshot": (("flash_attention", "quantize_pack_k",
+                      "quantize_pack_v", "fused_decode_attention"),
+                     ("fused_decode_attention_wide", "flash_extend_attention",
+                      "fp_decode_attention_kernel") + SPLIT_KERNELS + PROBE),
+    # chunks of 128 over histories >= SPLIT_MIN_HISTORY take the qhist
+    # route (host-int extend), as the long slice's do
+    "eval:chunked": (("flash_extend_attention", "flash_extend_qhist",
+                      "quantize_pack_k", "quantize_pack_v",
+                      "fused_decode_attention"),
+                     ("fused_decode_attention_wide", "flash_attention",
+                      "fp_decode_attention_kernel", "qk_dequant_matmul",
+                      "pv_dequant_matmul") + PROBE),
+    "eval:fp16": (("flash_attention", "fp_decode_attention_kernel"),
+                  KIVI_KERNELS + PROBE),
+    # the attribution driver's table: the wide kernel and its ablated
+    # variants (launched from the probe's library), nothing else
+    "attr": (("fused_decode_attention_wide", "trimmed"),
+             ("quantize_pack_k", "quantize_pack_v", "flash_extend_attention",
+              "fused_decode_attention", "flash_attention",
+              "fp_decode_attention_kernel") + SPLIT_KERNELS),
+})
+
+
+class WordTokenizer:
+    """A whitespace tokenizer over a model's vocabulary for the eval
+    runs: each word gets the next free id from 3 on (0 <unk>, 1 <s>,
+    2 </s> = EOS) when first encoded; decode joins the words, an id never
+    encoded as <id>.  Encoding a decoded text gives back its ids."""
+
+    eos_token_id = 2
+
+    def __init__(self, vocab_size: int):
+        self.vocab_size = vocab_size
+        self.ids, self.words = {}, {0: "<unk>", 1: "<s>", 2: "</s>"}
+
+    def encode(self, text: str) -> list:
+        out = []
+        for w in text.split():
+            if w not in self.ids:
+                if len(self.ids) + 3 >= self.vocab_size:
+                    raise ValueError("WordTokenizer: vocabulary full")
+                self.ids[w] = len(self.ids) + 3
+                self.words[self.ids[w]] = w
+            out.append(self.ids[w])
+        return out
+
+    def decode(self, ids, skip_special_tokens: bool = True) -> str:
+        keep = [i for i in ids if not (skip_special_tokens and i < 3)]
+        return " ".join(self.words.get(i, f"<{i}>") for i in keep) + " "
+
+
+class _RecordedEngine:
+    """An Engine whose generate() appends each call's padded ids, pad,
+    cache bucket, steps and generated ids to `calls`."""
+
+    def __init__(self, eng, cache_len: int, calls: list):
+        self.eng, self.cache_len, self.calls = eng, cache_len, calls
+        self.device = eng.device
+
+    def generate(self, tokens, steps, **kw):
+        out = self.eng.generate(tokens, steps, **kw)
+        self.calls.append({"tokens": tokens.cpu(), "pad": kw["pad_lens"][0],
+                           "cache_len": self.cache_len, "steps": steps,
+                           "new": out[0].tolist()})
+        return out
+
+
+def recording_generator(*args, **kw):
+    """run_longbench.BucketedGenerator whose engines record their calls
+    in the generator's `calls` (`_RecordedEngine`)."""
+    from kivi_tpu_torch.evalsuite.run_longbench import BucketedGenerator
+
+    class Recording(BucketedGenerator):
+        def __init__(self):
+            super().__init__(*args, **kw)
+            self.calls = []
+
+        def engine(self, cache_len: int):
+            return _RecordedEngine(super().engine(cache_len), cache_len,
+                                   self.calls)
+
+    return Recording()
+
+
+def eval_records(seed: int) -> dict:
+    """LongBench-format records from a seed (numpy): per task 2 records
+    whose contexts hold EVAL_WORDS[task] words over a 4000-word list."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    words = np.array([f"w{i}" for i in range(4000)])
+    data = {}
+    for task in EVAL_TASKS:
+        data[task] = [{
+            "context": " ".join(rng.choice(words, n)),
+            "input": " ".join(rng.choice(words, 12)) + " ?",
+            "answers": [str(rng.choice(words)), str(int(rng.integers(
+                1, 30)))],
+            "all_classes": None, "length": n} for n in EVAL_WORDS[task]]
+    return data
+
+
+def eval_fake_quant(smi: str) -> None:
+    """(a) fake_quant_kv at full width (8 x 32 heads x 1024 x 128, bf16
+    and f32, 2 and 4 bits, group 32): the card's result bit-equal to the
+    CPU's, f32 within 1e-5 of the KIVI round trip through core.quant
+    (tests/test_quant_core.py:134), and the straight-through gradient of
+    sum(fq(x)^2) exactly 2 fq(x)."""
+    from kivi_tpu_torch.core import fake_quant as FQ
+    from kivi_tpu_torch.core import quant as Q
+    g = torch.Generator(device="cuda").manual_seed(21)
+    shape = (B, H, 1024, D)
+    ints = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
+    for dt in (torch.bfloat16, torch.float32):
+        k = torch.randn(shape, generator=g, device="cuda")
+        k[..., 3] *= 30.0                   # an outlier channel
+        v = torch.randn(shape, generator=g, device="cuda")
+        k, v = k.to(dt), v.to(dt)
+        kc, vc = k.cpu(), v.cpu()
+        for bits in (2, 4):
+            ms = cuda_ms(lambda: FQ.fake_quant_kv(k, v, bits, bits, 32),
+                         iters=5)
+            fk, fv = FQ.fake_quant_kv(k, v, bits, bits, 32)
+            ck, cv = FQ.fake_quant_kv(kc, vc, bits, bits, 32)
+            for got, want, what in ((fk, ck, "K"), (fv, cv, "V")):
+                if not torch.equal(got.cpu().view(ints[dt]),
+                                   want.view(ints[dt])):
+                    raise AssertionError(f"fake_quant_kv {dt} {bits}-bit "
+                                         f"{what}: card != CPU")
+            rt = ""
+            if dt == torch.float32:
+                rk = Q.dequantize_k(*Q.quantize_k_block(
+                    k.transpose(-1, -2), 32, bits), 32, bits)
+                rv = Q.dequantize_v(*Q.quantize_v_block(v, 32, bits), 32,
+                                    bits)
+                torch.testing.assert_close(fk, rk.transpose(-1, -2),
+                                           rtol=1e-5, atol=1e-5)
+                torch.testing.assert_close(fv, rv, rtol=1e-5, atol=1e-5)
+                e = max((fk - rk.transpose(-1, -2)).abs().max().item(),
+                        (fv - rv).abs().max().item())
+                rt = f", within {e:.3e} of the KIVI round trip"
+            log(f"[eval:fakequant] {str(dt)[6:]} {bits}-bit {tuple(shape)}: "
+                f"card bit-equal to the CPU{rt}, {ms:.4f} ms a K/V pair | "
+                f"card {smi}")
+    x = torch.randn((B, H, 256, D), generator=g, device="cuda",
+                    requires_grad=True)
+    fq = FQ.fake_quant_grouped(x, 2, 32, axis=-2)
+    (fq ** 2).sum().backward()
+    if not torch.equal(x.grad, 2 * fq.detach()):
+        raise AssertionError("fake_quant: gradient != 2 fq(x)")
+    log("[eval:fakequant] grad of sum(fq(x)^2) = 2 fq(x) exactly (straight-"
+        "through)")
+
+
+def eval_native_reader(smi: str) -> None:
+    """(b) load_hf_checkpoint_native against load_hf_checkpoint on a
+    2-layer Llama-2-7B-width HF directory (write_hf_checkpoint): params
+    bit-equal; each loader's wall ms and GB/s (the file just written:
+    warm in the page cache)."""
+    import dataclasses
+    import os
+    import tempfile
+
+    from kivi_tpu_torch.config import PRESETS
+    from kivi_tpu_torch.models import modeling, native_io
+    from kivi_tpu_torch.models.hf_loader import (load_hf_checkpoint,
+                                                 load_hf_checkpoint_native)
+    t0 = time.perf_counter()
+    so = native_io.build()
+    log(f"[eval:native] reader built in {time.perf_counter() - t0:.1f} s: "
+        f"{so}")
+    cfg = dataclasses.replace(PRESETS["llama2-7b"], num_layers=2)
+    written = modeling.init_params(cfg, seed=12, device="cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        write_hf_checkpoint(f"{tmp}/hf", written, cfg)
+        nbytes = os.path.getsize(f"{tmp}/hf/model.safetensors")
+        got = {}
+        for name, fn in (("load_hf_checkpoint", load_hf_checkpoint),
+                         ("load_hf_checkpoint_native",
+                          load_hf_checkpoint_native)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lcfg, got[name] = fn(f"{tmp}/hf", device="cuda")
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            if lcfg != cfg:
+                raise AssertionError(f"{name}: {lcfg} != {cfg}")
+            _same_params(written, got[name], name)
+            EVAL[f"{name}_ms"] = secs * 1e3
+            EVAL[f"{name}_gb_per_s"] = nbytes / secs / 1e9
+            log(f"[eval:native] {name}: {nbytes / 1e9:.3f} GB in "
+                f"{secs * 1e3:.1f} ms, {nbytes / secs / 1e9:.2f} GB/s (warm), "
+                f"params bit-equal to the written | card {smi}")
+    del written, got
+    torch.cuda.empty_cache()
+
+
+def eval_predict(cfg, params, smi: str) -> dict:
+    """(c) LongBench predict through run_longbench's BucketedGenerator
+    (its engines' calls recorded: `recording_generator`),
+    predict_task and score_dir at Llama-2-7B width on phase_main's
+    weights, three modes: KIVI-2 bucketed one-shot, KIVI-2 with chunks
+    of 128, the fp16 cache.  Each mode's launches are counted (zeroed
+    just before); each prediction's ids must equal Engine(debug=True).
+    generate's on the same padded prompt.  Returns {path: launches}."""
+    import tempfile
+
+    from kivi_tpu_torch.config import QuantConfig
+    from kivi_tpu_torch.evalsuite.longbench import predict_task, score_dir
+    from kivi_tpu_torch.kernels import _build
+    from kivi_tpu_torch.serving.engine import Engine
+    data = eval_records(seed=15)
+    launches = {}
+    modes = (("oneshot", QuantConfig(2, 2, 32, 128, v_flush=128), 0),
+             ("chunked", QuantConfig(2, 2, 32, 128, v_flush=128), 128),
+             ("fp16", QuantConfig(16, 16, 32, 128), 0))
+    for mode, qcfg, chunk in modes:
+        tok = WordTokenizer(cfg.vocab_size)
+        gen = recording_generator(cfg, qcfg, params, tok,
+                                  prefill_chunk=chunk)
+        calls = gen.calls
+        with tempfile.TemporaryDirectory() as tmp:
+            _build.LAUNCHES.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for task in EVAL_TASKS:
+                recs = predict_task(task, data[task], gen, tok,
+                                    EVAL_MAX_LEN - 512, "llama2-7b",
+                                    out_path=f"{tmp}/{task}.jsonl")
+                if any(not isinstance(r["pred"], str) for r in recs):
+                    raise AssertionError(f"eval:{mode}: bad prediction")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches[f"eval:{mode}"] = dict(_build.LAUNCHES)
+            check_launches(f"eval:{mode}", launches[f"eval:{mode}"])
+            scores = score_dir(tmp)
+        if sorted(scores) != sorted(EVAL_TASKS) or not all(
+                0.0 <= x <= 100.0 for x in scores.values()):
+            raise AssertionError(f"eval:{mode}: bad scores {scores}")
+        lens = [c["tokens"].shape[1] - c["pad"] for c in calls]
+        if EVAL_MAX_LEN - 512 not in lens:       # middle_truncate's cut
+            raise AssertionError(f"eval:{mode}: no prompt was cut to "
+                                 f"{EVAL_MAX_LEN - 512} tokens: {lens}")
+        dbg = {}
+        for c in calls:
+            if c["cache_len"] not in dbg:
+                dbg[c["cache_len"]] = Engine(
+                    cfg=cfg, qcfg=qcfg, params=params,
+                    max_seq_len=c["cache_len"], batch_size=1, debug=True)
+            want = dbg[c["cache_len"]].generate(
+                c["tokens"].cuda(), c["steps"], eos_token_id=2,
+                pad_lens=[c["pad"]], prefill_chunk_size=chunk or None)
+            if want[0].tolist() != c["new"]:
+                raise AssertionError(f"eval:{mode}: prediction ids differ "
+                                     f"from Engine(debug=True).generate's")
+        n = len(calls)
+        EVAL[mode] = dict(predictions_per_s=n / wall, engines=len(gen.engines),
+                          scores=scores)
+        log(f"[eval:{mode}] {n} predictions in {wall:.2f} s, "
+            f"{n / wall:.3f} predictions/s, {len(gen.engines)} engines "
+            f"(cache buckets {sorted(gen.engines)}), prompt tokens {lens}, "
+            f"scores {scores}; ids equal Engine(debug=True)'s; launches "
+            f"{launches[f'eval:{mode}']} | card {smi}")
+        del gen, dbg
+        torch.cuda.empty_cache()
+    return launches
+
+
+def eval_attribution(smi: str) -> dict:
+    """(d) `profile_attribution --check` (every ablated variant held to
+    its plain version at small shapes and on both rows' caches; one that
+    differs raises), then its table at both rows, the launches of the
+    table (not of the checks) counted as path "attr"."""
+    from kivi_tpu_torch import profile_attribution as PA
+    from kivi_tpu_torch.kernels import _build
+    PA.main(["--check"])
+    _build.LAUNCHES.clear()
+    torch.cuda.synchronize()
+    rows = [PA.profile(T, fill, Bt, 20, smi, held=True)
+            for T, fill, Bt in PA.ROWS]
+    launches = {"attr": dict(_build.LAUNCHES)}
+    check_launches("attr", launches["attr"])
+    EVAL["attribution"] = [
+        {k: r[k] for k in ("T", "fill", "B", "bound_ms", "ms",
+                           "component_ms")} for r in rows]
+    return launches
+
+
+def phase_eval(layers: int, smi: str) -> dict:
+    """The last slice: (a) fake quantization, (b) the native reader, (c)
+    LongBench predict at full width, (d) row 4's attribution.  Returns
+    {path: launches}."""
+    eval_fake_quant(smi)
+    stamp("eval-fakequant")
+    eval_native_reader(smi)
+    stamp("eval-native")
+    cfg, params = _parallel_llama2(layers)
+    launches = eval_predict(cfg, params, smi)
+    del params
+    torch.cuda.empty_cache()
+    stamp("eval-predict")
+    launches.update(eval_attribution(smi))
+    return launches
+
+
 def phase_spec_vs_plain():
     """The speculative verify, card (kernels: row 3's per-row entry)
     against host (plain versions), 2 layers at full width, same weights,
@@ -4067,6 +4460,8 @@ def main():
     stamp("parallel")
     launches["probe"] = phase_probe()
     stamp("probe")
+    launches.update(phase_eval(args.layers, smi))
+    stamp("eval")
     phase_vs_plain()
     phase_long_vs_plain()
     phase_prefix_vs_plain()
@@ -4160,6 +4555,7 @@ def main():
     log(f"[spec] {json.dumps(SPEC)} | card {smi}")
     summary = {k: v for k, v in PARALLEL.items() if k != "mesh"}
     log(f"[parallel] {json.dumps(summary)} | card {smi}")
+    log(f"[eval] {json.dumps(EVAL)} | card {smi}")
     log(f"[done] {time.perf_counter() - START:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

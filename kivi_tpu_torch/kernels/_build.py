@@ -110,6 +110,9 @@ SIGNATURES = {
         # part_acc, part_ml, tickets, B, H, r, D, Tmax, gs, k_bits, v_bits,
         # n_quant, variant, split, nsplit, sm_scale, stream
         "kivi_trimmed": [_P] * 11 + [_I] * 12 + [_F, _P],
+        # the arguments of kivi_fused_decode less scale_is_f32, then
+        # variant, split, nsplit, sm_scale, stream
+        "kivi_wide_ablate": [_P] * 14 + [_I] * 15 + [_F, _P],
     },
 }
 

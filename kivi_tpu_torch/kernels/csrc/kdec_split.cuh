@@ -54,10 +54,12 @@
 // read by the host.
 //
 // The 128-position chunk stays the unit of the ablations inside a split:
-// the ablation parameter A takes one part of the quantized positions'
-// work out at a time, for the decode probe (trimmed.cu); the decode
-// kernels run Ablation<0>, the full body.  An ablated branch is not
-// compiled into another variant.
+// the ablation parameter A takes one part of the work out at a time, for
+// the decode probes of trimmed.cu (0-7 at full fill with no fp windows,
+// the probe of profile_wide_32k; 5, 6 and 8-11 with the windows live,
+// the attribution of profile_attribution); the decode kernels run
+// Ablation<0>, the full body.  An ablated branch is not compiled into
+// another variant.
 //   0 full           K scales per element: q . (c * s + mn)
 //   1 fold           each group's K scale folded into the query rows once
 //                    per split: sum_d (q_d s_d) c + sum_d q_d mn_d
@@ -69,7 +71,16 @@
 //                    stay live, the products with q go)
 //   6 no unpack      every slot of a word reads its low `bits` bits
 //   7 dma only       2, 3, 5 and 6 at once: the loads, and the output of 3
-// Every variant stages the split's K scales, V codes and V scales as the
+//   8 no window      no window phase: neither the K window's logits nor the
+//                    V window's product (the strip [nvq, nkq) included);
+//                    the store's partials merged and normalized
+//   9 no store       no quantized-store body (its logits, loads and PV):
+//                    the window's positions alone, merged
+//  10 no store PV    the V store's product dropped, the window's kept
+//  11 loads only     every load of 0 issued and landed (the window rows
+//                    read into registers), no logit, softmax or product;
+//                    every split writes the neutral partial (output 0)
+// Variants 0-7 stage the split's K scales, V codes and V scales as the
 // full body does.
 #pragma once
 
@@ -95,6 +106,10 @@ struct Ablation {
     static constexpr bool qk = !(VAR == 5 || VAR == 7);
     static constexpr bool vpath = !(VAR == 3 || VAR == 4 || VAR == 7);
     static constexpr bool unpack = !(VAR == 6 || VAR == 7);
+    static constexpr bool window = VAR != 8;
+    static constexpr bool store = VAR != 9;
+    static constexpr bool vstore = vpath && !(VAR == 9 || VAR == 10);
+    static constexpr bool compute = VAR != 11;
     // the zero-point term q . mn per (group, row) is staged once per
     // split where the logits need it apart from the K values
     static constexpr bool zp = scales == FOLD || !qk;
@@ -465,7 +480,10 @@ __global__ void __launch_bounds__(NT) decode_kernel(const Params p) {
     clamp_counters(nkq, nkw, nvq, Tmax, W);
     const int lo = p.lo ? max(p.lo[b], 0) : 0;
     const int s0 = split * S;
-    const int a = max(s0, lo), e = min(s0 + S, nkq + nkw);   // live: [a, e)
+    // live: [a, e); the ablations without the window phase or the store
+    // body drop the window's positions or the store's
+    const int a = A::store ? max(s0, lo) : max(max(s0, lo), nkq);
+    const int e = min(s0 + S, A::window ? nkq + nkw : nkq);
     const long long slot = (long long)bh * nsplit + split;
     float* const o_b = p.out + (long long)bh * R * D;
 
@@ -524,12 +542,14 @@ __global__ void __launch_bounds__(NT) decode_kernel(const Params p) {
             p.k_win + ((long long)bh * W - nkq) * D;
         const __nv_bfloat16* const vwin_g =
             p.v_win + ((long long)bh * W - nvq) * D;
-        for (int i = tid * 64; i < (e - wa) * D; i += NT * 64)
-            asm volatile("prefetch.global.L2 [%0];" ::"l"(
-                kwin_g + (long long)wa * D + i));
-        for (int i = tid * 64; i < (e - va) * D; i += NT * 64)
-            asm volatile("prefetch.global.L2 [%0];" ::"l"(
-                vwin_g + (long long)va * D + i));
+        if (A::window) {
+            for (int i = tid * 64; i < (e - wa) * D; i += NT * 64)
+                asm volatile("prefetch.global.L2 [%0];" ::"l"(
+                    kwin_g + (long long)wa * D + i));
+            for (int i = tid * 64; i < (e - va) * D; i += NT * 64)
+                asm volatile("prefetch.global.L2 [%0];" ::"l"(
+                    vwin_g + (long long)va * D + i));
+        }
 #pragma unroll
         for (int j = 0; j < NCH; ++j) {
             const int c0 = s0 + j * CH;
@@ -541,260 +561,302 @@ __global__ void __launch_bounds__(NT) decode_kernel(const Params p) {
             wg::cp_commit();
         }
 
-        float* const q_s = (float*)(smem + L.q);      // (R, D)
-        float* const p_s = (float*)(smem + L.p);      // (R, S)
-        const ST* const ksr = (const ST*)(smem + L.ks);  // (S/gs, D)
-        const ST* const kmr = (const ST*)(smem + L.km);
-        float* const qs_s = (float*)(smem + L.qs);    // (ng, R, D) ablations
-        float* const zp_s = (float*)(smem + L.zp);    // (ng, R) ablations
-        for (int i = tid; i < R * D; i += NT)
-            q_s[i] = to_f(p.q[(long long)bh * R * D + i]);
-
-        // ---- K landed ----
-        wg::cp_wait<NCH>();
-        __syncthreads();
-        if (A::zp) {
-            const int gk = hiK > s0 ? (hiK - s0 + gs - 1) / gs : 0;
-            zero_point_terms<R, A::scales == FOLD>(qs_s, R * D, zp_s, q_s,
-                                                   ksr, kmr, gk, D);
-            __syncthreads();
-        }
-
-        // ---- logits of the store's positions: thread tid owns split
-        // positions 2 tid and 2 tid + 1 (one group, one chunk) ----
-        {
-            const int c = 2 * tid, pos = s0 + c;
-            const bool ok0 = pos >= a && pos < hiK;
-            const bool ok1 = pos + 1 >= a && pos + 1 < hiK;
-            float l0[R], l1[R];
+        if constexpr (!A::compute) {
+            // the loads land and nothing is computed: the neutral partial.
+            // The window rows are read into registers as the full body
+            // reads them (a warp per row, 8 rows in flight), folded by xor
+            // and kept live by an empty asm
+            if (lane < D / 4) {
+                uint2 x = make_uint2(0u, 0u);
 #pragma unroll
-            for (int rr = 0; rr < R; ++rr) l0[rr] = l1[rr] = 0.f;
-            if (ok0 || ok1) {
-                const int j = c / CH, g = c / gs;
-                const int gsc = A::scales == NONE ? j * (CH / gs) : g;
-                store_logits<R, ST, A>(
-                    l0, l1,
-                    (const uint32_t*)(smem + L.kc + j * L.kcs) + c % CH,
-                    ksr + gsc * D, kmr + g * D, q_s, qs_s + g * R * D,
-                    zp_s + g * R, D, KDw, kb);
+                for (int h = 0; h < 2; ++h) {
+                    const __nv_bfloat16* const g = h ? vwin_g : kwin_g;
+                    for (int r0 = (h ? va : wa) + 8 * warp; r0 < e;
+                         r0 += 8 * NW) {
+                        uint2 w8[8];
+#pragma unroll
+                        for (int u = 0; u < 8; ++u)
+                            w8[u] = r0 + u < e
+                                        ? __ldg((const uint2*)(
+                                              g + (long long)(r0 + u) * D
+                                              + 4 * lane))
+                                        : make_uint2(0u, 0u);
+#pragma unroll
+                        for (int u = 0; u < 8; ++u) {
+                            x.x ^= w8[u].x;
+                            x.y ^= w8[u].y;
+                        }
+                    }
+                }
+                asm volatile("" ::"r"(x.x), "r"(x.y));
             }
+            wg::cp_wait<0>();
+            __syncthreads();
+            if (nsplit == 1) {
+                for (int i = tid; i < R * D; i += NT) o_b[i] = 0.f;
+                return;
+            }
+            if (tid < R) {
+                p.part_ml[2 * (slot * R + tid)] = KIVI_NEG_INF;
+                p.part_ml[2 * (slot * R + tid) + 1] = 0.f;
+            }
+        } else {
+            float* const q_s = (float*)(smem + L.q);      // (R, D)
+            float* const p_s = (float*)(smem + L.p);      // (R, S)
+            const ST* const ksr = (const ST*)(smem + L.ks);  // (S/gs, D)
+            const ST* const kmr = (const ST*)(smem + L.km);
+            float* const qs_s = (float*)(smem + L.qs);  // (ng, R, D) ablations
+            float* const zp_s = (float*)(smem + L.zp);  // (ng, R) ablations
+            for (int i = tid; i < R * D; i += NT)
+                q_s[i] = to_f(p.q[(long long)bh * R * D + i]);
+
+            // ---- K landed ----
+            wg::cp_wait<NCH>();
+            __syncthreads();
+            if (A::zp) {
+                const int gk = hiK > s0 ? (hiK - s0 + gs - 1) / gs : 0;
+                zero_point_terms<R, A::scales == FOLD>(qs_s, R * D, zp_s, q_s,
+                                                       ksr, kmr, gk, D);
+                __syncthreads();
+            }
+
+            // ---- logits of the store's positions: thread tid owns split
+            // positions 2 tid and 2 tid + 1 (one group, one chunk) ----
+            {
+                const int c = 2 * tid, pos = s0 + c;
+                const bool ok0 = pos >= a && pos < hiK;
+                const bool ok1 = pos + 1 >= a && pos + 1 < hiK;
+                float l0[R], l1[R];
+#pragma unroll
+                for (int rr = 0; rr < R; ++rr) l0[rr] = l1[rr] = 0.f;
+                if (ok0 || ok1) {
+                    const int j = c / CH, g = c / gs;
+                    const int gsc = A::scales == NONE ? j * (CH / gs) : g;
+                    store_logits<R, ST, A>(
+                        l0, l1,
+                        (const uint32_t*)(smem + L.kc + j * L.kcs) + c % CH,
+                        ksr + gsc * D, kmr + g * D, q_s, qs_s + g * R * D,
+                        zp_s + g * R, D, KDw, kb);
+                }
+#pragma unroll
+                for (int rr = 0; rr < R; ++rr) {
+                    p_s[rr * S + c] = ok0 ? l0[rr] * p.sm_scale : KIVI_NEG_INF;
+                    p_s[rr * S + c + 1] =
+                        ok1 ? l1[rr] * p.sm_scale : KIVI_NEG_INF;
+                }
+            }
+
+            // ---- logits of the window's positions [wa, e): a warp per row,
+            // lane l over channels [4l, 4l + 4), 8 rows in flight ----
+            const int nl = D / 4;   // lanes holding channels
+            __syncthreads();        // the store loop's -1e30 there is written
+            if (wa < e) {
+                float qr[R][4];
+#pragma unroll
+                for (int rr = 0; rr < R; ++rr)
+#pragma unroll
+                    for (int x = 0; x < 4; ++x)
+                        qr[rr][x] =
+                            lane < nl ? q_s[rr * D + 4 * lane + x] : 0.f;
+                for (int r0 = wa + 8 * warp; r0 < e; r0 += 8 * NW) {
+                    uint2 kx[8];
+#pragma unroll
+                    for (int u = 0; u < 8; ++u)
+                        kx[u] = r0 + u < e && lane < nl
+                                    ? __ldg((const uint2*)(
+                                          kwin_g + (long long)(r0 + u) * D
+                                          + 4 * lane))
+                                    : make_uint2(0u, 0u);
+#pragma unroll
+                    for (int u = 0; u < 8; ++u) {
+                        if (r0 + u >= e) break;
+                        float k4[4];
+                        unpack4(kx[u], k4);
+#pragma unroll
+                        for (int rr = 0; rr < R; ++rr) {
+                            float z = 0.f;
+#pragma unroll
+                            for (int x = 0; x < 4; ++x)
+                                z = fmaf(qr[rr][x], k4[x], z);
+                            for (int o = 16; o > 0; o >>= 1)
+                                z += __shfl_xor_sync(0xffffffffu, z, o);
+                            if (lane == 0)
+                                p_s[rr * S + r0 + u - s0] = z * p.sm_scale;
+                        }
+                    }
+                }
+            }
+            __syncthreads();
+
+            // ---- one exact softmax over the split ----
+            float mx[R], sum[R];
 #pragma unroll
             for (int rr = 0; rr < R; ++rr) {
-                p_s[rr * S + c] = ok0 ? l0[rr] * p.sm_scale : KIVI_NEG_INF;
-                p_s[rr * S + c + 1] =
-                    ok1 ? l1[rr] * p.sm_scale : KIVI_NEG_INF;
+                mx[rr] = KIVI_NEG_INF;
+                for (int c = tid; c < S; c += NT)
+                    if (s0 + c >= a && s0 + c < e)
+                        mx[rr] = fmaxf(mx[rr], p_s[rr * S + c]);
             }
-        }
+            block_reduce<R, NT>(mx, red, true);
+#pragma unroll
+            for (int rr = 0; rr < R; ++rr) {
+                sum[rr] = 0.f;
+                for (int c = tid; c < S; c += NT) {
+                    const bool ok = s0 + c >= a && s0 + c < e;
+                    const float pr = ok ? expf(p_s[rr * S + c] - mx[rr]) : 0.f;
+                    p_s[rr * S + c] = pr;
+                    sum[rr] += pr;
+                }
+            }
+            block_reduce<R, NT>(sum, red, false);   // also orders p_s
+            if (tid == 0) {
+#pragma unroll
+                for (int rr = 0; rr < R; ++rr) {
+                    ml_s[rr] = mx[rr];
+                    ml_s[R + rr] = sum[rr];
+                }
+            }
 
-        // ---- logits of the window's positions [wa, e): a warp per row,
-        // lane l over channels [4l, 4l + 4), 8 rows in flight ----
-        const int nl = D / 4;   // lanes holding channels
-        __syncthreads();        // the store loop's -1e30 there is written
-        if (wa < e) {
-            float qr[R][4];
+            // ---- V landed: per (group, position, row) the probability times
+            // the V scale; per (group, row) the sum of probability times the
+            // V min over the store's live positions ----
+            wg::cp_wait<0>();
+            __syncthreads();
+            float* const ps = (float*)(smem + L.ps);       // (Dg, S, R)
+            float* const pm = (float*)(smem + L.pm);       // (Dg, R)
+            if (A::vstore) {
+                for (int i = tid; i < Dg * S; i += NT) {
+                    const int g = i / S, c = i % S;
+                    const float sc = to_f(((const ST*)(
+                        smem + L.vs + (c / CH) * L.vss))[g * CH + c % CH]);
+#pragma unroll
+                    for (int rr = 0; rr < R; ++rr)
+                        ps[i * R + rr] = p_s[rr * S + c] * sc;
+                }
+                for (int i = warp; i < Dg * R; i += NW) {
+                    const int g = i / R, rr = i % R;
+                    float z = 0.f;
+                    for (int c = a - s0 + lane; c < hiV - s0; c += 32)
+                        z = fmaf(p_s[rr * S + c],
+                                 to_f(((const ST*)(smem + L.vm + (c / CH)
+                                                   * L.vss))[g * CH + c % CH]),
+                                 z);
+                    for (int o = 16; o > 0; o >>= 1)
+                        z += __shfl_xor_sync(0xffffffffu, z, o);
+                    if (lane == 0) pm[i] = z;
+                }
+                __syncthreads();
+            }
+
+            // ---- PV over the store's positions: thread tid owns channels
+            // d0 = 2 (tid % (D/2)) and d0 + 1 at every nph-th position ----
+            const int npair = D / 2, nph = NT / npair;
+            const int d0 = 2 * (tid % npair), ph = tid / npair;
+            int w0, sh0, w1, sh1;
+            channel_slot(d0, VDw, vb, &w0, &sh0);
+            channel_slot(d0 + 1, VDw, vb, &w1, &sh1);
+            const int vg = d0 / gs;
+            const uint32_t vmask = (1u << vb) - 1u, vm2 = vmask * 0x00010001u;
+            float acc0[R], acc1[R];
+#pragma unroll
+            for (int rr = 0; rr < R; ++rr) acc0[rr] = acc1[rr] = 0.f;
+            if (!A::vpath) {
+                if (ph == 0) {
+#pragma unroll
+                    for (int j = 0; j < NCH; ++j)
+#pragma unroll
+                        for (int rr = 0; rr < R; ++rr) {
+                            acc0[rr] += p_s[rr * S + j * CH];
+                            acc1[rr] += p_s[rr * S + j * CH];
+                        }
+                }
+            } else if (A::vstore) {
+                const int c_lo = a - s0, c_hi = hiV - s0;
+#pragma unroll
+                for (int j = 0; j < NCH; ++j) {
+                    const int lo_c = max(c_lo, j * CH);
+                    const int hi_c = min(c_hi, (j + 1) * CH);
+                    if (lo_c >= hi_c) continue;
+                    // this phase's first position at or after lo_c, and the
+                    // chunk's code rows indexed by split position
+                    const int c1 = lo_c + ((ph - lo_c % nph) + nph) % nph;
+                    const uint32_t* const vc =
+                        (const uint32_t*)(smem + L.vc + j * L.vcs) - j * CH;
+                    if (vb < 8)
+                        pv_store<R, true>(acc0, acc1, vc + w0 * CW,
+                                          vc + w1 * CW, sh0, sh1, vm2,
+                                          ps + vg * S * R, c1, hi_c, nph);
+                    else
+                        pv_store<R, false>(acc0, acc1, vc + w0 * CW,
+                                           vc + w1 * CW, sh0, sh1, vmask,
+                                           ps + vg * S * R, c1, hi_c, nph);
+                }
+                if (ph == 0) {   // the min part, once per channel
+#pragma unroll
+                    for (int rr = 0; rr < R; ++rr) {
+                        acc0[rr] += pm[vg * R + rr];
+                        acc1[rr] += pm[vg * R + rr];
+                    }
+                }
+            }
+            // ---- PV over the window's positions [va, e): a warp per row,
+            // lane l over channels [4l, 4l + 4), 8 rows in flight ----
+            float aw[R][4];
 #pragma unroll
             for (int rr = 0; rr < R; ++rr)
 #pragma unroll
-                for (int x = 0; x < 4; ++x)
-                    qr[rr][x] = lane < nl ? q_s[rr * D + 4 * lane + x] : 0.f;
-            for (int r0 = wa + 8 * warp; r0 < e; r0 += 8 * NW) {
-                uint2 kx[8];
+                for (int x = 0; x < 4; ++x) aw[rr][x] = 0.f;
+            if (A::vpath && A::window) {
+                for (int r0 = va + 8 * warp; r0 < e; r0 += 8 * NW) {
+                    uint2 vx[8];
 #pragma unroll
-                for (int u = 0; u < 8; ++u)
-                    kx[u] = r0 + u < e && lane < nl
-                                ? __ldg((const uint2*)(
-                                      kwin_g + (long long)(r0 + u) * D
-                                      + 4 * lane))
-                                : make_uint2(0u, 0u);
+                    for (int u = 0; u < 8; ++u)
+                        vx[u] = r0 + u < e && lane < nl
+                                    ? __ldg((const uint2*)(
+                                          vwin_g + (long long)(r0 + u) * D
+                                          + 4 * lane))
+                                    : make_uint2(0u, 0u);
 #pragma unroll
-                for (int u = 0; u < 8; ++u) {
-                    if (r0 + u >= e) break;
-                    float k4[4];
-                    unpack4(kx[u], k4);
+                    for (int u = 0; u < 8; ++u) {
+                        if (r0 + u >= e) break;
+                        float v4[4];
+                        unpack4(vx[u], v4);
 #pragma unroll
-                    for (int rr = 0; rr < R; ++rr) {
-                        float z = 0.f;
+                        for (int rr = 0; rr < R; ++rr) {
+                            const float pr = p_s[rr * S + r0 + u - s0];
 #pragma unroll
-                        for (int x = 0; x < 4; ++x)
-                            z = fmaf(qr[rr][x], k4[x], z);
-                        for (int o = 16; o > 0; o >>= 1)
-                            z += __shfl_xor_sync(0xffffffffu, z, o);
-                        if (lane == 0)
-                            p_s[rr * S + r0 + u - s0] = z * p.sm_scale;
+                            for (int x = 0; x < 4; ++x)
+                                aw[rr][x] = fmaf(pr, v4[x], aw[rr][x]);
+                        }
                     }
                 }
             }
-        }
-        __syncthreads();
-
-        // ---- one exact softmax over the split ----
-        float mx[R], sum[R];
-#pragma unroll
-        for (int rr = 0; rr < R; ++rr) {
-            mx[rr] = KIVI_NEG_INF;
-            for (int c = tid; c < S; c += NT)
-                if (s0 + c >= a && s0 + c < e)
-                    mx[rr] = fmaxf(mx[rr], p_s[rr * S + c]);
-        }
-        block_reduce<R, NT>(mx, red, true);
-#pragma unroll
-        for (int rr = 0; rr < R; ++rr) {
-            sum[rr] = 0.f;
-            for (int c = tid; c < S; c += NT) {
-                const bool ok = s0 + c >= a && s0 + c < e;
-                const float pr = ok ? expf(p_s[rr * S + c] - mx[rr]) : 0.f;
-                p_s[rr * S + c] = pr;
-                sum[rr] += pr;
-            }
-        }
-        block_reduce<R, NT>(sum, red, false);   // also orders p_s
-        if (tid == 0) {
+            // ---- the position phases, then the warps, summed in order ----
+            __syncthreads();   // ps, under red, is read no more
+            float* const red_s = (float*)(smem + L.red);   // (nph + NW, R, D)
 #pragma unroll
             for (int rr = 0; rr < R; ++rr) {
-                ml_s[rr] = mx[rr];
-                ml_s[R + rr] = sum[rr];
-            }
-        }
-
-        // ---- V landed: per (group, position, row) the probability times
-        // the V scale; per (group, row) the sum of probability times the
-        // V min over the store's live positions ----
-        wg::cp_wait<0>();
-        __syncthreads();
-        float* const ps = (float*)(smem + L.ps);       // (Dg, S, R)
-        float* const pm = (float*)(smem + L.pm);       // (Dg, R)
-        if (A::vpath) {
-            for (int i = tid; i < Dg * S; i += NT) {
-                const int g = i / S, c = i % S;
-                const float sc = to_f(((const ST*)(
-                    smem + L.vs + (c / CH) * L.vss))[g * CH + c % CH]);
-#pragma unroll
-                for (int rr = 0; rr < R; ++rr)
-                    ps[i * R + rr] = p_s[rr * S + c] * sc;
-            }
-            for (int i = warp; i < Dg * R; i += NW) {
-                const int g = i / R, rr = i % R;
-                float z = 0.f;
-                for (int c = a - s0 + lane; c < hiV - s0; c += 32)
-                    z = fmaf(p_s[rr * S + c],
-                             to_f(((const ST*)(smem + L.vm + (c / CH)
-                                               * L.vss))[g * CH + c % CH]),
-                             z);
-                for (int o = 16; o > 0; o >>= 1)
-                    z += __shfl_xor_sync(0xffffffffu, z, o);
-                if (lane == 0) pm[i] = z;
+                *(float2*)(red_s + (ph * R + rr) * D + d0) =
+                    make_float2(acc0[rr], acc1[rr]);
+                if (lane < nl)
+                    *(float4*)(red_s + ((nph + warp) * R + rr) * D + 4 * lane) =
+                        make_float4(aw[rr][0], aw[rr][1], aw[rr][2], aw[rr][3]);
             }
             __syncthreads();
-        }
-
-        // ---- PV over the store's positions: thread tid owns channels
-        // d0 = 2 (tid % (D/2)) and d0 + 1 at every nph-th position ----
-        const int npair = D / 2, nph = NT / npair;
-        const int d0 = 2 * (tid % npair), ph = tid / npair;
-        int w0, sh0, w1, sh1;
-        channel_slot(d0, VDw, vb, &w0, &sh0);
-        channel_slot(d0 + 1, VDw, vb, &w1, &sh1);
-        const int vg = d0 / gs;
-        const uint32_t vmask = (1u << vb) - 1u, vm2 = vmask * 0x00010001u;
-        float acc0[R], acc1[R];
-#pragma unroll
-        for (int rr = 0; rr < R; ++rr) acc0[rr] = acc1[rr] = 0.f;
-        if (!A::vpath) {
-            if (ph == 0) {
-#pragma unroll
-                for (int j = 0; j < NCH; ++j)
-#pragma unroll
-                    for (int rr = 0; rr < R; ++rr) {
-                        acc0[rr] += p_s[rr * S + j * CH];
-                        acc1[rr] += p_s[rr * S + j * CH];
-                    }
-            }
-        } else {
-            const int c_lo = a - s0, c_hi = hiV - s0;
-#pragma unroll
-            for (int j = 0; j < NCH; ++j) {
-                const int lo_c = max(c_lo, j * CH);
-                const int hi_c = min(c_hi, (j + 1) * CH);
-                if (lo_c >= hi_c) continue;
-                // this phase's first position at or after lo_c, and the
-                // chunk's code rows indexed by split position
-                const int c1 = lo_c + ((ph - lo_c % nph) + nph) % nph;
-                const uint32_t* const vc =
-                    (const uint32_t*)(smem + L.vc + j * L.vcs) - j * CH;
-                if (vb < 8)
-                    pv_store<R, true>(acc0, acc1, vc + w0 * CW, vc + w1 * CW,
-                                      sh0, sh1, vm2, ps + vg * S * R, c1,
-                                      hi_c, nph);
+            const bool one = nsplit == 1;
+            for (int i = tid; i < R * D; i += NT) {
+                float x = red_s[i];
+                for (int h = 1; h < nph + NW; ++h) x += red_s[h * R * D + i];
+                if (one)
+                    o_b[i] = x / ml_s[R + i / D];
                 else
-                    pv_store<R, false>(acc0, acc1, vc + w0 * CW,
-                                       vc + w1 * CW, sh0, sh1, vmask,
-                                       ps + vg * S * R, c1, hi_c, nph);
+                    p.part_acc[slot * R * D + i] = x;
             }
-            if (ph == 0) {   // the min part, once per channel
-#pragma unroll
-                for (int rr = 0; rr < R; ++rr) {
-                    acc0[rr] += pm[vg * R + rr];
-                    acc1[rr] += pm[vg * R + rr];
-                }
+            if (one) return;
+            if (tid < R) {
+                p.part_ml[2 * (slot * R + tid)] = ml_s[tid];
+                p.part_ml[2 * (slot * R + tid) + 1] = ml_s[R + tid];
             }
-        }
-        // ---- PV over the window's positions [va, e): a warp per row,
-        // lane l over channels [4l, 4l + 4), 8 rows in flight ----
-        float aw[R][4];
-#pragma unroll
-        for (int rr = 0; rr < R; ++rr)
-#pragma unroll
-            for (int x = 0; x < 4; ++x) aw[rr][x] = 0.f;
-        if (A::vpath) {
-            for (int r0 = va + 8 * warp; r0 < e; r0 += 8 * NW) {
-                uint2 vx[8];
-#pragma unroll
-                for (int u = 0; u < 8; ++u)
-                    vx[u] = r0 + u < e && lane < nl
-                                ? __ldg((const uint2*)(
-                                      vwin_g + (long long)(r0 + u) * D
-                                      + 4 * lane))
-                                : make_uint2(0u, 0u);
-#pragma unroll
-                for (int u = 0; u < 8; ++u) {
-                    if (r0 + u >= e) break;
-                    float v4[4];
-                    unpack4(vx[u], v4);
-#pragma unroll
-                    for (int rr = 0; rr < R; ++rr) {
-                        const float pr = p_s[rr * S + r0 + u - s0];
-#pragma unroll
-                        for (int x = 0; x < 4; ++x)
-                            aw[rr][x] = fmaf(pr, v4[x], aw[rr][x]);
-                    }
-                }
-            }
-        }
-        // ---- the position phases, then the warps, summed in order ----
-        __syncthreads();   // ps, under red, is read no more
-        float* const red_s = (float*)(smem + L.red);   // (nph + NW, R, D)
-#pragma unroll
-        for (int rr = 0; rr < R; ++rr) {
-            *(float2*)(red_s + (ph * R + rr) * D + d0) =
-                make_float2(acc0[rr], acc1[rr]);
-            if (lane < nl)
-                *(float4*)(red_s + ((nph + warp) * R + rr) * D + 4 * lane) =
-                    make_float4(aw[rr][0], aw[rr][1], aw[rr][2], aw[rr][3]);
-        }
-        __syncthreads();
-        const bool one = nsplit == 1;
-        for (int i = tid; i < R * D; i += NT) {
-            float x = red_s[i];
-            for (int h = 1; h < nph + NW; ++h) x += red_s[h * R * D + i];
-            if (one)
-                o_b[i] = x / ml_s[R + i / D];
-            else
-                p.part_acc[slot * R * D + i] = x;
-        }
-        if (one) return;
-        if (tid < R) {
-            p.part_ml[2 * (slot * R + tid)] = ml_s[tid];
-            p.part_ml[2 * (slot * R + tid) + 1] = ml_s[R + tid];
         }
     }
 

@@ -1,6 +1,7 @@
 """HF checkpoint -> the port's parameters: port of
 `kivi_tpu/models/hf_loader.py` (`config_from_hf`,
-`params_from_state_dict`, `load_hf_checkpoint`).
+`params_from_state_dict`, `load_hf_checkpoint`,
+`load_hf_checkpoint_native`).
 
 Reads safetensors shards directly into the port's parameter dict, with
 the name mapping of the Llama and Mistral families, from
@@ -15,8 +16,8 @@ so the port reads the format itself (`SafetensorsFile`): an 8-byte
 little-endian header length, a JSON header naming each tensor's dtype,
 shape and byte range, then the raw bytes.  Tensors are read lazily, one
 at a time, as the JAX loader's `_Lazy` does; BF16 is kept as 16-bit
-words viewed as torch.bfloat16.  `load_hf_checkpoint_native` (the C++
-mmap reader) comes with the port of models/native_io.py.
+words viewed as torch.bfloat16.  `load_hf_checkpoint_native` reads the
+same shards through the C++ mmap reader instead (models/native_io.py).
 """
 
 from __future__ import annotations
@@ -198,3 +199,30 @@ def load_hf_checkpoint(path: str, dtype=torch.bfloat16, device=None):
     sd: Dict = _LazyStateDict([SafetensorsFile(os.path.join(path, s))
                                for s in shards])
     return cfg, params_from_state_dict(sd, cfg, dtype, device)
+
+
+def load_hf_checkpoint_native(path: str, dtype=torch.bfloat16, device=None):
+    """load_hf_checkpoint through the C++ mmap reader
+    (native/safetensors_reader.cpp, models/native_io.py): each tensor
+    is a zero-copy view of its mapped shard until the cast or the copy
+    to the device.  Raises when the reader cannot be built or a shard
+    cannot be opened; it never falls back to the Python reader.  On the
+    CPU, a parameter already in the stored dtype and layout (norms, the
+    embedding) stays a view of the read-only mapping."""
+    from kivi_tpu_torch.models import native_io
+
+    with open(os.path.join(path, "config.json")) as f:
+        cfg = config_from_hf(json.load(f))
+    shards = sorted(os.path.join(path, f) for f in os.listdir(path)
+                    if f.endswith(".safetensors"))
+    where = native_io.open_shards(shards)
+
+    class _NativeStateDict(dict):
+        def __getitem__(self, k):
+            return where[k].get(k)
+
+        def __contains__(self, k):
+            return k in where
+
+    return cfg, params_from_state_dict(_NativeStateDict(), cfg, dtype,
+                                       device)

@@ -43,6 +43,17 @@ extend_attention` over device counters); the draft's decode is the
 per-row decode kernels.  Engines built with debug=True run every step
 eagerly as a checked call, and check the watermark mirror against the
 device counters after every boundary flush.
+
+Over tensor parallel (target and draft built with `Engine(mesh=)` on one
+DeviceMesh, whose data axis is 1: batch 1), every rank of the model
+group runs this same host loop.  Each forward is the engine's own
+(`Engine._model`, the model group's collectives), whose logits are
+gathered over the whole vocabulary, so every rank sees the same
+predictions and decides the same acceptance (sampled: from identically
+seeded generators); the boundary flushes and the rollbacks act on each
+rank's own head shard of the caches, whose counters are the same on
+every rank.  The JAX engine reaches the same tokens over sharded params
+(tests/test_torch_spec_tp.py).
 """
 
 from __future__ import annotations
@@ -57,7 +68,6 @@ import torch
 from kivi_tpu_torch.cache import fp_cache as FC
 from kivi_tpu_torch.cache import kivi_cache as KC
 from kivi_tpu_torch.cache.kivi_cache import nvq_canonical
-from kivi_tpu_torch.models import modeling
 from kivi_tpu_torch.serving import sampling
 from kivi_tpu_torch.serving.engine import Engine, fill_bound, nkq_prefill
 from kivi_tpu_torch.utils.graphs import StepGraphs
@@ -155,12 +165,14 @@ class SpeculativeEngine:
             another cache); correctness never depends on it.
     k:      speculation depth (draft tokens proposed per iteration).
 
-    Both engines must be batch_size=1 (the low-batch latency play) and
-    on one device; one engine may serve as both.  The generation runs in
-    caches of the speculative engine's own, allocated on first use and
-    cleared per call, so that its graphs are replayed by every later
-    call.  debug=True on either engine runs every step eagerly as a
-    checked call (module docstring)."""
+    Both engines must be batch_size=1 (the low-batch latency play), on
+    one device and on one mesh (the same DeviceMesh object, or none):
+    over tensor parallel every rank of the model group runs the same
+    loop (module docstring); one engine may serve as both.  The
+    generation runs in caches of the speculative engine's own, allocated
+    on first use and cleared per call, so that its graphs are replayed
+    by every later call.  debug=True on either engine runs every step
+    eagerly as a checked call (module docstring)."""
 
     def __init__(self, target: Engine, draft: Engine, k: int = 8):
         if target.batch_size != 1 or draft.batch_size != 1:
@@ -169,9 +181,8 @@ class SpeculativeEngine:
             raise ValueError("target and draft must share a vocabulary")
         if target.device != draft.device:
             raise ValueError("target and draft must share a device")
-        if target.tp is not None or draft.tp is not None:
-            raise NotImplementedError(
-                "speculative decoding over a tensor-parallel engine")
+        if target.mesh is not draft.mesh:
+            raise ValueError("target and draft must share a mesh")
         self.target, self.draft, self.k = target, draft, k
         self.device = target.device
         self.debug = target.debug or draft.debug
@@ -213,7 +224,7 @@ class SpeculativeEngine:
         drf = self.draft
         tok = st.cur
         for i in range(steps):
-            logits, _ = modeling.forward(
+            logits, _ = drf._model(
                 drf.params, tok, self._d_caches, drf.cfg, drf.qcfg,
                 st.pos + i, mode="decode", fill_bound=fb, ingest="window")
             lg = logits[:, -1]
@@ -233,7 +244,7 @@ class SpeculativeEngine:
         tgt, k = self.target, self.k
         vin = torch.cat([st.cur, st.d_toks[:, :k]], dim=1)
         positions = st.pos + torch.arange(k + 1, device=self.device)
-        logits, _ = modeling.forward(
+        logits, _ = tgt._model(
             tgt.params, vin, self._t_caches, tgt.cfg, tgt.qcfg, positions,
             mode="extend", last_only=False, ingest="window")
         if warp is None:
@@ -247,9 +258,9 @@ class SpeculativeEngine:
         logits dropped: after a full accept the draft holds all k+1
         committed tokens (the scan emits the proposal, never feeds it)."""
         drf, k = self.draft, self.k
-        modeling.forward(drf.params, st.d_toks[:, k - 1:k], self._d_caches,
-                         drf.cfg, drf.qcfg, st.pos + k, mode="decode",
-                         fill_bound=fb, ingest="window")
+        drf._model(drf.params, st.d_toks[:, k - 1:k], self._d_caches,
+                   drf.cfg, drf.qcfg, st.pos + k, mode="decode",
+                   fill_bound=fb, ingest="window")
 
     def _rollback(self, st: _SpecState) -> None:
         rollback_caches(self._t_caches, st.n)

@@ -98,9 +98,10 @@ def bench_fn(fn: Callable, *args, iters: int = 50, repeats: int = 3) -> float:
 HOLD_CYCLES = 1_000_000   # ~0.5 ms of the SM clock: the host's head start
 
 
-def cuda_ms(fn: Callable, iters: int = 20, warmup: int = 3,
-            hold: bool = True) -> float:
-    """Median milliseconds of fn() by CUDA events.  Each timed call finds
+def cuda_times(fn: Callable, iters: int = 20, warmup: int = 3,
+               hold: bool = True) -> list:
+    """Milliseconds of `iters` calls of fn() by CUDA events, in call
+    order (`cuda_ms` takes their median).  Each timed call finds
     the 50 MB L2 holding other, clean data, as on the main path, where a
     layer's weights pass through L2 between two calls of the same kernel
     (reading the scrub buffer, not writing it, leaves no dirty lines to
@@ -128,7 +129,13 @@ def cuda_ms(fn: Callable, iters: int = 20, warmup: int = 3,
         e.record()
         e.synchronize()
         times.append(s.elapsed_time(e))
-    return statistics.median(times)
+    return times
+
+
+def cuda_ms(fn: Callable, iters: int = 20, warmup: int = 3,
+            hold: bool = True) -> float:
+    """Median milliseconds of fn() by CUDA events (`cuda_times`)."""
+    return statistics.median(cuda_times(fn, iters, warmup, hold))
 
 
 def bound(nbytes: float, flops: float):

@@ -10,9 +10,9 @@ Tolerances (chip_smoke.py's):
   * the quantizers quantize_pack_k and quantize_pack_v, both entries:
     none; codes, scale and min bit-equal to the plain versions, every
     byte of the stores they write into;
-  * the decode probe: max|kernel - plain| <= 1e-5 * max|plain| + 1e-5
-    (the kernel and the plain version compute in f32 from the same bf16
-    inputs, summed in another order);
+  * the decode probe and row 4's ablated variants: max|kernel - plain|
+    <= 1e-5 * max|plain| + 1e-5 (the kernel and the plain version
+    compute in f32 from the same bf16 inputs, summed in another order);
   * the one tensor-core tile: 1e-5 relative (exact bf16 products, f32
     sums in another order);
   * the tensor-core kernels flash_attention, flash_extend_attention and
@@ -71,6 +71,23 @@ def test_profile_wide_32k_check(cuda):
     history."""
     assert PW.main(["--check", "--B", "2", "--T", "4096",
                     "--fill", "4000"]) == []
+
+
+def test_wide_ablations_match_plain(cuda):
+    """Row 4 under every `_ablate` name (the windows live) against
+    `fused_decode_attention_wide_plain(_ablate=)` and bit-equal across two
+    runs, at the states of `profile_attribution.check` (a strip, the
+    window alone, left pads), on the profiler's cache and a peaked one;
+    then the ablated entry's refusals."""
+    from kivi_tpu_torch import profile_attribution as PA
+    assert PA.check(B=2, heads=8, verbose=False) < 1e-4
+    qg, c = PW.make_cache(1, 1024, 512, heads=2, r=4)
+    with pytest.raises(ValueError, match="r = 1 and bf16 scales"):
+        PA.run(qg, c, "window")
+    with pytest.raises(ValueError, match="_ablate"):
+        FW.fused_decode_attention_wide(
+            qg, *PW._stores(c, 1024), c.k_win, c.v_win, 512, 128, 512,
+            group_size=32, k_bits=2, v_bits=2, _ablate="everything")
 
 
 def test_profile_qk_pv(cuda):

@@ -1,5 +1,5 @@
 """Multi-process runs of the port's parallel tier over gloo, for the CPU
-tests (tests/test_torch_mesh.py, _ring, _multihost, _elastic).
+tests (tests/test_torch_mesh.py, _ring, _multihost, _elastic, _spec_tp).
 
 `spawn(case, world, tmp_path, inputs)` runs this file as a script in
 `world` processes, `python tests/torch_dist.py CASE RANK WORLD DIR`:
@@ -300,9 +300,65 @@ def case_elastic(inp, rank, world, d):
     return out
 
 
+def case_spec_tp(inp, rank, world, d):
+    """SpeculativeEngine over a tensor-parallel target and draft on one
+    (1, world) mesh, f32 weights over KIVI-2 with f32 scales and
+    windows: greedy generate with a 1-layer draft (the target's first
+    layer) and with the target as its own draft, generate_device, a
+    sampled run under a seeded generator; and a draft on another mesh,
+    refused."""
+    import dataclasses
+
+    import torch
+
+    from kivi_tpu_torch.parallel import mesh as M
+    from kivi_tpu_torch.parallel import multihost
+    from kivi_tpu_torch.serving.engine import Engine
+    from kivi_tpu_torch.serving.speculative import SpeculativeEngine
+
+    cfg, p = _cfg(inp), _params(inp, torch.float32)
+    dcfg = dataclasses.replace(cfg, num_layers=1)
+    pd = dict(p, layers=p["layers"][:1])
+    mesh = multihost.global_mesh(cfg.num_kv_heads, n_model=world,
+                                 device="cpu")
+    nd, dr, nm, mr = M.mesh_coords(mesh)
+    q = _qcfg(2, residual=32)
+
+    def engine(c, params, on):
+        return Engine(c, q, M.shard_params(params, c, nm, mr),
+                      int(inp["max_len"]), 1, device="cpu",
+                      cache_dtype=torch.float32, mesh=on)
+
+    tgt, drf = engine(cfg, p, mesh), engine(dcfg, pd, mesh)
+    toks = torch.from_numpy(inp["tokens"])
+    new = int(inp["new"])
+    spec = SpeculativeEngine(tgt, drf, k=int(inp["k"]))
+    out = {"coords": np.array([nd, dr, nm, mr]),
+           "gen": spec.generate(toks, new),
+           "acc": np.array(spec.last_acceptance),
+           "keff": np.array(spec.last_keff),
+           "stats": np.array([spec.stats[k] for k in (
+               "boundary_flush_k", "boundary_flush_v", "clamped")])}
+    out["dev"] = spec.generate_device(toks, new)
+    g = torch.Generator().manual_seed(0)
+    out["sampled"] = spec.generate(toks, new, temperature=0.8, top_k=20,
+                                   generator=g)
+    own = SpeculativeEngine(tgt, tgt, k=int(inp["k"]))
+    out["self"] = own.generate(toks, new)
+    out["self_acc"] = np.array(own.last_acceptance)
+    other = multihost.global_mesh(cfg.num_kv_heads, n_model=world,
+                                  device="cpu")
+    try:
+        SpeculativeEngine(tgt, engine(dcfg, pd, other), k=2)
+        out["refused"] = np.array(0)
+    except ValueError:
+        out["refused"] = np.array(1)
+    return out
+
+
 CASES = {"mesh_engine": case_mesh_engine, "ring": case_ring,
          "seqpar": case_seqpar, "multihost": case_multihost,
-         "elastic": case_elastic}
+         "elastic": case_elastic, "spec_tp": case_spec_tp}
 
 
 def _main():
