@@ -1,0 +1,8 @@
+"""idle_share.gen (%): the share of the profiled job in which no kernel or
+copy ran on the device."""
+
+from kvbench.readers import idle_share
+
+
+def read(rec):
+    return idle_share(rec)
