@@ -29,6 +29,8 @@ import threading
 import time
 from pathlib import Path
 
+from kivi_tpu_torch.utils.profiling import span
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 # No --use_fast_math: the quantizer's division must stay IEEE
@@ -145,38 +147,42 @@ def _target(name: str) -> Path:
 
 def build_all() -> dict:
     """Compile every library that is not built yet, one nvcc per source,
-    all started together; load all of them.  Returns {name: CDLL}."""
+    all started together; load all of them.  Returns {name: CDLL}.  The
+    first call is one `kernels.build` span, `n` the sources compiled (0:
+    every library loaded from the build directory)."""
     global BUILD_SECONDS
     with _LOCK:
         if len(_LIBS) == len(SIGNATURES):
             return _LIBS
-        t0 = time.perf_counter()
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        procs = {}
-        for name in SIGNATURES:
-            out = _target(name)
-            if out.exists():
-                continue
-            tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-                   str(CSRC / f"{name}.cu")]
-            procs[name] = (subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True), tmp, out)
-        failed = []
-        for name, (proc, tmp, out) in procs.items():
-            log, _ = proc.communicate()
-            BUILD_LOG[name] = log
-            if proc.returncode != 0:
-                failed.append(f"--- {name} (nvcc rc {proc.returncode})\n"
-                              f"{log}")
-            else:
-                os.replace(tmp, out)
-        if failed:
-            raise RuntimeError("CUDA kernel build failed:\n"
-                               + "\n".join(failed))
-        for name in SIGNATURES:
-            _LIBS[name] = _load(_target(name), name)
+        with span("kernels.build") as sp:
+            t0 = time.perf_counter()
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            procs = {}
+            for name in SIGNATURES:
+                out = _target(name)
+                if out.exists():
+                    continue
+                tmp = out.with_suffix(f".{os.getpid()}.tmp")
+                cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o",
+                       str(tmp), str(CSRC / f"{name}.cu")]
+                procs[name] = (subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True), tmp, out)
+            failed = []
+            for name, (proc, tmp, out) in procs.items():
+                log, _ = proc.communicate()
+                BUILD_LOG[name] = log
+                if proc.returncode != 0:
+                    failed.append(f"--- {name} (nvcc rc "
+                                  f"{proc.returncode})\n{log}")
+                else:
+                    os.replace(tmp, out)
+            if failed:
+                raise RuntimeError("CUDA kernel build failed:\n"
+                                   + "\n".join(failed))
+            for name in SIGNATURES:
+                _LIBS[name] = _load(_target(name), name)
+            sp.attrs["n"] = len(procs)
         BUILD_SECONDS = time.perf_counter() - t0
         return _LIBS
 

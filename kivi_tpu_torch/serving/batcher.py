@@ -37,6 +37,15 @@ step advances every slot together.
 The step reads one thing back to the host, the sampled tokens; the
 counters, pads, controls and penalty masks stay on the device.
 
+With the tracer on (utils/profiling.py), a step is a `batcher.step` span
+(`active` slots decoded, `admitted`, `fb`) holding `batcher.retire`, one
+`batcher.admit` per admission (`uid`, `prompt` tokens, `bucket` tokens
+prefilled, pads included, `prefix`; its parts `.prefill`, `.sample`,
+`.write_slot` and `.read`, the host's one read of the first token),
+`batcher.decode` (`fb`), `batcher.read` and `batcher.emit`; a
+`batcher.queue` span runs from a request's `submit()` to its
+`batcher.admit`.
+
 `ContinuousBatcher(mesh=)` splits the model over the mesh's "model"
 axis as `Engine(mesh=)` does (this rank's slice of the params, the
 local head counts, the model group's collectives in every forward;
@@ -52,6 +61,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import time
 from collections import deque
 from typing import Callable, Dict, List, Optional
 
@@ -67,6 +77,7 @@ from kivi_tpu_torch.serving import sampling
 from kivi_tpu_torch.serving.engine import FILL_BUCKET, phase_period
 from kivi_tpu_torch.utils.graphs import StepGraphs
 from kivi_tpu_torch.utils.guards import checked_call
+from kivi_tpu_torch.utils.profiling import TRACER, record, span
 
 
 @dataclasses.dataclass
@@ -173,6 +184,8 @@ class ContinuousBatcher:
         self.slot_out: List[List[int]] = [[] for _ in range(num_slots)]
         self.queue: deque[Request] = deque()
         self.results: Dict[int, Result] = {}
+        # uid -> time.perf_counter_ns() at submit(), while tracing
+        self._submitted: Dict[int, int] = {}
 
         # device-side per-slot state (pos = TRUE rope position, i.e. the
         # slot's cache position minus its left pad)
@@ -353,6 +366,8 @@ class ContinuousBatcher:
             raise ValueError(
                 "Request.prefix_tokens needs ContinuousBatcher("
                 "prefix_cache=PrefixCache(...))")
+        if TRACER.on:
+            self._submitted[req.uid] = time.perf_counter_ns()
         self.queue.append(req)
 
     def cancel(self, uid: int) -> bool:
@@ -362,6 +377,7 @@ class ContinuousBatcher:
         for i, req in enumerate(self.queue):
             if req.uid == uid:
                 del self.queue[i]
+                self._submitted.pop(uid, None)
                 self.results[uid] = Result(uid, [])
                 return True
         for s in range(self.S):
@@ -397,7 +413,10 @@ class ContinuousBatcher:
             seen[0, np.asarray(toks, np.int64)] = True
         return torch.from_numpy(seen).to(self.device)
 
-    def _admit(self):
+    def _admit(self) -> int:
+        """Admit queued requests while a slot is free; returns how many
+        were admitted."""
+        admitted = 0
         while self.queue and not self.active.all():
             req = self.queue[0]
             # the capacity check comes before any prefix work: the
@@ -413,11 +432,27 @@ class ContinuousBatcher:
             # logits to sample a first token from
             bucket = ((len(req.prompt) or None) if has_prefix
                       else self._bucket_for(len(req.prompt)))
+            submitted = self._submitted.pop(req.uid, None)
             if (not req.prompt or bucket is None
                     or P + bucket + req.max_new_tokens > self.T):
                 self.queue.popleft()
                 self.results[req.uid] = Result(req.uid, [])  # rejected
                 continue
+            if submitted is not None:
+                record("batcher.queue", submitted, time.perf_counter_ns(),
+                       uid=req.uid)
+            with span("batcher.admit", uid=req.uid, prompt=len(req.prompt),
+                      bucket=bucket, prefix=has_prefix):
+                self._admit_one(P, bucket)
+            admitted += 1
+        return admitted
+
+    def _admit_one(self, P: int, bucket: int) -> None:
+        """The queue's head into the first free slot: prefilled (P prefix
+        tokens before it, `bucket` tokens prefilled), its first token
+        sampled and read, the slot's state written."""
+        with span("batcher.admit.prefill"):
+            req = self.queue[0]
             # a per-request prefix (through the prefix cache) overrides
             # the batcher-wide one
             prefix = (self.prefix_cache.get(req.prefix_tokens)
@@ -427,13 +462,14 @@ class ContinuousBatcher:
             prompt = [int(t) for t in req.prompt]
             if prefix is None:
                 logits, pad = self._prefill_one(prompt, bucket)
-                seen0 = self._host_seen([prompt])
             else:
                 logits, pad = self._ingest_prefixed(prefix, prompt), 0
-                seen0 = self._host_seen([prefix.tokens[0].cpu().numpy(),
-                                         prompt])
+        with span("batcher.admit.sample"):
+            seen0 = self._host_seen(
+                [prompt] if prefix is None
+                else [prefix.tokens[0].cpu().numpy(), prompt])
             nxt = self._first_token(logits, seen0, req)
-            # write slot state
+        with span("batcher.admit.write_slot"):
             for big, one in zip(self.caches, self._one):
                 KC.write_slot(big, slot, one)
             self.cur_tok[slot, 0] = nxt[0]
@@ -448,51 +484,65 @@ class ContinuousBatcher:
             self.seen_dev[slot] = seen0[0]
             self.active[slot] = True
             self.slot_req[slot] = req
-            self.slot_out[slot] = [int(nxt[0])]
             # cache tokens, pads included: a prefix admission holds
             # P + prompt unpadded, a bucketed one the whole bucket
             self.fill[slot] = P + len(prompt) if prefix is not None \
                 else bucket
-            if req.on_token is not None:
-                req.on_token(self.slot_out[slot][0])
+        with span("batcher.admit.read"):
+            first = int(nxt[0])
+        self.slot_out[slot] = [first]
+        if req.on_token is not None:
+            req.on_token(first)
 
     def _retire(self):
-        for s in range(self.S):
-            req = self.slot_req[s]
-            if req is None:
-                continue
-            out = self.slot_out[s]
-            done = len(out) >= req.max_new_tokens or (
-                req.eos_token_id is not None and out
-                and out[-1] == req.eos_token_id)
-            if done:
-                self.results[req.uid] = Result(req.uid, out)
-                self._free(s)
+        with span("batcher.retire") as sp:
+            retired = 0
+            for s in range(self.S):
+                req = self.slot_req[s]
+                if req is None:
+                    continue
+                out = self.slot_out[s]
+                done = len(out) >= req.max_new_tokens or (
+                    req.eos_token_id is not None and out
+                    and out[-1] == req.eos_token_id)
+                if done:
+                    self.results[req.uid] = Result(req.uid, out)
+                    self._free(s)
+                    retired += 1
+            sp.attrs["retired"] = retired
 
     def step(self):
         """Admit pending requests, run one decode step, harvest tokens."""
-        self._retire()
-        self._admit()
-        if not self.active.any():
-            return
-        # the live-fill bound: this step appends one token per active
-        # slot.  INVARIANT (kivi_tpu/serving/batcher.py:524-528): fb
-        # covers the ACTIVE slots only.  A retired slot's counters may
-        # pass it, so its attention is truncated; that is safe only
-        # because an inactive slot's sampled token is dropped and its
-        # cache writes are masked.  Never read an inactive slot's output.
-        fb = int(min(-(-(int(self.fill[self.active].max()) + 1)
-                       // FILL_BUCKET) * FILL_BUCKET, self.T))
-        nxt = self._decode_for(fb)()
-        nxt_host = nxt.cpu().numpy()          # the step's one host read
-        self.fill[self.active] += 1
-        for s in range(self.S):
-            if self.active[s] and self.slot_req[s] is not None:
-                tok = int(nxt_host[s])
-                self.slot_out[s].append(tok)
-                req = self.slot_req[s]
-                if req.on_token is not None:
-                    req.on_token(tok)
+        with span("batcher.step") as sp:
+            self._retire()
+            sp.attrs["admitted"] = self._admit()
+            if not self.active.any():
+                sp.attrs["active"] = 0
+                return
+            sp.attrs["active"] = int(np.count_nonzero(self.active))
+            # the live-fill bound: this step appends one token per active
+            # slot.  INVARIANT (kivi_tpu/serving/batcher.py:524-528): fb
+            # covers the ACTIVE slots only.  A retired slot's counters may
+            # pass it, so its attention is truncated; that is safe only
+            # because an inactive slot's sampled token is dropped and its
+            # cache writes are masked.  Never read an inactive slot's
+            # output.
+            fb = int(min(-(-(int(self.fill[self.active].max()) + 1)
+                           // FILL_BUCKET) * FILL_BUCKET, self.T))
+            sp.attrs["fb"] = fb
+            with span("batcher.decode", fb=fb):
+                nxt = self._decode_for(fb)()
+            with span("batcher.read"):
+                nxt_host = nxt.cpu().numpy()      # the step's one host read
+            self.fill[self.active] += 1
+            with span("batcher.emit"):
+                for s in range(self.S):
+                    if self.active[s] and self.slot_req[s] is not None:
+                        tok = int(nxt_host[s])
+                        self.slot_out[s].append(tok)
+                        req = self.slot_req[s]
+                        if req.on_token is not None:
+                            req.on_token(tok)
 
     def run(self, requests: List[Request]) -> Dict[int, Result]:
         """Drive until every submitted request completes."""

@@ -52,6 +52,14 @@ the first non-finite logit or appended K/V value, on a violated fill
 bound, or on a flush schedule that does not match the caches.  The
 split decode route (rows 7-8 of the kernel table) serves host-int
 callers, `decode_step`, only.
+
+With the tracer on (utils/profiling.py): `engine.prefill_prefix`
+(`tokens`), `engine.generate` (`B`, `T`, `new`) holding
+`engine.ingest` (the prompt prologue; `prefix`, its length) and
+`engine.decode` (`steps`, `fb`, `flushes` run), whose last part is
+`engine.decode.read`, the counters' read.  The prefix prefill, the
+prologue and the decode are timed on the device too; no span sits
+inside a captured step.
 """
 
 from __future__ import annotations
@@ -76,6 +84,7 @@ from kivi_tpu_torch.parallel.ring import seq_layout
 from kivi_tpu_torch.serving import sampling
 from kivi_tpu_torch.utils.graphs import StepGraphs
 from kivi_tpu_torch.utils.guards import checked_call
+from kivi_tpu_torch.utils.profiling import span
 
 FILL_BUCKET = 512   # the decode fill bound's rounding (one graph per bucket)
 NEG = -1e9          # a finished beam's log-probability of any token but EOS
@@ -469,17 +478,19 @@ class Engine:
         history).  seq_mesh: (mesh, axis), prefill the prefix
         sequence-parallel over that mesh axis (`prefill_seqpar`: the
         exact-attention class, unlike chunking)."""
-        tokens = torch.as_tensor(tokens, device=self.device).reshape(1, -1)
-        tokens = tokens.to(torch.int64)
-        caches = self.init_caches(1)
-        if seq_mesh is not None:
-            self.prefill_seqpar(tokens, seq_mesh[0], seq_mesh[1],
-                                caches=caches)
-        elif chunk_size is None:
-            self._prefill(tokens, caches)
-        else:
-            self.prefill_chunked(tokens, chunk_size, caches)
-        return PrefixSnapshot(caches=caches, tokens=tokens)
+        with span("engine.prefill_prefix", device=self.device) as sp:
+            tokens = torch.as_tensor(tokens, device=self.device)
+            tokens = tokens.reshape(1, -1).to(torch.int64)
+            sp.attrs["tokens"] = tokens.shape[1]
+            caches = self.init_caches(1)
+            if seq_mesh is not None:
+                self.prefill_seqpar(tokens, seq_mesh[0], seq_mesh[1],
+                                    caches=caches)
+            elif chunk_size is None:
+                self._prefill(tokens, caches)
+            else:
+                self.prefill_chunked(tokens, chunk_size, caches)
+            return PrefixSnapshot(caches=caches, tokens=tokens)
 
     def extend(self, snapshot: PrefixSnapshot, tokens) -> PrefixSnapshot:
         """Grow a snapshot by more shared tokens (T1,) or (1, T1)
@@ -539,32 +550,35 @@ class Engine:
         events = self._events(prompt_len, steps)
         use_pen = repetition_penalty != 1.0 and seen is not None
         fb = fill_bound(prompt_len, steps)
-        teach = forced is not None
-        st = self._decode_begin(first, pos, caches, pad_lens,
-                                seen if use_pen else None, forced, n_forced)
-        penalty = repetition_penalty if use_pen else 1.0
-        has_pad = pad_lens is not None
-        body = functools.partial(self._decode_body, st, fb, has_pad,
-                                 temperature, top_k, top_p, penalty,
-                                 generator, teach)
-        if self.debug:
-            body = checked_call(body)
-        # the JAX jit's static arguments but `steps` (the graph is one
-        # step); the generator object itself, since a graph draws from
-        # the generator it was captured with
-        key = (first.shape[0], fb, has_pad, temperature, top_k, top_p,
-               penalty, generator if temperature > 0 else None, teach)
-        gens = (generator,) if temperature > 0 and generator is not None \
-            else ()
-        for i in range(steps):
-            if i in events:
-                fk, fv = events[i]
-                self._flush(caches, self.qcfg, k=fk, v=fv)
-            if self.graphs is not None:
-                self.graphs.run(key, body, gens)
-            else:
-                body()
-        return self._decode_end(st, steps), caches
+        with span("engine.decode", device=self.device, steps=steps, fb=fb,
+                  flushes=len(events)):
+            teach = forced is not None
+            st = self._decode_begin(first, pos, caches, pad_lens,
+                                    seen if use_pen else None, forced,
+                                    n_forced)
+            penalty = repetition_penalty if use_pen else 1.0
+            has_pad = pad_lens is not None
+            body = functools.partial(self._decode_body, st, fb, has_pad,
+                                     temperature, top_k, top_p, penalty,
+                                     generator, teach)
+            if self.debug:
+                body = checked_call(body)
+            # the JAX jit's static arguments but `steps` (the graph is one
+            # step); the generator object itself, since a graph draws from
+            # the generator it was captured with
+            key = (first.shape[0], fb, has_pad, temperature, top_k, top_p,
+                   penalty, generator if temperature > 0 else None, teach)
+            gens = (generator,) if temperature > 0 and generator is not None \
+                else ()
+            for i in range(steps):
+                if i in events:
+                    fk, fv = events[i]
+                    self._flush(caches, self.qcfg, k=fk, v=fv)
+                if self.graphs is not None:
+                    self.graphs.run(key, body, gens)
+                else:
+                    body()
+            return self._decode_end(st, steps), caches
 
     def _decode_begin(self, first, pos, caches, pad_lens, seen,
                       forced=None, n_forced=None) -> _DecodeState:
@@ -645,7 +659,8 @@ class Engine:
     def _decode_end(self, st: _DecodeState, steps: int) -> torch.Tensor:
         """The counters back to host ints (one read); the tokens."""
         cm = KC if self.qcfg.quantize_kv else FC
-        cm.counters_to_host(st.caches, st.counters)
+        with span("engine.decode.read"):
+            cm.counters_to_host(st.caches, st.counters)
         return st.out[:, :steps].clone()
 
     def _ingest_prompt(self, tokens, max_new_tokens: int, *, pad_lens=None,
@@ -666,85 +681,89 @@ class Engine:
         extended and each row's rest is teacher-forced by the decode;
         `first` is then the first FED token (a teacher token where a
         row has more)."""
-        tokens = torch.as_tensor(tokens, device=self.device)
-        B, T = tokens.shape
-        n_real = B
-        lens = None if suffix_lens is None else [int(x) for x in suffix_lens]
-        if lens is not None:
+        with span("engine.ingest", device=self.device,
+                  prefix=0 if prefix is None else prefix.length):
+            tokens = torch.as_tensor(tokens, device=self.device)
+            B, T = tokens.shape
+            n_real = B
+            lens = (None if suffix_lens is None
+                    else [int(x) for x in suffix_lens])
+            if lens is not None:
+                if prefix is None:
+                    raise ValueError("suffix_lens= needs prefix=")
+                if len(lens) != B or not all(1 <= n <= T for n in lens):
+                    raise ValueError(f"suffix_lens {lens} for {B} rows of {T}")
+            if prefix is not None and (pad_lens is not None
+                                       or prefill_chunk_size is not None):
+                raise ValueError("prefix= composes with suffix_lens=, not "
+                                 "with pad_lens= or prefill_chunk_size=")
+            pad = self._pad(pad_lens, B)
+            if B < self.batch_size:
+                extra = self.batch_size - B
+                tokens = torch.cat([tokens, tokens[-1:].expand(extra, T)])
+                if pad is not None:
+                    pad = torch.cat([pad, pad[-1:].expand(extra)])
+                if lens is not None:
+                    lens = lens + [lens[-1]] * extra
+                B = self.batch_size
+            assert B == self.batch_size
+            if lens is not None:
+                T = max(lens)                     # drop unused right padding
+                tokens = tokens[:, :T]
+                if min(lens) == T:
+                    lens = None                   # equal lengths: normal path
+            P = 0 if prefix is None else prefix.length
+            Tp = P + T
+            assert Tp + max_new_tokens <= self.max_seq_len, "cache too small"
+            Tmin = T if lens is None else min(lens)
             if prefix is None:
-                raise ValueError("suffix_lens= needs prefix=")
-            if len(lens) != B or not all(1 <= n <= T for n in lens):
-                raise ValueError(f"suffix_lens {lens} for {B} rows of {T}")
-        if prefix is not None and (pad_lens is not None
-                                   or prefill_chunk_size is not None):
-            raise ValueError("prefix= composes with suffix_lens=, not with "
-                             "pad_lens= or prefill_chunk_size=")
-        pad = self._pad(pad_lens, B)
-        if B < self.batch_size:
-            extra = self.batch_size - B
-            tokens = torch.cat([tokens, tokens[-1:].expand(extra, T)])
-            if pad is not None:
-                pad = torch.cat([pad, pad[-1:].expand(extra)])
-            if lens is not None:
-                lens = lens + [lens[-1]] * extra
-            B = self.batch_size
-        assert B == self.batch_size
-        if lens is not None:
-            T = max(lens)                     # drop unused right padding
-            tokens = tokens[:, :T]
-            if min(lens) == T:
-                lens = None                   # equal lengths: normal path
-        P = 0 if prefix is None else prefix.length
-        Tp = P + T
-        assert Tp + max_new_tokens <= self.max_seq_len, "cache too small"
-        Tmin = T if lens is None else min(lens)
-        if prefix is None:
-            caches = self.own_caches()
-            if prefill_chunk_size is None:
-                logits, caches = self._prefill(tokens, caches, pad)
+                caches = self.own_caches()
+                if prefill_chunk_size is None:
+                    logits, caches = self._prefill(tokens, caches, pad)
+                else:
+                    logits, caches = self.prefill_chunked(
+                        tokens, prefill_chunk_size, caches, pad)
+                full = tokens
             else:
-                logits, caches = self.prefill_chunked(
-                    tokens, prefill_chunk_size, caches, pad)
-            full = tokens
-        else:
-            logits, caches = self._extend(tokens[:, :Tmin],
-                                          self._fan_out(prefix), P)
-            suf = tokens
+                logits, caches = self._extend(tokens[:, :Tmin],
+                                              self._fan_out(prefix), P)
+                suf = tokens
+                if lens is not None:
+                    # the padding past a row's length must not enter the
+                    # penalty mask: repeat the row's last real token there
+                    ln = torch.tensor(lens, device=self.device)[:, None]
+                    last = tokens.gather(1, ln - 1)
+                    live = torch.arange(T, device=self.device)[None] < ln
+                    suf = torch.where(live, tokens, last)
+                full = torch.cat([prefix.tokens.to(tokens.dtype).expand(B, P),
+                                  suf], 1)
+            seen = None
+            lg = logits
+            if repetition_penalty != 1.0:
+                seen = sampling.seen_mask_from_prompt(
+                    full, self.cfg.vocab_size, pad_len=pad)
+                lg = sampling.apply_repetition_penalty(logits, seen,
+                                                       repetition_penalty)
+            first = sampling.sample_step(lg, generator,
+                                         temperature=temperature,
+                                         top_k=top_k, top_p=top_p)[:, None]
+            ragged = None
             if lens is not None:
-                # the padding past a row's length must not enter the
-                # penalty mask: repeat the row's last real token there
-                ln = torch.tensor(lens, device=self.device)[:, None]
-                last = tokens.gather(1, ln - 1)
-                live = torch.arange(T, device=self.device)[None] < ln
-                suf = torch.where(live, tokens, last)
-            full = torch.cat([prefix.tokens.to(tokens.dtype).expand(B, P),
-                              suf], 1)
-        seen = None
-        lg = logits
-        if repetition_penalty != 1.0:
-            seen = sampling.seen_mask_from_prompt(
-                full, self.cfg.vocab_size, pad_len=pad)
-            lg = sampling.apply_repetition_penalty(logits, seen,
-                                                   repetition_penalty)
-        first = sampling.sample_step(lg, generator, temperature=temperature,
-                                     top_k=top_k, top_p=top_p)[:, None]
-        ragged = None
-        if lens is not None:
-            n_tail = torch.tensor([n - Tmin for n in lens],
-                                  dtype=torch.int64, device=self.device)
-            forced = tokens[:, Tmin:].to(torch.int64)
-            cand0 = first
-            first = torch.where(n_tail[:, None] > 0, forced[:, :1],
-                                cand0.to(torch.int64)).to(torch.int32)
-            ragged = (cand0, forced, n_tail, T - Tmin)
-        # the RoPE position of the first fed token: the tokens cached
-        pos = torch.full((B, 1), P + Tmin, dtype=torch.int64,
-                         device=self.device)
-        if pad is not None:
-            pos = pos - pad[:, None]
-        return _Prompt(first=first, caches=caches, pos=pos, pad=pad,
-                       seen=seen, Tp=Tp, n_real=n_real, logits=logits,
-                       ragged=ragged)
+                n_tail = torch.tensor([n - Tmin for n in lens],
+                                      dtype=torch.int64, device=self.device)
+                forced = tokens[:, Tmin:].to(torch.int64)
+                cand0 = first
+                first = torch.where(n_tail[:, None] > 0, forced[:, :1],
+                                    cand0.to(torch.int64)).to(torch.int32)
+                ragged = (cand0, forced, n_tail, T - Tmin)
+            # the RoPE position of the first fed token: the tokens cached
+            pos = torch.full((B, 1), P + Tmin, dtype=torch.int64,
+                             device=self.device)
+            if pad is not None:
+                pos = pos - pad[:, None]
+            return _Prompt(first=first, caches=caches, pos=pos, pad=pad,
+                           seen=seen, Tp=Tp, n_real=n_real, logits=logits,
+                           ragged=ragged)
 
     def generate(self, tokens: torch.Tensor, max_new_tokens: int, *,
                  prefill_chunk_size: Optional[int] = None,
@@ -774,39 +793,41 @@ class Engine:
         extend path, each row's rest is teacher-forced through decode
         steps, and each row's stream is realigned after
         (kivi_tpu/serving/engine.py:686-731)."""
-        pr = self._ingest_prompt(
-            tokens, max_new_tokens, pad_lens=pad_lens, prefix=prefix,
-            prefill_chunk_size=prefill_chunk_size,
-            repetition_penalty=repetition_penalty, temperature=temperature,
-            top_k=top_k, top_p=top_p, generator=generator,
-            suffix_lens=suffix_lens)
-        kw = dict(pad_lens=pr.pad, temperature=temperature, top_k=top_k,
-                  top_p=top_p, repetition_penalty=repetition_penalty,
-                  seen=pr.seen, generator=generator)
-        if pr.ragged is None:
-            out = pr.first
-            if max_new_tokens > 1:
+        B, T = np.shape(tokens)
+        with span("engine.generate", B=B, T=T, new=max_new_tokens):
+            pr = self._ingest_prompt(
+                tokens, max_new_tokens, pad_lens=pad_lens, prefix=prefix,
+                prefill_chunk_size=prefill_chunk_size,
+                repetition_penalty=repetition_penalty, temperature=temperature,
+                top_k=top_k, top_p=top_p, generator=generator,
+                suffix_lens=suffix_lens)
+            kw = dict(pad_lens=pr.pad, temperature=temperature, top_k=top_k,
+                      top_p=top_p, repetition_penalty=repetition_penalty,
+                      seen=pr.seen, generator=generator)
+            if pr.ragged is None:
+                out = pr.first
+                if max_new_tokens > 1:
+                    rest, _ = self.decode(pr.first, pr.pos, pr.caches,
+                                          steps=max_new_tokens - 1,
+                                          prompt_len=pr.Tp, **kw)
+                    out = torch.cat([pr.first, rest], dim=1)
+            else:
+                cand0, forced, n_tail, L = pr.ragged
                 rest, _ = self.decode(pr.first, pr.pos, pr.caches,
-                                      steps=max_new_tokens - 1,
-                                      prompt_len=pr.Tp, **kw)
-                out = torch.cat([pr.first, rest], dim=1)
-        else:
-            cand0, forced, n_tail, L = pr.ragged
-            rest, _ = self.decode(pr.first, pr.pos, pr.caches,
-                                  steps=L + max_new_tokens - 1,
-                                  prompt_len=pr.Tp - L, forced=forced,
-                                  n_forced=n_tail, **kw)
-            stream = torch.cat([cand0, rest], dim=1)
-            idx = n_tail[:, None] + torch.arange(max_new_tokens,
-                                                 device=self.device)
-            out = stream.gather(1, idx)
-        out = out[:pr.n_real]
-        if eos_token_id is not None:
-            hit = (out == eos_token_id).to(torch.int32)
-            keep = (torch.cumsum(hit, dim=1) - hit) == 0   # before eos
-            out = torch.where(keep, out,
-                              torch.full_like(out, eos_token_id))
-        return out
+                                      steps=L + max_new_tokens - 1,
+                                      prompt_len=pr.Tp - L, forced=forced,
+                                      n_forced=n_tail, **kw)
+                stream = torch.cat([cand0, rest], dim=1)
+                idx = n_tail[:, None] + torch.arange(max_new_tokens,
+                                                     device=self.device)
+                out = stream.gather(1, idx)
+            out = out[:pr.n_real]
+            if eos_token_id is not None:
+                hit = (out == eos_token_id).to(torch.int32)
+                keep = (torch.cumsum(hit, dim=1) - hit) == 0   # before eos
+                out = torch.where(keep, out,
+                                  torch.full_like(out, eos_token_id))
+            return out
 
     def generate_stream(self, tokens, max_new_tokens: int, *,
                         segment: int = 16,

@@ -19,7 +19,9 @@ loads the kernels' modules and sets their attributes, so that none of
 that happens inside the capture.  Then it captures the body into the
 owner's memory pool (shared by all of its graphs, which replay one at a
 time on one stream).  Every later call replays.  A failed capture
-raises: nothing falls back to eager.
+raises: nothing falls back to eager.  The warm-up and the capture sit
+in one `graphs.capture` span (utils/profiling.py); a replay has none of
+its own, and no span may sit inside a body.
 
 `kernels._build.LAUNCHES` counts launches by wrapper.  A capture
 records launches without making them, so the counts the wrappers added
@@ -34,6 +36,7 @@ from typing import Callable, Dict, Hashable, Iterable
 import torch
 
 from kivi_tpu_torch.kernels import _build
+from kivi_tpu_torch.utils.profiling import span
 
 
 class StepGraphs:
@@ -68,18 +71,19 @@ class StepGraphs:
             graph.replay()
             _build.LAUNCHES.update(launches)
             return
-        cur = torch.cuda.current_stream(self.device)
-        self.stream.wait_stream(cur)
-        with torch.cuda.stream(self.stream):
-            body()
-        cur.wait_stream(self.stream)
-        graph = torch.cuda.CUDAGraph()
-        for gen in generators:
-            graph.register_generator_state(gen)
-        before = collections.Counter(_build.LAUNCHES)
-        with torch.cuda.graph(graph, pool=self.pool, stream=self.stream,
-                              capture_error_mode="thread_local"):
-            body()
-        launches = _build.LAUNCHES - before
-        _build.LAUNCHES.subtract(launches)
-        self._graphs[key] = (graph, launches)
+        with span("graphs.capture", key=repr(key)):
+            cur = torch.cuda.current_stream(self.device)
+            self.stream.wait_stream(cur)
+            with torch.cuda.stream(self.stream):
+                body()
+            cur.wait_stream(self.stream)
+            graph = torch.cuda.CUDAGraph()
+            for gen in generators:
+                graph.register_generator_state(gen)
+            before = collections.Counter(_build.LAUNCHES)
+            with torch.cuda.graph(graph, pool=self.pool, stream=self.stream,
+                                  capture_error_mode="thread_local"):
+                body()
+            launches = _build.LAUNCHES - before
+            _build.LAUNCHES.subtract(launches)
+            self._graphs[key] = (graph, launches)

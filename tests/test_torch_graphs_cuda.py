@@ -20,7 +20,9 @@ and the port only, so that it runs where JAX is not installed:
   * the prefix paths (generate(prefix=), ragged suffixes, the stream,
     beam search with and without a prefix) and the batcher's prefix
     admission (its tail a batch-1 graph) give the eager body's tokens
-    when replayed, and Engine(debug=True)'s.
+    when replayed, and Engine(debug=True)'s;
+  * with the tracer on, the replayed steps give the tokens of the
+    tracer off, and a capture is one span.
 """
 
 import functools
@@ -322,3 +324,45 @@ def test_batcher_prefix_graph_matches_eager(cuda, bits):
         assert (pc.misses, pc.extends, pc.hits) == (1, 1, 4)
         results.append({u: r.tokens for u, r in res.items()})
     assert results[0] == results[1]
+
+
+def test_tracer_through_replayed_graphs(cuda):
+    """With the tracer on (utils/profiling.py), the batcher's and the
+    engine's replayed steps give the tokens of the tracer off; a capture
+    is one `graphs.capture` span per key, a replay none; the engine's
+    device spans read a device time, and no span sits inside a body."""
+    from kivi_tpu_torch.utils import profiling as P
+    toks = _tokens(4, (B, PROMPT))
+    results = []
+    for on in (False, True):
+        P.drain()
+        (P.enable if on else P.disable)()
+        try:
+            bat = ContinuousBatcher(CFG, KIVI, _params(), num_slots=3,
+                                    max_seq_len=TMAX, device="cuda",
+                                    prompt_buckets=(128, 256, 512))
+            res = bat.run(_requests(11, 8))
+            eng = _engine(KIVI)
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(5)
+            first = eng.generate(toks, NEW, temperature=0.8, top_p=0.9,
+                                 generator=gen)
+            again = eng.generate(toks, NEW)
+        finally:
+            P.disable()
+        spans = P.drain()
+        results.append(({u: r.tokens for u, r in res.items()}, first,
+                         again))
+        if on:
+            caps = [s.attrs["key"] for s in spans
+                    if s.name == "graphs.capture"]
+            assert len(caps) == len(set(caps)) == len(bat.graphs) + 2
+            dev = [s for s in spans if s.name in (
+                "engine.ingest", "engine.decode")]
+            assert len(dev) == 4 and all(s.device_ms > 0 for s in dev)
+            assert sum(s.name == "batcher.decode" for s in spans) > 0
+        else:
+            assert spans == []
+    assert results[0][0] == results[1][0]
+    assert torch.equal(results[0][1], results[1][1])
+    assert torch.equal(results[0][2], results[1][2])

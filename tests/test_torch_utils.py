@@ -3,9 +3,6 @@ JAX counterparts `kivi_tpu.utils.timing` / `kivi_tpu.utils.profiling`:
 the benchmark loop keeps its data dependence and returns a positive
 time, and the cache-memory report equals the JAX one in every key."""
 
-import json
-import os
-
 import pytest
 import torch
 
@@ -95,15 +92,3 @@ def test_memory_snapshot_is_none_on_the_cpu():
     if not torch.cuda.is_available():
         assert P.memory_snapshot() is None
 
-
-def test_trace_writes_a_chrome_trace(tmp_path):
-    logdir = tmp_path / "trace"
-    with P.trace(str(logdir)) as prof:
-        with P.annotate("probe-window"):
-            torch.ones(32, 32) @ torch.ones(32, 32)
-    path = logdir / "trace.json"
-    assert os.path.getsize(path) > 0
-    with open(path) as f:
-        events = json.load(f)["traceEvents"]
-    assert any(e.get("name") == "probe-window" for e in events)
-    assert any("probe-window" in e.key for e in prof.key_averages())
