@@ -24,6 +24,13 @@ Phases (any failure raises; the exit code is then non-zero):
      full grid, and timed beside it; the split decode route's two kernels (rows 7 and 8) at
      n_quant around their 256-position splits, bit-equal across two
      runs, QK's masked positions exactly -1e30, beside a control each);
+     the shared-prefix decode route (the prefix pass on the tensor
+     cores, then row 6 over each row's own positions) at the benchmark's
+     docqa shape, 96 rows behind a 12,000-token document: per query row
+     within QHIST_RTOL of row 6's plain version, two runs bit-equal, a
+     control merging half the pass's splits refused, timed beside row 6
+     alone; the engine's prefix paths at batch 8 must launch its pass
+     and every other path must not;
      row 3's per-row entry (flash_extend_attention_rows) at 8
      slots of FILLS, T1 5 and 9, pads, bits 2/4/8, GQA, a window: per
      query row within EXTEND_RTOL, bit-equal to the host-int entry row by
@@ -693,6 +700,89 @@ def check_fused_decode_rows(gen, results):
             q, k, v, attn_mask=mask)))
     log(f"[kernel] {name} timed at S={S} slots, fills {FILLS}, KIVI-2 "
         f"(vf 128), H={H}, r=1: live bytes {nbytes / 1e6:.2f} MB")
+
+
+# the shared-prefix decode route at the benchmark's docqa shape: 96 rows
+# behind one 12,000-token document (Mistral-7B's 8 KV heads, r 4, D 128;
+# KIVI-2, W 128, v_flush 128; Tmax 12288), each row then extended by a
+# 64-token question and DQ_STEPS decode appends
+DQ_ROWS, DQ_HEADS, DQ_R, DQ_DOC, DQ_Q, DQ_STEPS, DQ_TMAX = (96, 8, 4, 12000,
+                                                           64, 96, 12288)
+
+
+def check_decode_shared(gen, results):
+    """The shared-prefix route (kernels/decode_prefix.py: the prefix pass
+    on the tensor cores over [0, shared) of row 0, then row 6 over each
+    row's own positions, merging) at DQ_*: every query row within
+    QHIST_RTOL of fused_decode_attention_plain over the same fanned-out
+    caches (no prefix), two runs bit-equal, a control that merges only
+    half of the pass's splits refused; timed beside row 6 alone over the
+    same caches (today's route behind a prefix), the plain route, and the
+    bound (the shared positions' bytes once, every row's own)."""
+    from kivi_tpu_torch.cache import kivi_cache as KC
+    from kivi_tpu_torch.config import QuantConfig
+    from kivi_tpu_torch.kernels import decode_prefix as DPX
+    from kivi_tpu_torch.kernels import fused_decode as FR
+    qcfg = QuantConfig(2, 2, 32, 128, v_flush=128)
+    Hk, r = DQ_HEADS, DQ_R
+    snap = KC.init_layer_cache(1, Hk, D, DQ_TMAX, qcfg, device="cuda")
+    KC.prefill_ingest(snap, _randn(gen, (1, Hk, DQ_DOC, D)),
+                      _randn(gen, (1, Hk, DQ_DOC, D)), qcfg)
+    c = KC.init_layer_cache(DQ_ROWS, Hk, D, DQ_TMAX, qcfg, device="cuda")
+    KC.broadcast_rows_into(c, snap)
+    KC.prefill_extend(c, _randn(gen, (DQ_ROWS, Hk, DQ_Q, D)),
+                      _randn(gen, (DQ_ROWS, Hk, DQ_Q, D)), qcfg, DQ_DOC)
+    for _ in range(DQ_STEPS):
+        KC.decode_append(c, _randn(gen, (DQ_ROWS, Hk, 1, D)),
+                         _randn(gen, (DQ_ROWS, Hk, 1, D)), qcfg)
+    shared = DPX.shared_positions(snap.n_k_quant, snap.n_v_quant, 32)
+    row = (c.n_k_quant, c.n_k_win, c.n_v_quant, c.n_v_win)
+    counts = torch.tensor([row[:3]] * DQ_ROWS, device="cuda",
+                          dtype=torch.int32)
+    q = _randn(gen, (DQ_ROWS, Hk, r, D))
+    args = (q, c.k_codes, c.k_scale, c.k_mn, c.v_codes, c.v_scale, c.v_mn,
+            c.k_win, c.v_win, counts)
+    kw = dict(group_size=32, k_bits=2, v_bits=2)
+    what = (f"shared route B={DQ_ROWS} Hkv={Hk} r={r} document {DQ_DOC} "
+            f"shared={shared} (n_k_quant, n_k_win, n_v_quant, n_v_win) "
+            f"{row}")
+    got = _twice(lambda: DPX.shared_decode_attention(*args, shared=shared,
+                                                     **kw), what)
+    want = FR.fused_decode_attention_plain(*args, **kw)
+    torch.cuda.synchronize()
+    err = _rows_err(got, want, what, TOL.QHIST_RTOL)
+    acc, ml = DPX.decode_prefix(*args[:7], shared=shared, **kw)
+    n = acc.shape[1]
+    half = (acc[:, n // 2:].contiguous(), ml[:, n // 2:].contiguous())
+    ctrl = FR.fused_decode_attention(*args, prefix=half, shared=shared, **kw)
+    _refused(TOL.row_share(ctrl, want, TOL.QHIST_RTOL).max().item(),
+             f"{what}: half of the prefix pass's {n} splits")
+    sb = c.k_scale.element_size()
+    own = _live_bytes(qcfg, sb, row[0] - shared, row[1], row[2] - shared,
+                      row[3])
+    nbytes = (Hk * (_live_bytes(qcfg, sb, shared, 0, shared, 0)
+                    + DQ_ROWS * own)
+              + q.numel() * 2 + DQ_ROWS * Hk * r * D * 4)
+    bms, by = bound(nbytes, 4 * Hk * r * D * DQ_ROWS * (row[0] + row[1]))
+    plain = (lambda: FR.fused_decode_attention_plain(
+        *args, prefix=DPX.decode_prefix_plain(*args[:7], shared=shared,
+                                              **kw), shared=shared, **kw))
+    results["decode_prefix"] = dict(
+        max_abs_err=err,
+        ms=cuda_ms(lambda: DPX.shared_decode_attention(*args, shared=shared,
+                                                       **kw)),
+        prefix_ms=cuda_ms(lambda: DPX.decode_prefix(*args[:7], shared=shared,
+                                                     **kw)),
+        rows_alone_ms=cuda_ms(lambda: FR.fused_decode_attention(*args,
+                                                                **kw)),
+        plain_ms=cuda_ms(plain, iters=3, warmup=1),
+        bound_ms=bms, bound_by=by, library_ms=None, shared=shared,
+        splits=n, rows=DQ_ROWS, r=r, own_positions=row[0] + row[1] - shared)
+    res = results["decode_prefix"]
+    log(f"[kernel] {what}: route {res['ms']:.4f} ms (prefix pass "
+        f"{res['prefix_ms']:.4f} ms, {n} splits) | row 6 alone "
+        f"{res['rows_alone_ms']:.4f} ms | plain {res['plain_ms']:.4f} ms | "
+        f"bound {bms:.4f} ms ({by}, {nbytes / 1e6:.2f} MB)")
 
 
 def check_extend(gen, results):
@@ -1567,6 +1657,7 @@ def phase_kernels():
     check_quant(gen, results)
     check_decode(gen, results)
     check_fused_decode_rows(gen, results)
+    check_decode_shared(gen, results)
     check_extend(gen, results)
     check_extend_rows(gen, results)
     check_wgmma_tile(gen)
@@ -1675,8 +1766,19 @@ PROFILED = 8       # decode steps under the profiler, per mode
 DECODE = {}        # path -> mode -> decode measurements (phase 4)
 
 
+# the engine's paths behind a fanned-out prefix at batch 8: the decode
+# takes the shared-prefix route (its prefix pass launches); every other
+# path must not launch it
+SHARED_PATHS = ("prefix", "prefix-ragged", "prefix-stream", "prefix-extend",
+                "prefix-qhist", "prefix-load")
+
+
 def check_launches(path: str, launches: dict) -> None:
     must, must_not = PATHS[path]
+    if path.removesuffix("-debug") in SHARED_PATHS:
+        must = must + ("decode_prefix",)
+    else:
+        must_not = must_not + ("decode_prefix",)
     for k in must:
         if launches.get(k, 0) <= 0:
             raise AssertionError(f"{path} path never launched {k}")
@@ -4491,6 +4593,9 @@ def main():
         "fused_decode_attention": (
             "kivi_tpu_torch/kernels/csrc/fused_decode_rows.cu",
             "kivi_tpu/kernels/fused_decode.py:198"),
+        # the shared-prefix route: its prefix pass, then row 6
+        "decode_prefix": ("kivi_tpu_torch/kernels/csrc/kdec_prefix.cuh",
+                          "none (a route behind a fanned-out prefix)"),
         "flash_attention": ("kivi_tpu_torch/kernels/csrc/flash.cu",
                             "kivi_tpu/kernels/flash.py:118"),
         "fp_decode_attention_kernel": (

@@ -33,6 +33,11 @@ Two routes each, chosen by `use_split`:
     softmax and `pv_dequant_matmul`; extend through `flash_extend_qhist`
     and a torch merge with the window and self logits.
 
+Behind a fanned-out prefix (`decode_attention(shared=)`, per-row
+counters) decode takes the shared-prefix route
+(`kernels/decode_prefix.py`): the rows' common quantized positions are
+read once for all rows, each row's own ones by row 6.
+
 GQA: query heads are folded into the KV-head batch (B, Hkv, r, D) and
 the quantized operands are never materialized per query head.
 """
@@ -47,6 +52,7 @@ import torch
 
 from kivi_tpu_torch.cache.kivi_cache import KiviLayerCache
 from kivi_tpu_torch.config import QuantConfig
+from kivi_tpu_torch.kernels.decode_prefix import shared_decode_attention
 from kivi_tpu_torch.kernels.flash import flash_attention
 from kivi_tpu_torch.kernels.flash_extend import (
     _extend_ws_logits, flash_extend_attention, flash_extend_attention_rows,
@@ -113,7 +119,7 @@ def decode_attention(q: torch.Tensor, cache: KiviLayerCache,
                      qcfg: QuantConfig, *,
                      sliding_window: Optional[int] = None,
                      pad_len: Optional[torch.Tensor] = None,
-                     fill_bound: Optional[int] = None
+                     fill_bound: Optional[int] = None, shared: int = 0
                      ) -> torch.Tensor:
     """Single-token decode attention.
 
@@ -133,6 +139,14 @@ def decode_attention(q: torch.Tensor, cache: KiviLayerCache,
     wrong bound silently truncates attention; under a checked call
     (`Engine(debug=True)`) the contract is checked and a violation
     raises.
+
+    shared: a STATIC count of leading quantized positions that every row
+    holds bit-equal to row 0 (the engine's caches behind a fanned-out
+    prefix; `decode_prefix.shared_positions`), 0 for none.  Per-row
+    counters only: the shared-prefix route
+    (`decode_prefix.shared_decode_attention`) reads them once for all
+    rows and row 6 each row's own positions above them.  Under a checked
+    call every row's n_k_quant and n_v_quant must reach it.
 
     Host-int counters (the engine's `decode_step`) go to
     `fused_decode_attention_wide`, or to the split route when
@@ -155,6 +169,15 @@ def decode_attention(q: torch.Tensor, cache: KiviLayerCache,
                     "decode t_bound violated: n_k_quant={nkq} or "
                     "n_v_quant={nvq}+W exceeds t_bound={tb}: attention "
                     "would be silently truncated", nkq=nkq, nvq=nvq, tb=tb)
+    if shared:
+        if not per_row:
+            raise ValueError("decode_attention: shared= needs per-row "
+                             "device counters")
+        if checking():
+            nq = torch.minimum(cache.n_k_quant, cache.n_v_quant).min()
+            debug_check(nq >= shared, "decode shared bound violated: a "
+                        "row holds {nq} quantized positions, fewer than "
+                        "shared={s}", nq=nq, s=shared)
     lo = None
     if pad_len is not None:
         lo = pad_len.to(device=q.device, dtype=torch.int32).reshape(B)
@@ -179,7 +202,11 @@ def decode_attention(q: torch.Tensor, cache: KiviLayerCache,
     if per_row:
         counts = torch.stack([cache.n_k_quant, cache.n_k_win,
                               cache.n_v_quant], dim=1)
-        out = fused_decode_attention(*args, counts, t_bound=tb, **kw)
+        if shared:
+            out = shared_decode_attention(*args, counts, shared=shared,
+                                          t_bound=tb, **kw)
+        else:
+            out = fused_decode_attention(*args, counts, t_bound=tb, **kw)
     else:
         out = fused_decode_attention_wide(
             *args, cache.n_k_quant, cache.n_k_win, cache.n_v_quant, **kw)

@@ -64,10 +64,14 @@ SIGNATURES = {
     },
     "fused_decode_rows": {
         # q, k_codes, k_scale, k_mn, v_codes, v_scale, v_mn, k_win,
-        # v_win, counts, lo, out, part_acc, part_ml, tickets, B, H, r, D,
-        # Tmax, W, gs, k_bits, v_bits, scale_is_f32, split, nsplit,
-        # t_bound, sm_scale, stream
-        "kivi_fused_decode_rows": [_P] * 15 + [_I] * 13 + [_F, _P],
+        # v_win, counts, lo, out, part_acc, part_ml, tickets, px_acc,
+        # px_ml, B, H, r, D, Tmax, W, gs, k_bits, v_bits, scale_is_f32,
+        # split, nsplit, t_bound, shared, px_nsplit, sm_scale, stream
+        "kivi_fused_decode_rows": [_P] * 17 + [_I] * 15 + [_F, _P],
+        # q, k_codes, k_scale, k_mn, v_codes, v_scale, v_mn, lo, part_acc,
+        # part_ml, B, H, r, D, Tmax, gs, k_bits, v_bits, shared, cps,
+        # nsplit, scale_is_f32, sm_scale, stream
+        "kivi_decode_prefix": [_P] * 10 + [_I] * 12 + [_F, _P],
     },
     "flash_extend": {
         # q, k_codes, k_scale, k_mn, v_codes, v_scale, v_mn, k_win,

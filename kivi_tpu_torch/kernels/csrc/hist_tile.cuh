@@ -1,8 +1,9 @@
 // The quantized history as tensor-core operands: raw staging of a chunk
 // of packed K/V words and scales by cp.async, and its dequantization into
 // the bf16 operand tiles of attn_wgmma.cuh.  Shared by flash_extend.cu
-// (the full extend kernel) and flash_extend_qhist.cu (the history part,
-// split over T), so the two extend kernels dequantize with one body.
+// (the full extend kernel), flash_extend_qhist.cu (the history part,
+// split over T) and kdec_prefix.cuh (the decode's shared prefix), so the
+// three dequantize with one body.
 //
 // A chunk holds CK history positions [c0, c0 + CK).  Its raw staging
 // buffer (layout `raw_layout`) holds the packed K and V words (KDw, CK)
@@ -183,32 +184,23 @@ __device__ __forceinline__ void dequant_v(uint8_t* __restrict__ tile,
     }
 }
 
-// Dequantize the raw buffer `raw` of chunk c0 into K^ (p_k), V^ (p_v) and
-// the zero-point rows Z (p_z): bits dispatched at run time, the unpack
-// itself a template.
+// The K half of a chunk's dequantization: the raw buffer `raw` of chunk
+// c0 into K^ (p_k) and the zero-point rows Z (p_z), bits dispatched at run
+// time, the unpack itself a template.
 template <int CK, typename ST>
-__device__ __forceinline__ void dequant_chunk(
-        uint8_t* p_k, uint8_t* p_v, uint8_t* p_z, const uint8_t* raw,
-        const Raw& rl, int c0, int nkq, int nvq, int D, int ngk, int gsh,
-        int k_bits, int v_bits) {
+__device__ __forceinline__ void dequant_kz(uint8_t* p_k, uint8_t* p_z,
+                                           const uint8_t* raw, const Raw& rl,
+                                           int c0, int nkq, int D, int ngk,
+                                           int gsh, int k_bits) {
     const uint32_t* const kw_s = (const uint32_t*)(raw + rl.kw);
-    const uint32_t* const vw_s = (const uint32_t*)(raw + rl.vw);
     const ST* const ks_s = (const ST*)(raw + rl.ks);
     const ST* const km_s = (const ST*)(raw + rl.km);
-    const ST* const vs_s = (const ST*)(raw + rl.vs);
-    const ST* const vm_s = (const ST*)(raw + rl.vm);
     if (k_bits == 2)
         dequant_k<CK, 2>(p_k, kw_s, ks_s, c0, nkq, D, gsh);
     else if (k_bits == 4)
         dequant_k<CK, 4>(p_k, kw_s, ks_s, c0, nkq, D, gsh);
     else
         dequant_k<CK, 8>(p_k, kw_s, ks_s, c0, nkq, D, gsh);
-    if (v_bits == 2)
-        dequant_v<CK, 2>(p_v, vw_s, vs_s, vm_s, c0, nvq, D, gsh);
-    else if (v_bits == 4)
-        dequant_v<CK, 4>(p_v, vw_s, vs_s, vm_s, c0, nvq, D, gsh);
-    else
-        dequant_v<CK, 8>(p_v, vw_s, vs_s, vm_s, c0, nvq, D, gsh);
     // Z: the chunk's K min rows, hi (rows 0-7) and lo (rows 8-15); rows
     // of groups at or past nkq were zero-filled by stage_raw
     for (int idx = threadIdx.x; idx < 8 * DP; idx += NT) {
@@ -220,6 +212,33 @@ __device__ __forceinline__ void dequant_chunk(
         *(__nv_bfloat16*)(p_z + wg::tile_off<DP>(gi + 8, d)) =
             __float2bfloat16(x - __bfloat162float(hi));
     }
+}
+
+// The V half: the raw buffer of chunk c0 into V^ (p_v).
+template <int CK, typename ST>
+__device__ __forceinline__ void dequant_vv(uint8_t* p_v, const uint8_t* raw,
+                                           const Raw& rl, int c0, int nvq,
+                                           int D, int gsh, int v_bits) {
+    const uint32_t* const vw_s = (const uint32_t*)(raw + rl.vw);
+    const ST* const vs_s = (const ST*)(raw + rl.vs);
+    const ST* const vm_s = (const ST*)(raw + rl.vm);
+    if (v_bits == 2)
+        dequant_v<CK, 2>(p_v, vw_s, vs_s, vm_s, c0, nvq, D, gsh);
+    else if (v_bits == 4)
+        dequant_v<CK, 4>(p_v, vw_s, vs_s, vm_s, c0, nvq, D, gsh);
+    else
+        dequant_v<CK, 8>(p_v, vw_s, vs_s, vm_s, c0, nvq, D, gsh);
+}
+
+// Dequantize the raw buffer `raw` of chunk c0 into K^ (p_k), V^ (p_v) and
+// the zero-point rows Z (p_z): both halves.
+template <int CK, typename ST>
+__device__ __forceinline__ void dequant_chunk(
+        uint8_t* p_k, uint8_t* p_v, uint8_t* p_z, const uint8_t* raw,
+        const Raw& rl, int c0, int nkq, int nvq, int D, int ngk, int gsh,
+        int k_bits, int v_bits) {
+    dequant_kz<CK, ST>(p_k, p_z, raw, rl, c0, nkq, D, ngk, gsh, k_bits);
+    dequant_vv<CK, ST>(p_v, raw, rl, c0, nvq, D, gsh, v_bits);
 }
 
 // Add q . mn to the chunk's logits s (the m64nCKk16 fragment of

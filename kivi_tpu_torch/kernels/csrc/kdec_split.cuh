@@ -5,9 +5,10 @@
 // trimmed.cu (the ablations below, at full fill).  Every kernel is one
 // instantiation of `decode_kernel`, launched by `launch`.
 //
-// Grid: (nsplit, B * H) blocks of NT = 128 threads.  Block (s, bh) attends
-// the live positions [a, e) of its split [s*S, s*S + S): a = max(split
-// start, lo), e = min(split end, nkq + nkw).  Positions p < nkq take K
+// Grid: (nsplit, B * H) blocks of NT = 128 threads.  Block (x, bh) attends
+// the live positions [a, e) of its split [s0, s0 + S), s0 = shared + x*S
+// (shared: 0 but on the shared-prefix route): a = max(s0, lo), e =
+// min(s0 + S, nkq + nkw).  Positions p < nkq take K
 // from the packed store, the rest from k_win row p - nkq; positions
 // p < nvq take V from the packed store, the rest from v_win row p - nvq
 // (nvq may trail nkq by up to W, so a split may straddle nvq, nkq or
@@ -45,11 +46,12 @@
 //     and warps summed in order.
 // A split with no live position writes the neutral partial (m = -1e30,
 // l = 0; its acc is never read) without reading the cache.  With one
-// split the block writes the output itself; otherwise the last block of
-// each (row, KV head) to finish (a ticket per head, counted by atomicAdd
-// and reset by that block) merges the splits in split order: m = max
-// m_s over splits with l_s > 0, l = sum l_s exp(m_s - m), out = sum
-// acc_s exp(m_s - m) / l.  Two runs are bit-equal, a row that sees
+// split and no prefix partial the block writes the output itself;
+// otherwise the last block of each (row, KV head) to finish (a ticket per
+// head, counted by atomicAdd and reset by that block) merges the prefix
+// pass's splits, then its own, in split order: m = max m_s over splits
+// with l_s > 0, l = sum l_s exp(m_s - m), out = sum acc_s exp(m_s - m) /
+// l.  Two runs are bit-equal, a row that sees
 // nothing writes exact zeros, and one call is one launch with no counter
 // read by the host.
 //
@@ -121,7 +123,12 @@ struct Ablation {
 // n_v_quant) for the ROWS kernel (nkq, nkw, nvq unused), else NULL.
 // lo: (B,) int32 lower position bound or NULL.  part_acc (B*H*nsplit*R*D floats), part_ml (2*B*H*nsplit*R
 // floats) and tickets (B*H ints, zero; every launch leaves them zero)
-// are the caller's workspace.
+// are the caller's workspace.  The shared-prefix route
+// (fused_decode_rows.cu) sets `shared`, where the grid's first split
+// starts (positions below it are the prefix pass's, kdec_prefix.cuh; a
+// multiple of gs and of 8), and px_acc / px_ml, that pass's partials (H,
+// px_nsplit, B, R, D) floats and (m, l) pairs, which the merge takes
+// before the splits; the other entries leave the four 0.
 struct Params {
     const __nv_bfloat16* q;
     const uint32_t* k_codes;
@@ -140,6 +147,10 @@ struct Params {
     int* tickets;
     int H, D, Tmax, W, gs, k_bits, v_bits, nkq, nkw, nvq, nsplit;
     float sm_scale;
+    int shared;
+    const float* px_acc;
+    const float* px_ml;
+    int px_nsplit;
 };
 
 // Byte offsets of the dynamic shared memory; every offset is a multiple
@@ -479,16 +490,18 @@ __global__ void __launch_bounds__(NT) decode_kernel(const Params p) {
     int nvq = ROWS ? p.counts[3 * b + 2] : p.nvq;
     clamp_counters(nkq, nkw, nvq, Tmax, W);
     const int lo = p.lo ? max(p.lo[b], 0) : 0;
-    const int s0 = split * S;
+    const int s0 = p.shared + split * S;
     // live: [a, e); the ablations without the window phase or the store
     // body drop the window's positions or the store's
     const int a = A::store ? max(s0, lo) : max(max(s0, lo), nkq);
     const int e = min(s0 + S, A::window ? nkq + nkw : nkq);
     const long long slot = (long long)bh * nsplit + split;
     float* const o_b = p.out + (long long)bh * R * D;
+    // one split and no prefix partial: the block writes the output itself
+    const bool one = nsplit == 1 && p.px_acc == nullptr;
 
     if (a >= e) {   // the neutral partial, no reads
-        if (nsplit == 1) {
+        if (one) {
             for (int i = tid; i < R * D; i += NT) o_b[i] = 0.f;
             return;
         }
@@ -592,7 +605,7 @@ __global__ void __launch_bounds__(NT) decode_kernel(const Params p) {
             }
             wg::cp_wait<0>();
             __syncthreads();
-            if (nsplit == 1) {
+            if (one) {
                 for (int i = tid; i < R * D; i += NT) o_b[i] = 0.f;
                 return;
             }
@@ -843,7 +856,6 @@ __global__ void __launch_bounds__(NT) decode_kernel(const Params p) {
                         make_float4(aw[rr][0], aw[rr][1], aw[rr][2], aw[rr][3]);
             }
             __syncthreads();
-            const bool one = nsplit == 1;
             for (int i = tid; i < R * D; i += NT) {
                 float x = red_s[i];
                 for (int h = 1; h < nph + NW; ++h) x += red_s[h * R * D + i];
@@ -860,7 +872,8 @@ __global__ void __launch_bounds__(NT) decode_kernel(const Params p) {
         }
     }
 
-    // ---- the last block of the head merges the splits in order ----
+    // ---- the last block of the head merges, in order, the prefix
+    // pass's splits (if any), then its own ----
     __threadfence();
     __syncthreads();
     if (tid == 0) last = atomicAdd(&p.tickets[bh], 1) == nsplit - 1;
@@ -870,24 +883,39 @@ __global__ void __launch_bounds__(NT) decode_kernel(const Params p) {
     const float* const pa = p.part_acc + (long long)bh * nsplit * R * D;
     const float2* const pml =
         (const float2*)p.part_ml + (long long)bh * nsplit * R;
+    // the prefix partials of this row's R query rows: split sp, row rr at
+    // (sp * B * R + rr), from (h * px_nsplit * B + b) * R
+    const int nx = p.px_acc ? p.px_nsplit : 0;
+    const long long xs = (long long)(gridDim.y / p.H) * R;
+    const long long x0 =
+        nx ? ((long long)(bh % p.H) * nx * (gridDim.y / p.H) + b) * R : 0;
+    auto part = [&](int sp, int rr, const float** acc) {
+        if (sp < nx) {
+            *acc = p.px_acc + (x0 + sp * xs + rr) * D;
+            return __ldcg((const float2*)p.px_ml + x0 + sp * xs + rr);
+        }
+        *acc = pa + ((sp - nx) * R + rr) * D;
+        return __ldcg(pml + (sp - nx) * R + rr);
+    };
     for (int rr = warp; rr < R; rr += NW) {
+        const float* acc;
         float M = KIVI_NEG_INF;
-        for (int sp = 0; sp < nsplit; ++sp) {
-            const float2 ml = __ldcg(pml + sp * R + rr);
+        for (int sp = 0; sp < nx + nsplit; ++sp) {
+            const float2 ml = part(sp, rr, &acc);
             if (ml.y > 0.f) M = fmaxf(M, ml.x);
         }
         float Lsum = 0.f, Acc[DMAX / 32];
 #pragma unroll
         for (int x = 0; x < DMAX / 32; ++x) Acc[x] = 0.f;
-        for (int sp = 0; sp < nsplit; ++sp) {
-            const float2 ml = __ldcg(pml + sp * R + rr);
+        for (int sp = 0; sp < nx + nsplit; ++sp) {
+            const float2 ml = part(sp, rr, &acc);
             if (!(ml.y > 0.f)) continue;
             const float c = expf(ml.x - M);
             Lsum += ml.y * c;
 #pragma unroll
             for (int x = 0; x < DMAX / 32; ++x) {
                 const int dd = lane + 32 * x;
-                if (dd < D) Acc[x] += __ldcg(pa + (sp * R + rr) * D + dd) * c;
+                if (dd < D) Acc[x] += __ldcg(acc + dd) * c;
             }
         }
 #pragma unroll
@@ -901,8 +929,9 @@ __global__ void __launch_bounds__(NT) decode_kernel(const Params p) {
 
 // Checks what every kernel takes (0 or cudaErrorInvalidValue): D <= 128
 // dividing 2 NT with D % 8 == 0 and D % gs == 0, 128 % gs == 0, gs even,
-// bits 2/4/8, Tmax % 8 == 0, the caller's split size equal to S, nsplit
-// splits covering [0, n_end).
+// bits 2/4/8, Tmax % 8 == 0, the caller's split size equal to S, the
+// nsplit splits from `shared` (a multiple of gs and 8) covering
+// [shared, n_end).
 inline int check_args(const Params& p, int split, int n_end) {
     const bool bits_ok = (p.k_bits == 2 || p.k_bits == 4 || p.k_bits == 8)
                          && (p.v_bits == 2 || p.v_bits == 4
@@ -910,7 +939,8 @@ inline int check_args(const Params& p, int split, int n_end) {
     if (!bits_ok || p.D > DMAX || p.D < 8 || p.D % 8 || (2 * NT) % p.D
         || p.gs < 2 || p.gs % 2 || p.D % p.gs || CH % p.gs || p.Tmax % 8
         || p.Tmax % p.gs || p.W < 0 || split != S || p.nsplit < 1
-        || (long long)p.nsplit * S < n_end)
+        || p.shared < 0 || p.shared % p.gs || p.shared % 8
+        || p.shared + (long long)p.nsplit * S < n_end)
         return (int)cudaErrorInvalidValue;
     return 0;
 }

@@ -123,7 +123,8 @@ def _attention_block(x, lp, cache, cfg: ModelConfig, qcfg: QuantConfig,
                      positions, *, mode: str, flush: bool = True,
                      pad_len=None, prev_len: int = 0, active=None,
                      fill_bound: Optional[int] = None, layer: int = 0,
-                     ingest: str = "quant", tp=None, seq_group=None):
+                     ingest: str = "quant", tp=None, seq_group=None,
+                     shared: int = 0):
     """mode: 'prefill' (T tokens into an empty cache), 'extend' (T suffix
     tokens onto a cache holding prev_len tokens: chunked prefill) or
     'decode' (T == 1).  The cache is a KiviLayerCache or an
@@ -131,7 +132,9 @@ def _attention_block(x, lp, cache, cfg: ModelConfig, qcfg: QuantConfig,
     appends: active (B,) bool selects the rows that advance (None: every
     row), and flush=False skips their window flushes (the engine runs
     them on its schedule).  fill_bound: decode only, a static bound on
-    every row's fill (core.attention.decode_attention).
+    every row's fill; shared: decode over the KIVI cache only, a static
+    count of leading quantized positions bit-equal in every row
+    (core.attention.decode_attention).
 
     ingest: "quant" runs the cache's own ingest (prefill_extend /
     decode_append, which may quantize a full window); "window" appends
@@ -235,7 +238,8 @@ def _attention_block(x, lp, cache, cfg: ModelConfig, qcfg: QuantConfig,
                 KC.decode_append(cache, k, v, qcfg, do_flush=flush)
             out = decode_attention(q, cache, qcfg,
                                    sliding_window=cfg.sliding_window,
-                                   pad_len=pad_len, fill_bound=fill_bound)
+                                   pad_len=pad_len, fill_bound=fill_bound,
+                                   shared=shared)
     else:
         raise ValueError(f"unknown mode {mode!r}")
 
@@ -245,12 +249,14 @@ def _attention_block(x, lp, cache, cfg: ModelConfig, qcfg: QuantConfig,
 
 def _decoder_layer(x, lp, cache, cfg, qcfg, positions, *, mode, flush=True,
                    pad_len=None, prev_len=0, active=None, fill_bound=None,
-                   layer=0, ingest="quant", tp=None, seq_group=None):
+                   layer=0, ingest="quant", tp=None, seq_group=None,
+                   shared=0):
     h = _attention_block(rms_norm(x, lp["ln_attn"], cfg.rms_norm_eps), lp,
                          cache, cfg, qcfg, positions, mode=mode,
                          flush=flush, pad_len=pad_len, prev_len=prev_len,
                          active=active, fill_bound=fill_bound, layer=layer,
-                         ingest=ingest, tp=tp, seq_group=seq_group)
+                         ingest=ingest, tp=tp, seq_group=seq_group,
+                         shared=shared)
     x = x + h
     mlp = swiglu_mlp(rms_norm(x, lp["ln_mlp"], cfg.rms_norm_eps),
                      lp["wg"], lp["wu"], lp["wd"])
@@ -269,7 +275,8 @@ def forward(params: dict, tokens: torch.Tensor, caches: List, cfg:
             prev_len: int = 0,
             active: Optional[torch.Tensor] = None,
             fill_bound: Optional[int] = None, ingest: str = "quant",
-            tp=None, seq_group=None) -> Tuple[torch.Tensor, List]:
+            tp=None, seq_group=None,
+            shared: int = 0) -> Tuple[torch.Tensor, List]:
     """tokens (B, T) int; positions (B, T) int RoPE positions (for
     left-padded rows: cache index minus pad_len, clamped at 0).  The
     caches are updated in place.
@@ -282,6 +289,12 @@ def forward(params: dict, tokens: torch.Tensor, caches: List, cfg:
     fill_bound: decode mode, an optional STATIC upper bound on every
     row's cache fill for this call (kivi_tpu/models/modeling.py:117,
     263-268), passed to the decode kernels as their grid bound.
+
+    shared: decode mode over the KIVI cache's per-row counters, a static
+    count of leading quantized positions that every row holds bit-equal
+    to row 0 (the engine's caches behind a fanned-out prefix): attention
+    takes the shared-prefix route (core.attention.decode_attention); 0
+    keeps row 6 alone.
 
     ingest: "window" appends K/V to the fp windows only (decode and
     extend modes; `_attention_block`), the speculative decoders' ingest;
@@ -305,7 +318,8 @@ def forward(params: dict, tokens: torch.Tensor, caches: List, cfg:
         x = _decoder_layer(x, lp, cache, cfg, qcfg, positions, mode=mode,
                            flush=flush, pad_len=pad_len, prev_len=prev_len,
                            active=active, fill_bound=fill_bound, layer=i,
-                           ingest=ingest, tp=tp, seq_group=seq_group)
+                           ingest=ingest, tp=tp, seq_group=seq_group,
+                           shared=shared)
     if seq_group is not None:
         logits = None
         if seq_group.rank == seq_group.owner:

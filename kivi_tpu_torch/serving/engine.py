@@ -42,6 +42,18 @@ Every prompt prologue writes into the engine's own caches (`own_caches`):
 a prefix snapshot is fanned out into them, never into fresh tensors, so
 the graphs captured over them are replayed by every later call.
 
+Behind a fanned-out prefix every row holds the snapshot's quantized
+positions bit-equal, and the stores only grow by appending.  So the
+prologue of `generate(prefix=)` and `generate_stream(prefix=)` records
+`shared`, the snapshot's quantized positions rounded to whole key groups
+and chunks (`decode_prefix.shared_positions`), when the batch has more
+than one row, and the decode passes it down as a static argument (in the
+graph key): attention reads those positions once for all rows, from row
+0 of the own caches, and each row's own positions above them
+(kernels/decode_prefix.py).  Every other prologue records 0, as do the
+fp cache and an engine over a mesh; beam search, the batchers and the
+speculative decoders never pass it.
+
 `Engine(debug=True)` is the port of the JAX engine's checked_jit mode
 (utils/guards.py): it runs the same program, with nothing captured.
 Every prefill, extend and suffix forward, every scheduled flush (the
@@ -56,7 +68,8 @@ callers, `decode_step`, only.
 With the tracer on (utils/profiling.py): `engine.prefill_prefix`
 (`tokens`), `engine.generate` (`B`, `T`, `new`) holding
 `engine.ingest` (the prompt prologue; `prefix`, its length) and
-`engine.decode` (`steps`, `fb`, `flushes` run), whose last part is
+`engine.decode` (`steps`, `fb`, `flushes` run, `shared`: the positions
+read once a layer, 0 off the shared-prefix route), whose last part is
 `engine.decode.read`, the counters' read.  The prefix prefill, the
 prologue and the decode are timed on the device too; no span sits
 inside a captured step.
@@ -78,6 +91,7 @@ from kivi_tpu_torch.cache import fp_cache as FC
 from kivi_tpu_torch.cache import kivi_cache as KC
 from kivi_tpu_torch.cache.kivi_cache import nvq_canonical
 from kivi_tpu_torch.config import ModelConfig, QuantConfig
+from kivi_tpu_torch.kernels.decode_prefix import shared_positions
 from kivi_tpu_torch.models import modeling
 from kivi_tpu_torch.parallel import mesh as M
 from kivi_tpu_torch.parallel.ring import seq_layout
@@ -269,7 +283,9 @@ class _Prompt:
     prompt length Tp (prefix included), the real rows, the raw logits of
     the prompt's last token (B, V) f32, and `ragged`: None, or (the
     first sampled candidate (B, 1), the teacher tokens (B, L), each
-    row's count of them (B,), L) for ragged suffixes."""
+    row's count of them (B,), L) for ragged suffixes; `shared`, the
+    leading quantized positions every row holds bit-equal (0: none
+    recorded)."""
 
     first: torch.Tensor
     caches: list
@@ -280,6 +296,7 @@ class _Prompt:
     n_real: int
     logits: torch.Tensor
     ragged: Optional[tuple]
+    shared: int = 0
 
 
 def _cache_ptrs(caches) -> tuple:
@@ -528,11 +545,16 @@ class Engine:
                seen: Optional[torch.Tensor] = None,
                generator: Optional[torch.Generator] = None,
                forced: Optional[torch.Tensor] = None,
-               n_forced: Optional[torch.Tensor] = None):
+               n_forced: Optional[torch.Tensor] = None, shared: int = 0):
         """Generate `steps` tokens after `first` (B, 1), whose RoPE
         position is pos (B, 1); the caches (host-int counters) hold
         prompt_len tokens.  A KIVI cache's window flushes run on the
         static schedule between steps; the fp cache has none.
+
+        shared: the leading quantized positions every row of the KIVI
+        caches holds bit-equal to row 0 (what `_ingest_prompt` records
+        behind a fanned-out prefix), read once for all rows by the
+        shared-prefix route; 0 (the default) keeps row 6 alone.
 
         forced (B, L) / n_forced (B,): teacher forcing of ragged
         suffixes (kivi_tpu/serving/engine.py:330-374): row b FEEDS
@@ -551,7 +573,7 @@ class Engine:
         use_pen = repetition_penalty != 1.0 and seen is not None
         fb = fill_bound(prompt_len, steps)
         with span("engine.decode", device=self.device, steps=steps, fb=fb,
-                  flushes=len(events)):
+                  flushes=len(events), shared=shared):
             teach = forced is not None
             st = self._decode_begin(first, pos, caches, pad_lens,
                                     seen if use_pen else None, forced,
@@ -560,14 +582,15 @@ class Engine:
             has_pad = pad_lens is not None
             body = functools.partial(self._decode_body, st, fb, has_pad,
                                      temperature, top_k, top_p, penalty,
-                                     generator, teach)
+                                     generator, teach, shared)
             if self.debug:
                 body = checked_call(body)
             # the JAX jit's static arguments but `steps` (the graph is one
             # step); the generator object itself, since a graph draws from
             # the generator it was captured with
             key = (first.shape[0], fb, has_pad, temperature, top_k, top_p,
-                   penalty, generator if temperature > 0 else None, teach)
+                   penalty, generator if temperature > 0 else None, teach,
+                   shared)
             gens = (generator,) if temperature > 0 and generator is not None \
                 else ()
             for i in range(steps):
@@ -627,15 +650,16 @@ class Engine:
                      has_pad: bool, temperature: float, top_k: int,
                      top_p: float, penalty: float,
                      generator: Optional[torch.Generator],
-                     teach: bool = False) -> None:
+                     teach: bool = False, shared: int = 0) -> None:
         """One plain decode step, the body a CUDA graph captures: reads
         and writes only the state's tensors, in place.  teach: feed the
         teacher token forced[:, step + 1] to the rows that still have one
-        (the step index is the state's, on the device)."""
+        (the step index is the state's, on the device); shared: as in
+        `decode`."""
         logits, _ = self._model(
             self.params, st.token, st.caches, self.cfg, self.qcfg, st.pos,
             mode="decode", flush=False, pad_len=st.pad if has_pad else None,
-            fill_bound=fill_bound)
+            fill_bound=fill_bound, shared=shared)
         logits = logits[:, -1]
         st.logits.copy_(logits)
         if penalty != 1.0:
@@ -680,7 +704,9 @@ class Engine:
         ragged suffix_lens the common min(suffix_lens) tokens are
         extended and each row's rest is teacher-forced by the decode;
         `first` is then the first FED token (a teacher token where a
-        row has more)."""
+        row has more).  Behind a prefix over the KIVI cache, with more
+        than one row and no mesh, it records `shared` (module
+        docstring); every other prologue records 0."""
         with span("engine.ingest", device=self.device,
                   prefix=0 if prefix is None else prefix.length):
             tokens = torch.as_tensor(tokens, device=self.device)
@@ -761,9 +787,15 @@ class Engine:
                              device=self.device)
             if pad is not None:
                 pos = pos - pad[:, None]
+            shared = 0
+            if (prefix is not None and self.qcfg.quantize_kv and B > 1
+                    and self.mesh is None):
+                c = prefix.caches[0]
+                shared = shared_positions(c.n_k_quant, c.n_v_quant,
+                                          self.qcfg.group_size)
             return _Prompt(first=first, caches=caches, pos=pos, pad=pad,
                            seen=seen, Tp=Tp, n_real=n_real, logits=logits,
-                           ragged=ragged)
+                           ragged=ragged, shared=shared)
 
     def generate(self, tokens: torch.Tensor, max_new_tokens: int, *,
                  prefill_chunk_size: Optional[int] = None,
@@ -803,7 +835,7 @@ class Engine:
                 suffix_lens=suffix_lens)
             kw = dict(pad_lens=pr.pad, temperature=temperature, top_k=top_k,
                       top_p=top_p, repetition_penalty=repetition_penalty,
-                      seen=pr.seen, generator=generator)
+                      seen=pr.seen, generator=generator, shared=pr.shared)
             if pr.ragged is None:
                 out = pr.first
                 if max_new_tokens > 1:
@@ -875,7 +907,7 @@ class Engine:
                 cur, pos, pr.caches, steps=steps, prompt_len=pl,
                 pad_lens=pr.pad, temperature=temperature, top_k=top_k,
                 top_p=top_p, repetition_penalty=repetition_penalty,
-                seen=seen, generator=generator)
+                seen=seen, generator=generator, shared=pr.shared)
             # A flush due AT the boundary is not run by the decode (it
             # flushes before appends).  The state the next segment's
             # schedule assumes is asymmetric there: prefill-canonical K

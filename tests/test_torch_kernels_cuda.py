@@ -23,7 +23,15 @@ Tolerances (chip_smoke.py's):
     fused_decode_attention_wide and fused_decode_attention, and the split
     decode kernels qk_dequant_matmul and pv_dequant_matmul (f32 on the
     CUDA cores, split over T): max|kernel - plain| <= 1e-5 * max|plain|
-    + 1e-5, and two runs bit-equal.
+    + 1e-5, and two runs bit-equal;
+  * the shared-prefix decode route (decode_prefix on the tensor cores,
+    then row 6) against fused_decode_attention_plain on caches fanned
+    out from one snapshot: each query row within QHIST_RTOL of its own
+    largest value.  The prefix pass rounds as row 5 does (K^ = code *
+    scale and V^ = code * scale + mn to bf16 once, p to bf16, f32
+    accumulation) where the plain version computes in f32, and behind a
+    long document the prefix holds nearly all of each row's softmax
+    mass; row 6's own part is f32 and adds nothing near that limit.
 """
 
 import pytest
@@ -36,6 +44,7 @@ from kivi_tpu_torch.cache import fp_cache as FC
 from kivi_tpu_torch.cache import kivi_cache as KC
 from kivi_tpu_torch.config import QuantConfig
 from kivi_tpu_torch.core import quant as Q
+from kivi_tpu_torch.kernels import decode_prefix as DPX
 from kivi_tpu_torch.kernels import flash as FL
 from kivi_tpu_torch.kernels import flash_extend as FE
 from kivi_tpu_torch.kernels import fp_decode as FD
@@ -747,3 +756,174 @@ def test_quantize_pack_into_raises(cuda):
     with pytest.raises(ValueError):
         QW.quantize_pack_k_into(x, 32, 2, *st,
                                 torch.zeros(2, dtype=torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# the shared-prefix decode route (kernels/decode_prefix.py)
+# ---------------------------------------------------------------------------
+
+SHARED_QCFG = dict(k_bits=2, v_bits=2, group_size=32, residual_length=128,
+                   v_flush=128)
+
+
+def _fanned(gen, rows, doc, heads=8, d=128, sdt="bfloat16", seed_off=0):
+    """A slot cache of `rows` rows fanned out from one snapshot of a
+    `doc`-token document (Tmax 12288, KIVI-2, W 128): row b extended by a
+    64-token question (96 for every fifth row, which leaves its K window
+    empty) and then b * 7 % 100 decode appends, as the engine's rows
+    are.  Returns (the snapshot, the slot cache)."""
+    qcfg = QuantConfig(**SHARED_QCFG, scale_dtype=sdt)
+    tmax = 12288
+    snap = KC.init_layer_cache(1, heads, d, tmax, qcfg, device="cuda")
+    KC.prefill_ingest(snap, _randn(gen, (1, heads, doc, d)),
+                      _randn(gen, (1, heads, doc, d)), qcfg)
+    slots = KC.init_slot_cache(rows, heads, d, tmax, qcfg, device="cuda")
+    for b in range(rows):
+        one = KC.init_layer_cache(1, heads, d, tmax, qcfg, device="cuda")
+        KC.broadcast_rows_into(one, snap)
+        n = 96 if b % 5 == 4 else 64
+        KC.prefill_extend(one, _randn(gen, (1, heads, n, d)),
+                          _randn(gen, (1, heads, n, d)), qcfg, doc)
+        for _ in range(0 if b % 5 == 4 else b * 7 % 100):
+            KC.decode_append(one, _randn(gen, (1, heads, 1, d)),
+                             _randn(gen, (1, heads, 1, d)), qcfg)
+        KC.write_slot(slots, b, one)
+    return snap, slots
+
+
+def _route_args(c, q):
+    counts = torch.stack([c.n_k_quant, c.n_k_win, c.n_v_quant], dim=1)
+    return (q, *_cache_arrays(c), counts)
+
+
+# (rows, document tokens, r, scale dtype, lower bound)
+SHARED_CASES = [(8, 2048, 4, "bfloat16", None),
+                (8, 2048, 1, "float32", None),
+                (8, 2048, 4, "bfloat16", "swa"),
+                (96, 12000, 4, "bfloat16", None),
+                (96, 12000, 1, "bfloat16", None)]
+
+
+@pytest.mark.parametrize("rows,doc,r,sdt,mask", SHARED_CASES)
+def test_shared_route_matches_plain(cuda, rows, doc, r, sdt, mask):
+    """The route at the engine's geometry (8 KV heads, D 128, KIVI-2, W
+    128) behind a 2K and a 12K document, 8 and 96 rows, r 1 and 4, bf16
+    and f32 scales, a sliding window whose bound lies inside the prefix:
+    every query row within QHIST_RTOL of fused_decode_attention_plain
+    (no prefix) over the same fanned-out caches; two runs bit-equal."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(rows + doc + r)
+    snap, c = _fanned(gen, rows, doc, sdt=sdt)
+    shared = DPX.shared_positions(snap.n_k_quant, snap.n_v_quant, 32)
+    # the snapshot's quantized values: (doc - 1) // 128 * 128
+    assert shared == (doc - 1) // 128 * 128
+    q = _randn(gen, (rows, 8, r, 128))
+    args = _route_args(c, q)
+    lo = (None if mask is None else
+          torch.clamp(c.seq_len - (doc - 700), min=0).to(torch.int32))
+    kw = dict(group_size=32, k_bits=2, v_bits=2, lo=lo)
+    got = DPX.shared_decode_attention(*args, shared=shared, **kw)
+    want = FR.fused_decode_attention_plain(*args, **kw)
+    TOL.check_rows(got, want, TOL.QHIST_RTOL,
+                   f"shared route rows={rows} doc={doc} r={r} {sdt} {mask}")
+    assert torch.equal(got, DPX.shared_decode_attention(
+        *args, shared=shared, **kw))
+
+
+def test_shared_route_prefix_pass_matches_plain(cuda):
+    """The prefix pass alone: its split states, merged, against
+    decode_prefix_plain's within QHIST_RTOL (TOL.check_state), and a
+    control that drops the first half of its splits refused."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    snap, c = _fanned(gen, 8, 4000)
+    shared = DPX.shared_positions(snap.n_k_quant, snap.n_v_quant, 32)
+    q = _randn(gen, (8, 8, 4, 128))
+    kw = dict(shared=shared, group_size=32, k_bits=2, v_bits=2)
+    acc, ml = DPX.decode_prefix(q, *_cache_arrays(c)[:6], **kw)
+    acc_p, ml_p = DPX.decode_prefix_plain(q, *_cache_arrays(c)[:6], **kw)
+    assert acc.shape[1] > 1
+
+    def merged(acc, ml):
+        m, l = ml[..., 0], ml[..., 1]
+        live = l > 0
+        M = torch.where(live, m, torch.full_like(m, -1e30)).amax(1)
+        w = torch.where(live, torch.exp(m - M[:, None]), 0.0)
+        return (acc * w[..., None]).sum(1), M, (l * w).sum(1)
+
+    TOL.check_state(merged(acc, ml), merged(acc_p, ml_p), TOL.QHIST_RTOL,
+                    "decode_prefix")
+    n = acc.shape[1]
+    ctrl = merged(acc[:, n // 2:], ml[:, n // 2:])
+    with pytest.raises(AssertionError):
+        TOL.check_state(ctrl, merged(acc_p, ml_p), TOL.QHIST_RTOL,
+                        "decode_prefix without its first split")
+
+
+def test_shared_route_graph_two_documents(cuda):
+    """The route captured in a CUDA graph over fixed cache tensors and
+    replayed for two jobs of different documents (each copied into those
+    tensors): each replay gives its own job's result."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    jobs = [_fanned(gen, 8, 2048) for _ in range(2)]
+    shared = DPX.shared_positions(jobs[0][0].n_k_quant,
+                                  jobs[0][0].n_v_quant, 32)
+    qs = [_randn(gen, (8, 8, 4, 128)) for _ in range(2)]
+    static = _fanned(gen, 8, 2048)[1]
+    q = torch.empty_like(qs[0])
+    kw = dict(shared=shared, group_size=32, k_bits=2, v_bits=2)
+
+    def load(j):
+        for f in ("k_codes", "k_scale", "k_mn", "v_codes", "v_scale", "v_mn",
+                  "k_win", "v_win", "n_k_quant", "n_k_win", "n_v_quant",
+                  "n_v_win"):
+            getattr(static, f).copy_(getattr(jobs[j][1], f))
+        q.copy_(qs[j])
+
+    out = {}
+
+    def body():
+        out["o"] = DPX.shared_decode_attention(*_route_args(static, q), **kw)
+
+    load(0)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        body()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        body()
+    for j in (0, 1, 0):
+        load(j)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = FR.fused_decode_attention_plain(
+            *_route_args(jobs[j][1], qs[j]), group_size=32, k_bits=2,
+            v_bits=2)
+        TOL.check_rows(out["o"], want, TOL.QHIST_RTOL, f"graph job {j}")
+
+
+def test_shared_route_kernel_names(cuda):
+    """Every kernel the route launches carries row 6's name fragment
+    (`Ablation<0>, true>`, kvbench/readers.py's ROW6): the prefix pass
+    and row 6, and nothing else."""
+    from torch.autograd import DeviceType
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    snap, c = _fanned(gen, 8, 2048)
+    shared = DPX.shared_positions(snap.n_k_quant, snap.n_v_quant, 32)
+    args = _route_args(c, _randn(gen, (8, 8, 4, 128)))
+    kw = dict(shared=shared, group_size=32, k_bits=2, v_bits=2)
+    DPX.shared_decode_attention(*args, **kw)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        DPX.shared_decode_attention(*args, **kw)
+        torch.cuda.synchronize()
+    names = [e.name() for e in prof.profiler.kineto_results.events()
+             if e.device_type() == DeviceType.CUDA]
+    assert any("prefix_kernel" in n for n in names), names
+    assert any("decode_kernel" in n for n in names), names
+    assert all("Ablation<0>, true>" in n for n in names), names

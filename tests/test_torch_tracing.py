@@ -154,8 +154,9 @@ def test_engine_spans(tracer):
     assert ing.parent is gen and dec.parent is gen
     assert ing.attrs == {"prefix": 40} and ing.end_ns <= dec.start_ns
     flushes = len(flush_schedule(Q, canonical_phase(Q, 46), 39))
+    # a 40-token prefix holds no whole chunk of shared positions
     assert dec.attrs == {"steps": 39, "fb": fill_bound(46, 39),
-                         "flushes": flushes} and flushes > 0
+                         "flushes": flushes, "shared": 0} and flushes > 0
     assert by["engine.decode.read"].parent is dec
     # no device on the CPU: no device time
     assert all(s.device_ms is None for s in spans)
