@@ -38,8 +38,6 @@ import torch
 
 from kivi_tpu_torch.serving.batcher import ContinuousBatcher, Request
 from kvbench import roofline, trace
-from kvbench.reference import kivi
-from kvbench.reference.model import group
 
 
 def bucket(n: int, buckets) -> int:
@@ -204,10 +202,8 @@ def window(st: State, cell, rec) -> None:
                                        for a in step["admitted"]],
                           "rows": step["rows"]})
         if prof is not None and to_profile:
-            counters["decode_rows"].append(
-                ([kivi.decode_counts(p, k, cell.qcfg.residual_length,
-                                     cell.qcfg.value_flush)
-                  for p, k in step["rows"]], (0, 0)))
+            counters["decode_rows"].append((_decode_rows(cell, step["rows"]),
+                                            (0, 0)))
             to_profile -= 1
             if not to_profile:
                 stack.close()
@@ -227,19 +223,26 @@ def window(st: State, cell, rec) -> None:
     st.prompts = sch["prompts"]
     rec.attempted = len(rec.requests)
     rec.failed = sum(len(r["tokens"]) < r["max_new"] for r in rec.requests)
-    q = cell.qcfg
+    forward = cell.family.roofline.forward
     for s in rec.steps:
         if not t0 <= s["start"] < t1:
             continue
         for p in s["admitted"]:
-            rec.forwards.append(roofline.bound_s(*roofline.forward(
-                cell.cfg, q, 1, p, logit_rows=1)))
+            rec.forwards.append(roofline.bound_s(*forward(
+                cell.cfg, cell.qcfg, 1, p, logit_rows=1)))
         if s["rows"]:
-            rows = [kivi.decode_counts(p, k, q.residual_length,
-                                       q.value_flush) for p, k in s["rows"]]
-            rec.forwards.append(roofline.bound_s(*roofline.forward(
-                cell.cfg, q, len(rows), 1, rows, logit_rows=len(rows),
-                causal_new=False)))
+            rows = _decode_rows(cell, s["rows"])
+            rec.forwards.append(roofline.bound_s(*forward(
+                cell.cfg, cell.qcfg, len(rows), 1, rows,
+                logit_rows=len(rows), causal_new=False)))
+
+
+def _decode_rows(cell, rows) -> list:
+    """The cache counts each (prompt, step) row of a decode step reads."""
+    q = cell.qcfg
+    return [cell.family.reference.decode_counts(p, k, q.residual_length,
+                                                q.value_flush)
+            for p, k in rows]
 
 
 def check_items(st: State, cell, rec) -> list:
@@ -268,8 +271,8 @@ def check_items(st: State, cell, rec) -> list:
         toks = torch.tensor(r["tokens"], dtype=torch.long)
         pad = bucket(r["plen"], st.buckets
                      + (cell.traffic["batcher"]["max_seq_len"],)) - r["plen"]
-        g = group(prompt, pad, toks[None, :-1], q.residual_length,
-                  q.value_flush)
+        g = cell.family.reference.group(prompt, pad, toks[None, :-1],
+                                        q.residual_length, q.value_flush)
         items.append((g, 0, toks[None], None))
     return items
 

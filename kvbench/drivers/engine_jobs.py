@@ -26,8 +26,6 @@ import torch
 
 from kivi_tpu_torch.serving.engine import Engine
 from kvbench import roofline, trace
-from kvbench.reference import kivi
-from kvbench.reference.model import group
 
 
 class State:
@@ -76,15 +74,15 @@ def setup(cell, params) -> State:
 def _decode_rows(cell, k: int):
     t, q = cell.traffic, cell.qcfg
     T = t["doc_tokens"] + t["question_tokens"]
-    return [kivi.decode_counts(T, k, q.residual_length, q.value_flush)] \
-        * t["questions"]
+    return [cell.family.reference.decode_counts(
+        T, k, q.residual_length, q.value_flush)] * t["questions"]
 
 
 def _shared(cell):
     q, T0 = cell.qcfg, cell.traffic["doc_tokens"]
     W = q.residual_length
-    return (T0 // W) * W, kivi.quantized_values_at_ingest(T0, W,
-                                                         q.value_flush)
+    return (T0 // W) * W, cell.family.reference.quantized_values_at_ingest(
+        T0, W, q.value_flush)
 
 
 def job_bound_s(cell) -> float:
@@ -92,14 +90,14 @@ def job_bound_s(cell) -> float:
     questions' extend over it, and new_tokens - 1 decode steps."""
     cfg, q, t = cell.cfg, cell.qcfg, cell.traffic
     T0, B, Tq = t["doc_tokens"], t["questions"], t["question_tokens"]
-    W, vf = q.residual_length, q.value_flush
+    forward = cell.family.roofline.forward
     shared = _shared(cell)
     hist = (shared[0], T0 - shared[0], shared[1], T0 - shared[1])
-    total = roofline.bound_s(*roofline.forward(cfg, q, 1, T0, logit_rows=1))
-    total += roofline.bound_s(*roofline.forward(
+    total = roofline.bound_s(*forward(cfg, q, 1, T0, logit_rows=1))
+    total += roofline.bound_s(*forward(
         cfg, q, B, Tq, [hist] * B, shared, logit_rows=B))
     for k in range(t["new_tokens"] - 1):
-        total += roofline.bound_s(*roofline.forward(
+        total += roofline.bound_s(*forward(
             cfg, q, B, 1, _decode_rows(cell, k), shared, logit_rows=B,
             causal_new=False))
     return total
@@ -186,8 +184,9 @@ def _answers(cell, j: int, rows, out) -> tuple:
     out = out[rows]
     Tq = t["question_tokens"]
     cont = np.concatenate([qs[rows], out[:, :-1]], axis=1)
-    g = group(torch.from_numpy(doc), 0, torch.from_numpy(cont),
-              q.residual_length, q.value_flush, extend=Tq)
+    g = cell.family.reference.group(
+        torch.from_numpy(doc), 0, torch.from_numpy(cont), q.residual_length,
+        q.value_flush, extend=Tq)
     return g, Tq, torch.from_numpy(out.astype(np.int64))
 
 

@@ -43,7 +43,8 @@ def mfu(rec):
 
 def decode_roofline(rec, fragment: str = ROW6):
     """% of the decode kernel's device time in the profiled slice that
-    the least time of its calls fills (one call a layer a step)."""
+    the least time of its calls fills (one call a step in each of the
+    family's `decode_layers`)."""
     p = rec.profile
     if p is None:
         return None
@@ -51,6 +52,7 @@ def decode_roofline(rec, fragment: str = ROW6):
     steps = p.counters.get("decode_rows", [])
     if t <= 0 or not steps:
         return None
-    bound = sum(roofline.bound_s(*roofline.decode_attention(
+    fam = rec.family.roofline
+    bound = sum(roofline.bound_s(*fam.decode_attention(
         rec.cfg, rec.qcfg, rows, shared)) for rows, shared in steps if rows)
-    return 100.0 * rec.cfg.num_layers * bound / t
+    return 100.0 * fam.decode_layers(rec.cfg) * bound / t

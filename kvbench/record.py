@@ -18,6 +18,7 @@ class Record:
     seconds: float
     spans: Spans
     on_card: bool = True               # False: a CPU run, no device metric
+    family: object = None              # the cell's families/<family>.py
     setup_s: float = float("nan")
     t0: float = float("nan")           # the window's start (perf_counter)
     window_s: float = float("nan")     # the time the window's work took

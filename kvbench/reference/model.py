@@ -32,6 +32,9 @@ import math
 import torch
 
 from kvbench.reference import kivi
+# the cache policy that the drivers count with
+from kvbench.reference.kivi import (decode_counts,  # noqa: F401
+                                    quantized_values_at_ingest)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}

@@ -16,6 +16,12 @@ Hd, MLP width I, vocabulary V; bf16 = 2 bytes):
 | `decode_attention` (row 6 and any kernel that replaces it) | 4 Hq D per key read, per row | the live `kivi_bytes` of every row, a prefix shared by all rows once; each row's query and output in bf16 | the work of one decode step's attention in one layer, counted from the counters the inputs give, not from the kernel's grid |
 | `forward` (prefill, extend or decode) | 2 x the weight parameters per token, 2 Hd V per logit row, 4 Hq D L per query and key it sees | `weight_bytes`; the history's `kivi_bytes` in every layer, a shared prefix once; the new tokens' keys and values written in bf16; the embedding rows; the f32 logits | the least a forward can move: what bounds the whole step (`mfu.*`) |
 
+`bound_s`, the peaks and `kivi_bytes` are shared by every family;
+`layer_params`, `weight_bytes`, `forward`, `decode_attention` and
+`decode_layers` count the dense Llama block and are the `llama`
+family's (`families/llama.py`): a family of another block brings its
+own, and the harness reaches them through the cell's family alone.
+
 A prefix that every row of a batch holds (the document of an
 `engine_jobs` cell) is counted once: the inputs hold it once, whatever
 copies the program makes.  Pads and padding to a bucket are not the
@@ -57,6 +63,12 @@ def kivi_bytes(cfg, qcfg, nkq: int, nkw: int, nvq: int, nvw: int) -> float:
     k = nkq * D * (qcfg.k_bits / 8 + 2 * sb / gs) + nkw * D * BF16
     v = nvq * D * (qcfg.v_bits / 8 + 2 * sb / gs) + nvw * D * BF16
     return cfg.num_kv_heads * (k + v)
+
+
+def decode_layers(cfg) -> int:
+    """The layers whose decode attention `decode_attention` counts: all
+    of them, each over its KIVI cache."""
+    return cfg.num_layers
 
 
 def decode_attention(cfg, qcfg, rows, shared=(0, 0)) -> tuple:

@@ -5,15 +5,18 @@
 
 Everything comes from `BENCHMARK.json` by name: the cell's configuration
 file (`configs/<config>.json`: the port's ModelConfig and QuantConfig
-fields), its traffic file (`traffic/<traffic>.json`: the driver, one of
-`drivers/<driver>.py`, and its parameters) and one reader per metric
-(`metrics/<metric>.py`, `read(record)` -> a number, or None where it
-finds nothing to read).  A new cell, traffic mix or metric is a new file
-and a new entry; nothing here changes.
+fields, and the family of its block), that family
+(`families/<family>.py`: the config objects, the weights, the plain
+reference and the roofline counts of the block), its traffic file
+(`traffic/<traffic>.json`: the driver, one of `drivers/<driver>.py`, and
+its parameters) and one reader per metric (`metrics/<metric>.py`,
+`read(record)` -> a number, or None where it finds nothing to read).  A
+new cell, traffic mix, metric or block is a new file and a new entry;
+nothing here changes.
 
-A run: weights from the seed (weights.py), the driver's set-up (the
+A run: weights from the seed (the family's), the driver's set-up (the
 program built, the cell's shapes warmed), the measured window, then the
-check: the program is freed, and the plain reference (reference/)
+check: the program is freed, and the family's plain reference
 recomputes a sample of what the window served, drawn from the seed, and
 each number of `reference_check` is held to its limit in the traffic
 file's `check.limits`.  With
@@ -70,6 +73,7 @@ class Cell:
     name: str
     cfg: object
     qcfg: object
+    family: object       # the configuration's families/<family>.py
     traffic: dict
     seed: int
     seconds: float
@@ -89,7 +93,7 @@ def load_cell(root: str, workload: str, seed: int, seconds: float,
               trace: bool, device) -> tuple:
     """(bench, its workload entry, Cell) for a cell named in root's
     BENCHMARK.json."""
-    from kivi_tpu_torch.config import ModelConfig, QuantConfig
+    from kvbench import families
     from kvbench.trace import Spans
     with open(os.path.join(root, "BENCHMARK.json")) as f:
         bench = json.load(f)
@@ -100,13 +104,14 @@ def load_cell(root: str, workload: str, seed: int, seconds: float,
     cf = next(c for c in bench["configs"] if c["name"] == wl["config"])
     with open(os.path.join(root, cf["file"])) as f:
         config = json.load(f)
+    family = families.load(root, config, cf["file"])
+    cfg, qcfg = family.config(config)
     with open(os.path.join(root, "kvbench", "traffic",
                            wl["traffic"] + ".json")) as f:
         traffic = json.load(f)
-    cell = Cell(name=workload, cfg=ModelConfig(**config["model"]),
-                qcfg=QuantConfig(**config["quant"]), traffic=traffic,
-                seed=seed, seconds=seconds, trace=trace, device=device,
-                spans=Spans())
+    cell = Cell(name=workload, cfg=cfg, qcfg=qcfg, family=family,
+                traffic=traffic, seed=seed, seconds=seconds, trace=trace,
+                device=device, spans=Spans())
     return bench, wl, cell
 
 
@@ -139,9 +144,7 @@ def run_cell(root: str, workload: str, seed: int, seconds: float,
     on the card; the tests pass "cpu" with a configuration of their
     own."""
     import torch
-    from kvbench import weights
     from kvbench.record import Record
-    from kvbench.reference import model as ref
     from kvbench.trace import breakdown
 
     bench, wl, cell = load_cell(root, workload, seed, seconds, trace,
@@ -150,10 +153,12 @@ def run_cell(root: str, workload: str, seed: int, seconds: float,
                              cell.traffic["driver"] + ".py"),
                 "kvbench_driver")
     cuda = cell.device.type == "cuda"
-    params = weights.make_params(cell.cfg, seed, cell.device)
-    st = drv.setup(cell, weights.program_params(params))
+    fam = cell.family
+    params = fam.make_params(cell.cfg, seed, cell.device)
+    st = drv.setup(cell, fam.program_params(params))
     rec = Record(cfg=cell.cfg, qcfg=cell.qcfg, traffic=cell.traffic,
-                 seconds=seconds, spans=cell.spans, on_card=cuda)
+                 seconds=seconds, spans=cell.spans, on_card=cuda,
+                 family=fam)
     # what set-up made is never garbage: keep the collector off it
     gc.collect()
     gc.freeze()
@@ -166,7 +171,7 @@ def run_cell(root: str, workload: str, seed: int, seconds: float,
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
-    check = judge(reference_check(ref, params, cell, items),
+    check = judge(reference_check(fam.reference, params, cell, items),
                   cell.traffic["check"]["limits"])
     correct = (bool(items) and rec.failed == 0
                and all(c["value"] <= c["limit"] for c in check.values()))
@@ -188,8 +193,9 @@ def run_cell(root: str, workload: str, seed: int, seconds: float,
 
 
 def reference_check(ref, params, cell, items, control: bool = False):
-    """The numbers the check compares, over the sampled answers, each
-    item (Group, first, tokens, kind) of a driver's `check_items`:
+    """The numbers the check compares, over the sampled answers, by the
+    reference `ref` (the cell's family's), each item (Group, first,
+    tokens, kind) of a driver's `check_items`:
 
       gap       (kind None: greedy tokens) the widest gap by which a
                 served token's reference logit lies below the
@@ -197,15 +203,15 @@ def reference_check(ref, params, cell, items, control: bool = False):
       mean_gap  that gap's mean over every compared position;
       window_layers  (kind ("state", program's windows)) the layers
                 whose cache counts after the last decode step differ from
-                the KIVI policy's (reference/model.py `window_gap`): an
-                exact comparison;
+                the cache policy's (`ref.window_gap`): an exact
+                comparison;
       window_kv the widest relative gap between the keys and values the
                 program's decode steps left in the other layers' windows
                 and the reference's.
 
     A number with nothing to compare is absent.  control: also the
     control's numbers, of what a reference on fp8 operands
-    (reference/model.py, low=True) chooses: its first token at each
+    (`ref.logits(low=True)`) chooses: its first token at each
     position, its own keys and values for the windows; returns
     (numbers, control's) then."""
     if not items:

@@ -7,6 +7,7 @@ import re
 
 import pytest
 
+from kvbench import families
 from kvbench.tests.tiny import KVBENCH, REPO
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -44,7 +45,11 @@ def test_configs(bench):
         assert conf["source"] == c["source"] and conf["reduced"] == \
             c["reduced"]
         assert not any(WIDTH.search(k) for k in c["reduced"])
-        assert {"model", "quant", "published"} <= set(conf)
+        assert {"model", "quant", "published", "family"} <= set(conf)
+        # the family's file is there and exports the whole interface
+        fam = families.load(REPO, conf, c["file"])
+        assert os.path.dirname(fam.__file__) == os.path.join(KVBENCH,
+                                                             "families")
 
 
 def test_workloads(bench):

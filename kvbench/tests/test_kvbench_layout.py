@@ -1,5 +1,6 @@
-"""The benchmark is driven by data: a new cell, traffic mix and per-layer
-metric are new files and new entries, and run with nothing else changed;
+"""The benchmark is driven by data: a new cell, traffic mix, per-layer
+metric and model family are new files and new entries, and run with
+nothing else changed;
 and a run loads neither JAX nor the JAX package (top-level names compared
 whole: `kivi_tpu_torch` is the port, `kivi_tpu` is not)."""
 
@@ -7,6 +8,8 @@ import json
 import os
 import subprocess
 import sys
+
+import pytest
 
 from kvbench import run
 from kvbench.tests.tiny import REPO
@@ -48,6 +51,132 @@ def test_new_cell_mix_and_metric_are_files_and_entries(tiny_root):
     res, _ = run.run_cell(tiny_root, "tiny-mha.docqa-short", 5, 1.0, False,
                           "cpu")
     assert set(res["metrics"]) == {"gen_tok_s", "setup_s"}
+
+
+TINYWRAP = '''"""tinywrap: the llama block with each call counted, and weights
+drawn under a seed of its own."""
+
+import types
+
+from kvbench.families import REFERENCE, ROOFLINE, llama
+
+OFFSET = 1000003
+CALLS = {"make_params": 0, "refill": 0, "logits": 0, "forward": 0}
+MADE = []
+config, program_params = llama.config, llama.program_params
+
+
+def make_params(cfg, seed, device):
+    CALLS["make_params"] += 1
+    MADE.append(llama.make_params(cfg, seed + OFFSET, device))
+    return MADE[-1]
+
+
+def refill(params, cfg, seed):
+    CALLS["refill"] += 1
+    llama.refill(params, cfg, seed + OFFSET)
+
+
+def _counted(name, fn):
+    def wrapped(*a, **kw):
+        CALLS[name] += 1
+        return fn(*a, **kw)
+    return wrapped
+
+
+reference = types.SimpleNamespace(**dict(
+    {k: getattr(llama.reference, k) for k in REFERENCE},
+    logits=_counted("logits", llama.reference.logits)))
+roofline = types.SimpleNamespace(**dict(
+    {k: getattr(llama.roofline, k) for k in ROOFLINE},
+    forward=_counted("forward", llama.roofline.forward)))
+'''
+
+
+def _add_config(root, name, conf_from, **over):
+    """A configuration `name`, `conf_from`'s with `over` set (a value None
+    drops its key), and a docqa cell `<name>.docqa` on it."""
+    with open(os.path.join(root, "kvbench", "configs",
+                           conf_from + ".json")) as f:
+        conf = json.load(f)
+    for k, v in over.items():
+        if v is None:
+            conf.pop(k, None)
+        else:
+            conf[k] = v
+    path = f"kvbench/configs/{name}.json"
+    with open(os.path.join(root, path), "w") as f:
+        json.dump(conf, f)
+    bpath = os.path.join(root, "BENCHMARK.json")
+    with open(bpath) as f:
+        bench = json.load(f)
+    bench["configs"].append({"name": name, "source": "tiny", "file": path,
+                             "reduced": [], "why": "test"})
+    bench["workloads"].append({"name": name + ".docqa", "config": name,
+                               "traffic": "tiny-docqa", "chips": 1,
+                               "why": "a configuration added by files"})
+    for m in bench["end_to_end"]:
+        if m["name"] == "gen_tok_s":
+            m["workloads"].append(name + ".docqa")
+    with open(bpath, "w") as f:
+        json.dump(bench, f)
+    return path
+
+
+def test_new_family_is_files_alone(tiny_root):
+    """A family written as one new file, a configuration naming it and a
+    cell on it: the run takes its weights, its reference and its
+    roofline counts from that file, and no harness file changes."""
+    import torch
+
+    from kvbench.families import llama
+    with open(os.path.join(tiny_root, "kvbench", "families",
+                           "tinywrap.py"), "w") as f:
+        f.write(TINYWRAP)
+    _add_config(tiny_root, "tiny-wrap", "tiny-gqa", family="tinywrap")
+    seed = 2 ** 31 + 99
+    res, rec = run.run_cell(tiny_root, "tiny-wrap.docqa", seed, 1.0, False,
+                            "cpu")
+    assert res["correct"], res["check"]
+    fam = rec.family
+    assert fam.__file__.startswith(tiny_root)
+    assert fam.CALLS["make_params"] == 1
+    assert fam.CALLS["logits"] >= 1 and fam.CALLS["forward"] >= 1
+    assert set(res["metrics"]) == {"gen_tok_s", "setup_s"}
+
+    def same(a, b):
+        a, b = llama.program_params(a), llama.program_params(b)
+        return all(torch.equal(a[k], b[k]) for k in ("embed", "lm_head")) \
+            and all(torch.equal(x[k], y[k]) for x, y in zip(a["layers"],
+                                                            b["layers"])
+                    for k in x)
+    made = fam.MADE[0]
+    assert same(made, llama.make_params(rec.cfg, seed + fam.OFFSET, "cpu"))
+    assert not same(made, llama.make_params(rec.cfg, seed, "cpu"))
+
+
+@pytest.mark.parametrize("family", [None, "nosuch", "partial"])
+def test_config_without_a_family_fails_at_load(tiny_root, family):
+    """No default: a configuration that names no family, or one with no
+    file, stops the run at load and names the file it looked for; a
+    family file without the whole interface names what it lacks."""
+    path = _add_config(tiny_root, "tiny-lost", "tiny-gqa", family=family)
+    fpath = os.path.join(tiny_root, "kvbench", "families", f"{family}.py")
+    if family == "partial":
+        with open(fpath, "w") as f:
+            f.write("from kvbench.families.llama import config, reference\n")
+    with pytest.raises(SystemExit) as e:
+        run.load_cell(tiny_root, "tiny-lost.docqa", 1, 1.0, False, "cpu")
+    msg = str(e.value)
+    if family is None:
+        assert path in msg and "kvbench/families/<name>.py" in msg, msg
+    elif family == "nosuch":
+        assert path in msg and fpath in msg, msg
+    else:
+        assert msg == f"{fpath} lacks make_params, refill, program_params, " \
+            "roofline, roofline.layer_params, roofline.weight_bytes, " \
+            "roofline.forward, roofline.decode_attention, " \
+            "roofline.decode_layers", msg
 
 
 def test_a_run_loads_no_jax(tiny_root):

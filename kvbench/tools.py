@@ -7,7 +7,7 @@ the benchmark's own runs never run them.
         from the seed, the program built once), then the numbers of the
         check (run.reference_check); on the
         control seeds also the control's, of the tokens an fp8 reference
-        (reference/model.py, low=True) chooses.  --fault plants one of
+        (the family's reference, low=True) chooses.  --fault plants one of
         faults.FAULTS under the program before it is built.  These set
         `check.limits`.
 
@@ -43,14 +43,14 @@ from kvbench.faults import FAULTS  # noqa: E402
 
 def _program(workload: str, seed: int, seconds: float):
     import torch
-    from kvbench import run, weights
+    from kvbench import run
     bench, wl, cell = run.load_cell(ROOT, workload, seed, seconds, False,
                                     torch.device("cuda"))
     drv = run._load(os.path.join(ROOT, "kvbench", "drivers",
                                  cell.traffic["driver"] + ".py"),
                     "kvbench_driver")
-    params = weights.make_params(cell.cfg, seed, cell.device)
-    st = drv.setup(cell, weights.program_params(params))
+    params = cell.family.make_params(cell.cfg, seed, cell.device)
+    st = drv.setup(cell, cell.family.program_params(params))
     return bench, cell, drv, params, st
 
 
@@ -59,7 +59,7 @@ def _window(cell, drv, st):
     from kvbench.trace import Spans
     cell.spans = Spans()
     rec = Record(cfg=cell.cfg, qcfg=cell.qcfg, traffic=cell.traffic,
-                 seconds=cell.seconds, spans=cell.spans)
+                 seconds=cell.seconds, spans=cell.spans, family=cell.family)
     if hasattr(st, "outputs"):
         st.outputs = {}
     gc.collect()
@@ -69,8 +69,7 @@ def _window(cell, drv, st):
 
 
 def readings(args) -> None:
-    from kvbench import faults, run, weights
-    from kvbench.reference import model as ref
+    from kvbench import faults, run
     if args.fault:
         faults.plant(args.fault)
     bench, cell, drv, params, st = _program(args.workload, args.seeds[0],
@@ -78,12 +77,13 @@ def readings(args) -> None:
     for i, seed in enumerate(args.seeds):
         cell.seed = seed
         if i:
-            weights.refill(params, cell.cfg, seed)
+            cell.family.refill(params, cell.cfg, seed)
         t = time.perf_counter()
         rec = _window(cell, drv, st)
         items = drv.check_items(st, cell, rec)
         ctl = seed in args.control_seeds
-        got = run.reference_check(ref, params, cell, items, control=ctl)
+        got = run.reference_check(cell.family.reference, params, cell,
+                                  items, control=ctl)
         got, cgot = got if ctl else (got, None)
         print(json.dumps({"workload": args.workload, "seed": seed,
                           "fault": args.fault, "numbers": got,
@@ -135,19 +135,20 @@ def sweep(args) -> None:
 def occupancy(cell, rec) -> tuple:
     """Per step of the window: the slots it decoded (those it admitted
     among them), the bytes of the KIVI cache their tokens fill (every
-    layer, every KV head), and the same with each prompt's pads to its
-    bucket; None where no step started in the window."""
+    layer that decodes over one, every KV head), and the same with each
+    prompt's pads to its bucket; None where no step started in the
+    window."""
     from kvbench import roofline
     from kvbench.drivers.batcher_open import bucket
-    from kvbench.reference import kivi
     q, b = cell.qcfg, cell.traffic["batcher"]
     buckets = tuple(b["prompt_buckets"]) + (b["max_seq_len"],)
     W, vf = q.residual_length, q.value_flush
-    L = cell.cfg.num_layers
+    L = cell.family.roofline.decode_layers(cell.cfg)
+    counts = cell.family.reference.decode_counts
 
     def nbytes(prompt, k):
-        return L * roofline.kivi_bytes(cell.cfg, q, *kivi.decode_counts(
-            prompt, k, W, vf))
+        return L * roofline.kivi_bytes(cell.cfg, q, *counts(prompt, k, W,
+                                                            vf))
 
     slots, live, held = [], [], []
     for s in rec.steps:
