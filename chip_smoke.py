@@ -31,6 +31,12 @@ Phases (any failure raises; the exit code is then non-zero):
      control merging half the pass's splits refused, timed beside row 6
      alone; the engine's prefix paths at batch 8 must launch its pass
      and every other path must not;
+     the grouped expert GEMM (row 13, kernels/moe_grouped.py) at the
+     K-EXAONE cell's decode shape (256 tokens, 16 of 128 experts held,
+     top-8) and prefill shape (32,000 tokens), and on a skewed routing:
+     each launch row by row within profile_moe's GATE_RTOL / DOWN_RTOL
+     of its plain version, beside a control that moves one pair to the
+     next expert and must be refused, timed beside torch._grouped_mm;
      row 3's per-row entry (flash_extend_attention_rows) at 8
      slots of FILLS, T1 5 and 9, pads, bits 2/4/8, GQA, a window: per
      query row within EXTEND_RTOL, bit-equal to the host-int entry row by
@@ -98,6 +104,13 @@ Phases (any failure raises; the exit code is then non-zero):
      requests of 20-300 prompt tokens, half sampled: one miss, one
      extend hit, exact hits), directly and over HTTP with "prefix"
      (greedy tokens equal);
+     then the K-EXAONE block (`phase_hybrid`, `[hybrid:*]` lines): one
+     LLLG period at its published widths (16 of 128 experts held),
+     prefill_prefix of a 2,000-token document and generate(prefix=) of
+     160 tokens over 8 questions, replayed and under debug=True: row 13,
+     row 9 over the rings, row 6 and its prefix pass must launch; the
+     replayed stream fed through the debug engine within 5e-2 of its
+     top logit;
      then the speculative slice (`phase_spec`) at Llama-2-7B
      width: the target Engine (KIVI-2) at batch 1 timed alone on
      prompts of 1000 and 2500 tokens (128 greedy tokens); a 2-layer
@@ -280,7 +293,7 @@ def phase_card():
 def phase_build():
     from kivi_tpu_torch.kernels import _build
     _build.build_all()
-    log(f"[build] {len(_build.SIGNATURES)} libraries in "
+    log(f"[build] {len(_build.EAGER)} libraries in "
         f"{_build.BUILD_SECONDS:.1f} s into {_build.BUILD_DIR}")
     for name, text in _build.BUILD_LOG.items():
         for line in text.splitlines():
@@ -783,6 +796,45 @@ def check_decode_shared(gen, results):
         f"{res['prefix_ms']:.4f} ms, {n} splits) | row 6 alone "
         f"{res['rows_alone_ms']:.4f} ms | plain {res['plain_ms']:.4f} ms | "
         f"bound {bms:.4f} ms ({by}, {nbytes / 1e6:.2f} MB)")
+
+
+# row 13 at the K-EXAONE cell's shapes: a decode step of 256 rows and a
+# 32,000-token document's prefill (hidden 6144, experts of 2048, 16 held
+# of 128, top-8)
+MOE_DECODE, MOE_PREFILL = 256, 32000
+
+
+def check_moe_grouped(results):
+    """The grouped expert GEMM (kernels/moe_grouped.py, row 13) at
+    MOE_DECODE and MOE_PREFILL tokens (profile_moe.measure), and on a
+    skewed routing at the decode shape (two held experts on every token,
+    two on none): each launch row by row within profile_moe's GATE_RTOL
+    / DOWN_RTOL of its plain version beside a control that moves one
+    pair to the next expert and must be refused; each timed beside its
+    plain version, its bound and torch._grouped_mm (or a cuBLAS loop)."""
+    from kivi_tpu_torch import profile_moe as PM
+    skew = PM.hold(*PM.inputs(MOE_DECODE, seed=1, skew=True),
+                   what=f"skewed N={MOE_DECODE}")
+    dec = PM.measure(MOE_DECODE)
+    pre = PM.measure(MOE_PREFILL, plain_iters=1)
+    for name in ("gate_up", "down"):
+        r = dict(dec[name], library=dec["library"], skew=skew[name],
+                 prefill=pre[name], tokens=MOE_DECODE, pairs=dec["pairs"],
+                 prefill_pairs=pre["pairs"])
+        results[f"moe_grouped_{name}"] = r
+        for t, m, pairs in ((MOE_DECODE, dec[name], dec["pairs"]),
+                            (MOE_PREFILL, pre[name], pre["pairs"])):
+            log(f"[kernel] moe_grouped {name} N={t} ({pairs} pairs): "
+                f"{m['ms']:.4f} ms | plain {m['plain_ms']:.3f} ms | bound "
+                f"{m['bound_ms']:.4f} ms ({m['bound_by']}) | "
+                f"{dec['library']} {m['library_ms']:.4f} ms | worst row at "
+                f"{m['worst_share']:.3f} of its limit, the moved pair at "
+                f"{m['control_share']:.1f}")
+        log(f"[kernel] moe_grouped {name} skewed N={MOE_DECODE} (pairs an "
+            f"expert {skew['counts_min_max']}): worst row at "
+            f"{skew[name]['worst_share']:.3f} of its limit, the moved pair "
+            f"at {skew[name]['control_share']:.1f}")
+    torch.cuda.empty_cache()
 
 
 def check_extend(gen, results):
@@ -1658,6 +1710,7 @@ def phase_kernels():
     check_decode(gen, results)
     check_fused_decode_rows(gen, results)
     check_decode_shared(gen, results)
+    check_moe_grouped(results)
     check_extend(gen, results)
     check_extend_rows(gen, results)
     check_wgmma_tile(gen)
@@ -1755,11 +1808,20 @@ PATHS.update({
     "batcher-prefix": (_PREFIX_RUN + ("flash_attention",),
                        _NOT_SPLIT + ("flash_extend_qhist",)),
 })
+# the K-EXAONE block (phase_hybrid): row 10 (with the window on the
+# sliding layers) in the prefill, rows 1-2 and row 3 over the full
+# layers' KIVI cache, row 9 over the sliding layers' rings, row 13 in
+# every expert layer, row 6 behind the prefix pass in the decode
+MOE = ("moe_grouped_gate_up", "moe_grouped_down")
+PATHS["hybrid"] = (_PREFIX_RUN + ("flash_attention",
+                                  "fp_decode_attention_kernel") + MOE,
+                   ("fused_decode_attention_wide", "flash_extend_qhist",
+                    "qk_dequant_matmul", "pv_dequant_matmul") + PROBE)
 PATHS.update({f"{p}-debug": PATHS[p]
               for p in ("chunked", "oneshot", "fp16", "long", "prefix",
                         "prefix-ragged", "prefix-stream", "prefix-extend",
                         "prefix-qhist", "prefix-load", "prefix-fp16", "beam",
-                        "beam-prefix")})
+                        "beam-prefix", "hybrid")})
 DEBUG_NEW = 32     # tokens of each engine path's debug=True run
 SPLIT_STEPS = 32   # host-int decode steps of the long slice's split route
 PROFILED = 8       # decode steps under the profiler, per mode
@@ -1770,7 +1832,7 @@ DECODE = {}        # path -> mode -> decode measurements (phase 4)
 # takes the shared-prefix route (its prefix pass launches); every other
 # path must not launch it
 SHARED_PATHS = ("prefix", "prefix-ragged", "prefix-stream", "prefix-extend",
-                "prefix-qhist", "prefix-load")
+                "prefix-qhist", "prefix-load", "hybrid")
 
 
 def check_launches(path: str, launches: dict) -> None:
@@ -1779,6 +1841,8 @@ def check_launches(path: str, launches: dict) -> None:
         must = must + ("decode_prefix",)
     else:
         must_not = must_not + ("decode_prefix",)
+    if not path.startswith("hybrid"):
+        must_not = must_not + MOE
     for k in must:
         if launches.get(k, 0) <= 0:
             raise AssertionError(f"{path} path never launched {k}")
@@ -2618,6 +2682,118 @@ def prefix_batcher(cfg, qcfg, params, smi: str) -> dict:
         f"greedy ones equal the direct run's; prefix cache now hits "
         f"{pc.hits}, misses {pc.misses} | card {smi}")
     return {"batcher-prefix": n}
+
+
+# ---------------------------------------------------------------------------
+# phase 4b': the K-EXAONE block through the engine
+# ---------------------------------------------------------------------------
+
+# one LLLG period of K-EXAONE-236B-A23B at its published widths (layer 0
+# dense, layers 1-3 sparse with experts 0-15 of 128 held, the last layer
+# full), batch 8 behind a 2,000-token document: the ring wraps and the
+# full layer's window flushes during the decode
+HYB_LAYERS, HYB_B, HYB_DOC, HYB_Q, HYB_NEW, HYB_TMAX = (4, 8, 2000, 64, 160,
+                                                     4096)
+
+
+def hybrid_config(layers: int = HYB_LAYERS):
+    from kivi_tpu_torch.config import ExaoneMoEConfig
+    period = ("sliding",) * 3 + ("full",)
+    return ExaoneMoEConfig(
+        vocab_size=153600, hidden_size=6144, intermediate_size=18432,
+        num_layers=layers, num_heads=64, num_kv_heads=8, head_dim=128,
+        rms_norm_eps=1e-5, rope_theta=1e6, sliding_window=128,
+        tie_word_embeddings=False, max_position_embeddings=262144,
+        layer_types=(period * layers)[:layers], first_k_dense=1,
+        num_experts=128, experts_here=tuple(range(16)), experts_per_tok=8,
+        moe_intermediate_size=2048, num_shared_experts=1,
+        routed_scaling_factor=2.5, norm_topk_prob=True)
+
+
+def forced_gaps(e, snap, qs, stream) -> tuple:
+    """stream (B, n), a greedy generate(qs, n, prefix=snap)'s tokens, fed
+    through engine e's own prologue and replayed decode behind snap (the
+    teacher forcing of ragged suffixes, over every step): at each
+    position the gap between e's top logit and the logit of the stream's
+    token there, over max|logit|.  Returns (the widest gap, the share of
+    positions where the stream's token is e's top one)."""
+    got = []
+    body = e._decode_body
+
+    def spy(st, *a):
+        body(st, *a)
+        got.append(st.logits.clone())
+
+    e._decode_body = spy
+    try:
+        Bn, n = stream.shape
+        pr = e._ingest_prompt(qs, n, prefix=snap)
+        got.append(pr.logits.clone())
+        stream = stream.to(e.device).long()
+        e.decode(stream[:, :1], pr.pos, pr.caches, steps=n - 1,
+                 prompt_len=pr.Tp, pad_lens=pr.pad, shared=pr.shared,
+                 forced=stream, n_forced=torch.full((Bn,), n,
+                                                    device=e.device))
+    finally:
+        del e._decode_body
+    logits = torch.stack(got, 1).float()
+    top = logits.max(-1).values
+    gaps = (top - logits.gather(-1, stream[..., None])[..., 0]) \
+        / logits.abs().max(-1).values
+    return float(gaps.max()), float((gaps == 0).float().mean())
+
+
+def phase_hybrid(smi: str) -> dict:
+    """The K-EXAONE block through Engine at HYB_* (KIVI-2 on the full
+    layer, `QuantConfig(2, 2, 32, 128, v_flush=128)`, random bf16
+    weights, seed 0): prefill_prefix of the document (one-shot), then
+    generate(prefix=) of HYB_NEW greedy tokens over HYB_B questions,
+    the decode replayed as CUDA graphs behind the shared-prefix route,
+    and the same under Engine(debug=True) (each step eager, a checked
+    call).  Each run's launches, zeroed just before it, must hold row
+    13's two launches, row 9 over the rings, row 6 and its prefix pass
+    (PATHS["hybrid"]); the graphs' stream fed through the debug engine
+    must lie, token by token, within 5e-2 (phase 5's) of its top logit
+    (row 13's down launch adds a token's experts in no fixed order, so
+    the two streams may part at a near tie).  Returns {path: launches}."""
+    import functools
+
+    from kivi_tpu_torch.config import QuantConfig
+    from kivi_tpu_torch.models import modeling
+    from kivi_tpu_torch.serving.engine import Engine
+    cfg = hybrid_config()
+    params = modeling.init_params(cfg, seed=0, device="cuda")
+    gen = torch.Generator(device="cpu").manual_seed(23)
+    doc = torch.randint(1, cfg.vocab_size, (HYB_DOC,), generator=gen)
+    qs = torch.randint(1, cfg.vocab_size, (HYB_B, HYB_Q),
+                       generator=gen).cuda()
+    make = functools.partial(Engine, cfg,
+                             QuantConfig(2, 2, 32, 128, v_flush=128), params,
+                             max_seq_len=HYB_TMAX, batch_size=HYB_B)
+    launches, out = {}, {}
+    for path, e in (("hybrid", make()), ("hybrid-debug", make(debug=True))):
+        def run(e=e):
+            snap = e.prefill_prefix(doc)
+            return snap, e.generate(qs, HYB_NEW, prefix=snap)
+        (snap, toks), launches[path], wall = _counted(path, run)
+        out[path] = (e, snap, toks)
+        log(f"[hybrid:{path}] {cfg.num_layers} layers ({cfg.ring_layers} on "
+            f"rings), B={HYB_B}, document {HYB_DOC}, questions {HYB_Q}, "
+            f"{HYB_NEW} new: {wall:.2f} s; launches {launches[path]}")
+    toks = out["hybrid"][2]
+    e, snap, mine = out["hybrid-debug"]
+    gap, top = forced_gaps(e, snap, qs, toks)
+    same = _share_equal(mine.flatten().tolist(), toks.flatten().tolist())
+    log(f"[hybrid] the graphs' stream through the debug engine: widest gap "
+        f"to its top logit {gap:.3e} x max|logit| (tolerance 5e-2), its top "
+        f"token at {top:.4f} of the positions; the debug engine's own stream "
+        f"equal at {same:.4f} | card {smi}")
+    if not gap <= 5e-2:
+        raise AssertionError("hybrid: a replayed token lies past the "
+                             "tolerance below the debug engine's top logit")
+    del out, e, snap, params
+    torch.cuda.empty_cache()
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -4556,6 +4732,8 @@ def main():
     stamp("main")
     launches.update(phase_prefix(args.layers, smi))
     stamp("prefix")
+    launches.update(phase_hybrid(smi))
+    stamp("hybrid")
     launches.update(phase_spec(args.layers, smi))
     stamp("spec")
     launches.update(phase_parallel(args.layers, smi))
@@ -4610,6 +4788,11 @@ def main():
             "kivi_tpu/kernels/flash_extend.py:512"),
         "trimmed": ("kivi_tpu_torch/kernels/csrc/trimmed.cu",
                     "scripts/profile_wide_32k.py:243"),
+        # row 13, the grouped expert GEMM: its two launches
+        "moe_grouped_gate_up": ("kivi_tpu_torch/kernels/csrc/moe_grouped.cu",
+                                "none (the K-EXAONE block's expert layer)"),
+        "moe_grouped_down": ("kivi_tpu_torch/kernels/csrc/moe_grouped.cu",
+                             "none (the K-EXAONE block's expert layer)"),
     }
     yardstick = {"flash_attention": "SDPA, causal",
                  "fp_decode_attention_kernel": "SDPA over the live K/V; "
@@ -4626,7 +4809,13 @@ def main():
                  "flash_extend_attention_rows": "SDPA, per-row causal "
                                                 "mask, over each row's "
                                                 "cache dequantized to bf16",
-                 "trimmed": "SDPA over the history dequantized to bf16"}
+                 "trimmed": "SDPA over the history dequantized to bf16",
+                 "moe_grouped_gate_up": "torch._grouped_mm over the device "
+                                        "offsets, or a cuBLAS product an "
+                                        "expert",
+                 "moe_grouped_down": "torch._grouped_mm over the device "
+                                     "offsets, or a cuBLAS product an "
+                                     "expert"}
     kernels = []
     for k, (src, rep) in sources.items():
         r = results[k]

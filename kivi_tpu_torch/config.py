@@ -4,7 +4,9 @@ The port's own copy of `kivi_tpu/config.py`: the same two frozen
 dataclasses, presets and validation, so that both packages are driven by
 identical knobs while the port never imports the JAX package.
 `QuantConfig` holds the KIVI algorithm knobs, `ModelConfig` the
-architecture.
+architecture.  `ExaoneMoEConfig`, a subclass of `ModelConfig` the JAX
+package does not have, describes the K-EXAONE block (sliding and full
+layers, QK-norm, post-norms, sparse experts).
 """
 
 from __future__ import annotations
@@ -154,6 +156,73 @@ PRESETS = {
     "llama3.1-8b": LLAMA31_8B,
     "mistral-7b": MISTRAL_7B,
 }
+
+
+@dataclasses.dataclass(frozen=True)
+class ExaoneMoEConfig(ModelConfig):
+    """The K-EXAONE block (`exaone_moe`): the `exaone4` attention and
+    norms with DeepSeek-V3's sparse experts.  Not a field of the JAX
+    package's `ModelConfig`, which stays as it is.
+
+      * layer_types: "sliding" or "full" per layer.  A sliding layer
+        attends the `sliding_window` latest positions (its own and the
+        window - 1 before it) through a bf16 ring of that many slots and
+        rotates q and k (RoPE); a full layer attends every position over
+        the KIVI (or fp) cache, without RoPE (the `exaone4` rule: with a
+        window configured, only sliding layers rotate);
+      * always a per-head RMSNorm (width head_dim) on q and k before
+        RoPE, and post-norms: x + norm(attn(x)), then x + norm(mlp(x)),
+        with no norm ahead of either;
+      * the first `first_k_dense` layers run the dense SwiGLU MLP of
+        width intermediate_size; every later one the expert layer: a
+        sigmoid router over all num_experts experts with a correction
+        bias added for the choice only, the experts_per_tok best, their
+        scores normalised to sum 1 (norm_topk_prob) and scaled by
+        routed_scaling_factor, and num_shared_experts shared experts of
+        width moe_intermediate_size each added for every token;
+      * experts_here: the routed experts this process holds, a range of
+        consecutive indices (an expert-parallel shard).  The layer
+        computes their part of the result alone; what the others would
+        add is left out, as a shard of the deployment computes it before
+        the exchange.
+    """
+
+    layer_types: tuple = ()
+    first_k_dense: int = 1
+    num_experts: int = 128
+    experts_here: tuple = ()
+    experts_per_tok: int = 8
+    moe_intermediate_size: int = 2048
+    num_shared_experts: int = 1
+    routed_scaling_factor: float = 2.5
+    norm_topk_prob: bool = True
+
+    def __post_init__(self):
+        if len(self.layer_types) != self.num_layers or not set(
+                self.layer_types) <= {"sliding", "full"}:
+            raise ValueError(f"layer_types must give 'sliding' or 'full' "
+                             f"for each of {self.num_layers} layers")
+        if "sliding" in self.layer_types and not self.sliding_window:
+            raise ValueError("sliding layers need a sliding_window")
+        here = tuple(self.experts_here)
+        if not here or here != tuple(range(here[0], here[0] + len(here))) \
+                or here[0] < 0 or here[-1] >= self.num_experts:
+            raise ValueError(f"experts_here must be a range of consecutive "
+                             f"experts in [0, {self.num_experts}), got "
+                             f"{here}")
+        if not 0 < self.experts_per_tok <= self.num_experts:
+            raise ValueError("experts_per_tok must be in [1, num_experts]")
+
+    def sliding(self, layer: int) -> bool:
+        return self.layer_types[layer] == "sliding"
+
+    def rotates(self, layer: int) -> bool:
+        """RoPE on q and k: the sliding layers alone."""
+        return self.sliding(layer)
+
+    @property
+    def ring_layers(self) -> int:
+        return self.layer_types.count("sliding")
 
 
 def tiny_config(**overrides) -> ModelConfig:

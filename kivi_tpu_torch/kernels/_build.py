@@ -120,7 +120,17 @@ SIGNATURES = {
         # variant, split, nsplit, sm_scale, stream
         "kivi_wide_ablate": [_P] * 14 + [_I] * 15 + [_F, _P],
     },
+    "moe_grouped": {
+        # x, tok, off, wg, wu, h, E, K, N, m_tiles, bm, stream
+        "kivi_moe_grouped_gate_up": [_P] * 6 + [_I] * 5 + [_P],
+        # h, tok, w, off, wd, out, E, K, N, m_tiles, bm, stream
+        "kivi_moe_grouped_down": [_P] * 6 + [_I] * 5 + [_P],
+    },
 }
+# Libraries built and loaded apart, each at its first use, never by
+# `build_all`: a path that does not run them loads nothing of them.
+LAZY = frozenset({"moe_grouped"})
+EAGER = tuple(n for n in SIGNATURES if n not in LAZY)
 
 _LIBS: dict = {}
 _LOCK = threading.Lock()
@@ -149,44 +159,59 @@ def _target(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
+def _compile(name: str):
+    """Start nvcc on library `name` into a temporary file; None when the
+    library is built already.  `_finish` waits for it."""
+    out = _target(name)
+    if out.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+           str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, out
+
+
+def _finish(name: str, build) -> str | None:
+    """Wait for `_compile`'s nvcc, log it and move its library in place;
+    the failure's message, or None."""
+    proc, tmp, out = build
+    log, _ = proc.communicate()
+    BUILD_LOG[name] = log
+    if proc.returncode != 0:
+        return f"--- {name} (nvcc rc {proc.returncode})\n{log}"
+    os.replace(tmp, out)
+    return None
+
+
+def _build(names) -> int:
+    """Compile every library of `names` not built yet, all started
+    together, and load them into `_LIBS`; the number compiled."""
+    builds = {n: b for n in names if (b := _compile(n)) is not None}
+    failed = [f for n, b in builds.items()
+              if (f := _finish(n, b)) is not None]
+    if failed:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+    for name in names:
+        _LIBS[name] = _load(_target(name), name)
+    return len(builds)
+
+
 def build_all() -> dict:
-    """Compile every library that is not built yet, one nvcc per source,
-    all started together; load all of them.  Returns {name: CDLL}.  The
-    first call is one `kernels.build` span, `n` the sources compiled (0:
-    every library loaded from the build directory)."""
+    """Compile every library but the LAZY ones that is not built yet, one
+    nvcc per source, all started together; load all of them.  Returns
+    {name: CDLL}.  The first call is one `kernels.build` span, `n` the
+    sources compiled (0: every library loaded from the build
+    directory)."""
     global BUILD_SECONDS
     with _LOCK:
-        if len(_LIBS) == len(SIGNATURES):
+        if all(n in _LIBS for n in EAGER):
             return _LIBS
         with span("kernels.build") as sp:
             t0 = time.perf_counter()
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            procs = {}
-            for name in SIGNATURES:
-                out = _target(name)
-                if out.exists():
-                    continue
-                tmp = out.with_suffix(f".{os.getpid()}.tmp")
-                cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o",
-                       str(tmp), str(CSRC / f"{name}.cu")]
-                procs[name] = (subprocess.Popen(
-                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                    text=True), tmp, out)
-            failed = []
-            for name, (proc, tmp, out) in procs.items():
-                log, _ = proc.communicate()
-                BUILD_LOG[name] = log
-                if proc.returncode != 0:
-                    failed.append(f"--- {name} (nvcc rc "
-                                  f"{proc.returncode})\n{log}")
-                else:
-                    os.replace(tmp, out)
-            if failed:
-                raise RuntimeError("CUDA kernel build failed:\n"
-                                   + "\n".join(failed))
-            for name in SIGNATURES:
-                _LIBS[name] = _load(_target(name), name)
-            sp.attrs["n"] = len(procs)
+            sp.attrs["n"] = _build(EAGER)
         BUILD_SECONDS = time.perf_counter() - t0
         return _LIBS
 
@@ -256,7 +281,15 @@ def workspace(device, BH: int, nsplit: int, r: int, D: int):
 
 
 def library(name: str):
-    return build_all()[name]
+    """The loaded library `name`; a LAZY one is built (one nvcc, in its
+    own `kernels.build` span) and loaded at its first use."""
+    if name not in LAZY:
+        return build_all()[name]
+    with _LOCK:
+        if name not in _LIBS:
+            with span("kernels.build", lib=name) as sp:
+                sp.attrs["n"] = _build((name,))
+        return _LIBS[name]
 
 
 def check(err: int, what: str) -> None:

@@ -22,6 +22,17 @@ rollback.  Under a checked call
 (`utils.guards`, `Engine(debug=True)`) every layer's appended K/V and
 the logits are checked finite.
 
+An `ExaoneMoEConfig` (the K-EXAONE block) takes its own layer
+(`_hybrid_forward`): QK-norm, RoPE on the sliding layers only, post-norms
+after attention and MLP; a sliding layer's keys and values live in a
+bf16 ring of `sliding_window` slots (cache/ring_cache.py), a full
+layer's in the KIVI (or fp) cache with no window; the MLP of the first
+`first_k_dense` layers is dense, every later one the expert layer
+(`moe_mlp`: the router over every expert, the held experts' part of the
+result through kernels/moe_grouped.py, the shared experts).  A plain
+ModelConfig never reaches that code.  Pads, frozen rows, the
+window-only ingest, `tp=` and `seq_group=` raise over its rings.
+
 Parallel tier (parallel/): `tp=` is the tensor-parallel process group
 of a (data, model) mesh.  The params and `cfg` are then one rank's
 slice (`parallel.mesh.shard_params`, `local_config`), and the model
@@ -43,16 +54,18 @@ import torch
 import torch.nn.functional as F
 
 from kivi_tpu_torch.cache import kivi_cache as KC
+from kivi_tpu_torch.cache import ring_cache as RC
 from kivi_tpu_torch.cache.fp_cache import (FpLayerCache, fp_append,
                                            fp_append_masked,
                                            fp_decode_attention,
                                            fp_extend_attention,
                                            init_fp_cache,
                                            init_fp_slot_cache)
-from kivi_tpu_torch.config import ModelConfig, QuantConfig
+from kivi_tpu_torch.config import ExaoneMoEConfig, ModelConfig, QuantConfig
 from kivi_tpu_torch.core.attention import (decode_attention,
                                            extend_attention,
                                            prefill_attention)
+from kivi_tpu_torch.kernels import moe_grouped
 from kivi_tpu_torch.utils.collectives import all_gather_last, all_reduce_
 from kivi_tpu_torch.utils.guards import check_finite, checking, debug_check
 # re-exported: entry points resolve their device here
@@ -151,7 +164,6 @@ def _attention_block(x, lp, cache, cfg: ModelConfig, qcfg: QuantConfig,
     window = ingest == "window"
     B, T, _ = x.shape
     Hq, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    fp = isinstance(cache, FpLayerCache)
 
     q = (x @ lp["wq"]).reshape(B, T, Hq, D).transpose(1, 2)
     k = (x @ lp["wk"]).reshape(B, T, Hkv, D).transpose(1, 2)
@@ -176,17 +188,36 @@ def _attention_block(x, lp, cache, cfg: ModelConfig, qcfg: QuantConfig,
         v = torch.where(live, v, torch.zeros_like(v))
     check_finite(k, f"layer {layer}: the keys appended to the cache")
     check_finite(v, f"layer {layer}: the values appended to the cache")
+    out = _cache_attention(q, k, v, cache, qcfg, cfg.sliding_window,
+                           mode=mode, flush=flush, pad_len=pad_len,
+                           prev_len=prev_len, active=active,
+                           fill_bound=fill_bound, ingest=ingest,
+                           seq_group=seq_group, shared=shared)
+    out = out.transpose(1, 2).reshape(B, T, Hq * D).to(x.dtype)
+    return all_reduce_(out @ lp["wo"], tp)
 
+
+def _cache_attention(q, k, v, cache, qcfg: QuantConfig,
+                     sliding_window: Optional[int], *, mode: str,
+                     flush: bool = True, pad_len=None, prev_len: int = 0,
+                     active=None, fill_bound: Optional[int] = None,
+                     ingest: str = "quant", seq_group=None,
+                     shared: int = 0):
+    """The attention of `_attention_block` over its cache, and the cache's
+    ingest, from the post-RoPE q (B, Hq, T, D), k and v (B, Hkv, T, D):
+    (B, Hq, T, D).  The arguments are `_attention_block`'s."""
+    window = ingest == "window"
+    fp = isinstance(cache, FpLayerCache)
     if mode == "prefill":
         assert cache.seq_len == 0, "prefill needs an empty cache"
         if seq_group is None:
             out = prefill_attention(q, k, v,
-                                    sliding_window=cfg.sliding_window,
+                                    sliding_window=sliding_window,
                                     pad_len=pad_len)
         else:
             from kivi_tpu_torch.parallel.ring import ring_attention
             out = ring_attention(q, k, v, seq_group.group,
-                                 sliding_window=cfg.sliding_window,
+                                 sliding_window=sliding_window,
                                  pad_len=pad_len,
                                  positions=seq_group.positions)
             # the ingest wants whole quantization groups in token order:
@@ -204,12 +235,12 @@ def _attention_block(x, lp, cache, cfg: ModelConfig, qcfg: QuantConfig,
         assert active is None or window, "extend active= needs window ingest"
         if fp:
             out = fp_extend_attention(q, k, v, cache,
-                                      sliding_window=cfg.sliding_window,
+                                      sliding_window=sliding_window,
                                       pad_len=pad_len)
             fp_append_masked(cache, k, v, active)
         else:
             out = extend_attention(q, k, v, cache, qcfg,
-                                   sliding_window=cfg.sliding_window,
+                                   sliding_window=sliding_window,
                                    pad_len=pad_len)
             if window:
                 KC.window_append_capped(cache, k, v, active=active)
@@ -223,7 +254,7 @@ def _attention_block(x, lp, cache, cfg: ModelConfig, qcfg: QuantConfig,
             else:
                 fp_append(cache, k, v)
             out = fp_decode_attention(q, cache,
-                                      sliding_window=cfg.sliding_window,
+                                      sliding_window=sliding_window,
                                       pad_len=pad_len,
                                       fill_bound=fill_bound)
         else:
@@ -237,14 +268,12 @@ def _attention_block(x, lp, cache, cfg: ModelConfig, qcfg: QuantConfig,
             else:
                 KC.decode_append(cache, k, v, qcfg, do_flush=flush)
             out = decode_attention(q, cache, qcfg,
-                                   sliding_window=cfg.sliding_window,
+                                   sliding_window=sliding_window,
                                    pad_len=pad_len, fill_bound=fill_bound,
                                    shared=shared)
     else:
         raise ValueError(f"unknown mode {mode!r}")
-
-    out = out.transpose(1, 2).reshape(B, T, Hq * D).to(x.dtype)
-    return all_reduce_(out @ lp["wo"], tp)
+    return out
 
 
 def _decoder_layer(x, lp, cache, cfg, qcfg, positions, *, mode, flush=True,
@@ -275,8 +304,8 @@ def forward(params: dict, tokens: torch.Tensor, caches: List, cfg:
             prev_len: int = 0,
             active: Optional[torch.Tensor] = None,
             fill_bound: Optional[int] = None, ingest: str = "quant",
-            tp=None, seq_group=None,
-            shared: int = 0) -> Tuple[torch.Tensor, List]:
+            tp=None, seq_group=None, shared: int = 0,
+            expert_log=None) -> Tuple[torch.Tensor, List]:
     """tokens (B, T) int; positions (B, T) int RoPE positions (for
     left-padded rows: cache index minus pad_len, clamped at 0).  The
     caches are updated in place.
@@ -309,8 +338,18 @@ def forward(params: dict, tokens: torch.Tensor, caches: List, cfg:
     logits are the last true token's (B, 1, vocab), computed by the
     rank holding it and broadcast.
 
+    An `ExaoneMoEConfig` runs its own block (`_hybrid_forward`);
+    expert_log: an `ExpertLog` its expert layers log their tokens to.
+
     Returns (logits (B, T, vocab) f32, caches); with last_only the logits
     are (B, 1, vocab) for the final position."""
+    if isinstance(cfg, ExaoneMoEConfig):
+        return _hybrid_forward(
+            params, tokens, caches, cfg, qcfg, positions, mode=mode,
+            last_only=last_only, flush=flush, pad_len=pad_len,
+            prev_len=prev_len, active=active, fill_bound=fill_bound,
+            ingest=ingest, tp=tp, seq_group=seq_group, shared=shared,
+            expert_log=expert_log)
     if seq_group is not None and mode != "prefill":
         raise ValueError("seq_group= is a prefill-only layout")
     x = params["embed"][tokens]
@@ -333,6 +372,117 @@ def forward(params: dict, tokens: torch.Tensor, caches: List, cfg:
     return _logits(x, params, cfg, tp), caches
 
 
+# ---------------------------------------------------------------------------
+# the K-EXAONE block (ExaoneMoEConfig): sliding layers on rings, full layers
+# on the KIVI (or fp) cache, post-norms, QK-norm, sparse experts
+# ---------------------------------------------------------------------------
+
+def _unsupported(what: str):
+    return NotImplementedError(
+        f"{what} is not supported with the sliding-ring layers of an "
+        "ExaoneMoEConfig (a ring slot holds a position, not a pad, a row "
+        "rollback or a shard)")
+
+
+def reject_rings(cfg: ModelConfig, what: str) -> None:
+    """Raise NotImplementedError naming `what` for an ExaoneMoEConfig:
+    the paths not ported to its rings call this first."""
+    if isinstance(cfg, ExaoneMoEConfig):
+        raise _unsupported(what)
+
+
+def _hybrid_forward(params, tokens, caches, cfg: ExaoneMoEConfig, qcfg,
+                    positions, *, mode, last_only, flush, pad_len, prev_len,
+                    active, fill_bound, ingest, tp, seq_group, shared,
+                    expert_log):
+    """forward for an ExaoneMoEConfig: every layer
+    x += post_attn_norm(attn(x)), then x += post_mlp_norm(mlp(x)).  Left
+    pads, the window-only ingest, frozen rows, tensor and sequence
+    parallel raise."""
+    for arg, what in ((pad_len, "pad_lens="), (active, "active="),
+                      (tp, "tensor parallel (tp=)"),
+                      (seq_group, "a sequence-parallel prefill (seq_group=)")):
+        if arg is not None:
+            raise _unsupported(what)
+    if ingest != "quant":
+        raise _unsupported(f"ingest={ingest!r}")
+    eps = cfg.rms_norm_eps
+    x = params["embed"][tokens]
+    for i, (lp, cache) in enumerate(zip(params["layers"], caches)):
+        h = _hybrid_attention(x, lp, cache, cfg, qcfg, positions, i,
+                              mode=mode, flush=flush, prev_len=prev_len,
+                              fill_bound=fill_bound, shared=shared)
+        x = x + rms_norm(h, lp["ln_post_attn"], eps)
+        h = (swiglu_mlp(x, lp["wg"], lp["wu"], lp["wd"])
+             if i < cfg.first_k_dense else moe_mlp(x, lp, cfg, expert_log))
+        x = x + rms_norm(h, lp["ln_post_mlp"], eps)
+    if last_only:
+        x = x[:, -1:]
+    return _logits(x, params, cfg, None), caches
+
+
+def _hybrid_attention(x, lp, cache, cfg: ExaoneMoEConfig, qcfg, positions,
+                      layer: int, *, mode, flush, prev_len, fill_bound,
+                      shared):
+    """QK-norm, RoPE on sliding layers only, then a sliding layer's ring
+    (`cache.ring_cache`) or a full layer's cache (`_cache_attention`,
+    with no window).  Returns the output projection (B, T, Hd)."""
+    B, T, _ = x.shape
+    Hq, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = (x @ lp["wq"]).reshape(B, T, Hq, D)
+    k = (x @ lp["wk"]).reshape(B, T, Hkv, D)
+    v = (x @ lp["wv"]).reshape(B, T, Hkv, D).transpose(1, 2)
+    q = rms_norm(q, lp["q_norm"], cfg.rms_norm_eps).transpose(1, 2)
+    k = rms_norm(k, lp["k_norm"], cfg.rms_norm_eps).transpose(1, 2)
+    if cfg.rotates(layer):
+        cos, sin = rope_cos_sin(positions, D, cfg.rope_theta,
+                                cfg.rope_scaling, cfg=cfg)
+        cos, sin = cos[:, None], sin[:, None]
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+    check_finite(k, f"layer {layer}: the keys appended to the cache")
+    check_finite(v, f"layer {layer}: the values appended to the cache")
+    if not cfg.sliding(layer):
+        out = _cache_attention(q, k, v, cache, qcfg, None, mode=mode,
+                               flush=flush, prev_len=prev_len,
+                               fill_bound=fill_bound, shared=shared)
+    elif mode == "prefill":
+        out = prefill_attention(q, k, v, sliding_window=cfg.sliding_window)
+        RC.ring_prefill(cache, k, v)
+    elif mode == "extend":
+        out = RC.ring_extend_attention(q, k, v, cache)
+        RC.ring_append(cache, k, v)
+    elif mode == "decode":
+        RC.ring_decode_append(cache, k, v)
+        out = RC.ring_decode_attention(q, cache)
+    else:
+        raise ValueError(f"unknown mode {mode!r}")
+    out = out.transpose(1, 2).reshape(B, T, Hq * D).to(x.dtype)
+    return out @ lp["wo"]
+
+
+def moe_mlp(x, lp, cfg: ExaoneMoEConfig, log=None) -> torch.Tensor:
+    """The expert layer over x (B, T, Hd): the sigmoid router over all
+    num_experts experts in f32, the experts_per_tok best of score +
+    correction bias, their scores normalised (norm_topk_prob) and scaled
+    by routed_scaling_factor; the held experts' part of the weighted sum
+    (kernels/moe_grouped.py, logged to `log`), plus the shared experts."""
+    B, T, Hd = x.shape
+    xf = x.reshape(-1, Hd)
+    s = torch.sigmoid(xf.float() @ lp["router"].float())
+    idx = torch.topk(s + lp["router_bias"], cfg.experts_per_tok,
+                     dim=-1).indices
+    w = s.gather(1, idx)
+    if cfg.norm_topk_prob:
+        w = w / (w.sum(-1, keepdim=True) + 1e-20)
+    w = w * cfg.routed_scaling_factor
+    out = moe_grouped.experts(xf, idx, w, lp["we_g"], lp["we_u"],
+                              lp["we_d"], cfg.experts_here[0], log)
+    if cfg.num_shared_experts:
+        out = out + swiglu_mlp(xf, lp["ws_g"], lp["ws_u"], lp["ws_d"])
+    return out.reshape(B, T, Hd)
+
+
 def _logits(x, params, cfg: ModelConfig, tp) -> torch.Tensor:
     """Final norm and lm_head, f32; under TP the vocab-split logits are
     gathered (bit-identical on every rank)."""
@@ -348,6 +498,8 @@ def init_caches(cfg: ModelConfig, qcfg: QuantConfig, batch: int,
     """List of per-layer caches, each preallocated at max_seq_len: KIVI
     caches when qcfg.quantize_kv, else fp caches (the baseline)."""
     device = resolve_device(device)
+    if isinstance(cfg, ExaoneMoEConfig):
+        return _hybrid_caches(cfg, qcfg, batch, max_seq_len, dtype, device)
     if not qcfg.quantize_kv:
         return [init_fp_cache(batch, cfg.num_kv_heads, cfg.head_dim,
                               max_seq_len, dtype, device)
@@ -355,6 +507,20 @@ def init_caches(cfg: ModelConfig, qcfg: QuantConfig, batch: int,
     return [KC.init_layer_cache(batch, cfg.num_kv_heads, cfg.head_dim,
                                 max_seq_len, qcfg, dtype, device)
             for _ in range(cfg.num_layers)]
+
+
+def _hybrid_caches(cfg: ExaoneMoEConfig, qcfg, batch, max_seq_len, dtype,
+                   device) -> List:
+    """A bf16 ring of sliding_window slots for each sliding layer, the
+    KIVI cache (the fp cache when not qcfg.quantize_kv) for each full
+    layer."""
+    H, D = cfg.num_kv_heads, cfg.head_dim
+    return [RC.init_ring_cache(batch, H, D, cfg.sliding_window, dtype,
+                               device) if cfg.sliding(i)
+            else KC.init_layer_cache(batch, H, D, max_seq_len, qcfg, dtype,
+                                     device) if qcfg.quantize_kv
+            else init_fp_cache(batch, H, D, max_seq_len, dtype, device)
+            for i in range(cfg.num_layers)]
 
 
 def init_slot_caches(cfg: ModelConfig, qcfg: QuantConfig, num_slots: int,
@@ -379,9 +545,13 @@ def flush_caches(caches, qcfg: QuantConfig, k: bool = False,
     Over per-row device counters: the masked flushes with no predicate,
     each row flushing its full window (KC.flush_k_masked /
     flush_v_masked), no counter read on the host; under a checked call
-    every row's window must be full (the schedule matches the cache)."""
+    every row's window must be full (the schedule matches the cache).
+    Rings (the sliding layers of an ExaoneMoEConfig) have no flush and
+    are skipped."""
     W = qcfg.residual_length
     for i, c in enumerate(caches):
+        if isinstance(c, RC.RingLayerCache):
+            continue
         per_row = isinstance(c.n_k_quant, torch.Tensor)
         if per_row and checking():
             full = ((c.n_k_win == W) | (not k)) & ((c.n_v_win == W) | (not v))
@@ -419,6 +589,11 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.bfloat16,
         return torch.ones(n, dtype=dtype, device=device)
 
     s = Hd ** -0.5
+    if isinstance(cfg, ExaoneMoEConfig):
+        layers = [_hybrid_layer_params(cfg, i, nrm, ones)
+                  for i in range(cfg.num_layers)]
+        return {"embed": nrm((V, Hd), 1.0), "layers": layers,
+                "ln_f": ones(Hd), "lm_head": nrm((Hd, V), s)}
     layers = [{
         "ln_attn": ones(Hd), "ln_mlp": ones(Hd),
         "wq": nrm((Hd, Hq * D), s), "wk": nrm((Hd, Hkv * D), s),
@@ -428,3 +603,32 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.bfloat16,
     } for _ in range(cfg.num_layers)]
     return {"embed": nrm((V, Hd), 1.0), "layers": layers,
             "ln_f": ones(Hd), "lm_head": nrm((Hd, V), s)}
+
+
+def _hybrid_layer_params(cfg: ExaoneMoEConfig, i: int, nrm, ones) -> dict:
+    """Layer i of an ExaoneMoEConfig: attention with its QK-norms and
+    post-norms, then the dense MLP (i < first_k_dense) or the router
+    (its correction bias f32, drawn nonzero), the held experts stacked
+    (E, in, out) and the shared experts side by side."""
+    Hq, Hkv, D, Hd = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+                      cfg.hidden_size)
+    s = Hd ** -0.5
+    lp = {"wq": nrm((Hd, Hq * D), s), "wk": nrm((Hd, Hkv * D), s),
+          "wv": nrm((Hd, Hkv * D), s), "wo": nrm((Hq * D, Hd), s),
+          "q_norm": ones(D), "k_norm": ones(D),
+          "ln_post_attn": ones(Hd), "ln_post_mlp": ones(Hd)}
+    if i < cfg.first_k_dense:
+        I = cfg.intermediate_size
+        lp.update(wg=nrm((Hd, I), s), wu=nrm((Hd, I), s),
+                  wd=nrm((I, Hd), I ** -0.5))
+        return lp
+    E, Ie = len(cfg.experts_here), cfg.moe_intermediate_size
+    Is = Ie * cfg.num_shared_experts
+    lp.update(router=nrm((Hd, cfg.num_experts), s),
+              router_bias=nrm((cfg.num_experts,), 0.1).float(),
+              we_g=nrm((E, Hd, Ie), s), we_u=nrm((E, Hd, Ie), s),
+              we_d=nrm((E, Ie, Hd), Ie ** -0.5))
+    if Is:
+        lp.update(ws_g=nrm((Hd, Is), s), ws_u=nrm((Hd, Is), s),
+                  ws_d=nrm((Is, Hd), Is ** -0.5))
+    return lp

@@ -144,6 +144,7 @@ class ContinuousBatcher:
                  prefill_chunk: int = 0, prefix=None, prefix_cache=None,
                  cache_dtype=torch.bfloat16, debug: bool = False,
                  mesh=None):
+        modeling.reject_rings(cfg, f"{type(self).__name__}")
         cfg = M.local_config(cfg, M.mesh_coords(mesh)[2])
         M.check_local_params(params, cfg)
         self.cfg, self.qcfg, self.params = cfg, qcfg, params

@@ -72,7 +72,23 @@ With the tracer on (utils/profiling.py): `engine.prefill_prefix`
 read once a layer, 0 off the shared-prefix route), whose last part is
 `engine.decode.read`, the counters' read.  The prefix prefill, the
 prologue and the decode are timed on the device too; no span sits
-inside a captured step.
+inside a captured step.  Over an `ExaoneMoEConfig` those three spans
+also carry `ring_layers` (the layers on rings) and, from the expert
+log (`self.experts`, kernels/moe_grouped.ExpertLog: the tokens on each
+held expert at every expert-layer call, logged on the device inside the
+steps), `routed` (the (token, expert) pairs routed to the held experts),
+`expert_max` (the most on one held expert in one call) and
+`experts_idle` (held experts without a token, summed over the calls):
+device scalars that the tracer reads when it drains, so that no span
+adds a host read.
+
+An `ExaoneMoEConfig` (sliding layers on bf16 rings, full layers on the
+KIVI or fp cache, sparse experts; models/modeling.py) runs through the
+same prefill, extend, fan-out, flush schedule and replayed decode: the
+rings have no flush, fan out by copying their slots, and their counters
+move with the others' (`cache/ring_cache.py`); `shared` is read from
+the KIVI layers.  Left pads, beam search, snapshots on disk and a mesh
+raise NotImplementedError over its rings.
 """
 
 from __future__ import annotations
@@ -89,16 +105,18 @@ import torch
 
 from kivi_tpu_torch.cache import fp_cache as FC
 from kivi_tpu_torch.cache import kivi_cache as KC
+from kivi_tpu_torch.cache import ring_cache as RC
 from kivi_tpu_torch.cache.kivi_cache import nvq_canonical
-from kivi_tpu_torch.config import ModelConfig, QuantConfig
+from kivi_tpu_torch.config import ExaoneMoEConfig, ModelConfig, QuantConfig
 from kivi_tpu_torch.kernels.decode_prefix import shared_positions
+from kivi_tpu_torch.kernels.moe_grouped import ExpertLog
 from kivi_tpu_torch.models import modeling
 from kivi_tpu_torch.parallel import mesh as M
 from kivi_tpu_torch.parallel.ring import seq_layout
 from kivi_tpu_torch.serving import sampling
 from kivi_tpu_torch.utils.graphs import StepGraphs
 from kivi_tpu_torch.utils.guards import checked_call
-from kivi_tpu_torch.utils.profiling import span
+from kivi_tpu_torch.utils.profiling import TRACER, span
 
 FILL_BUCKET = 512   # the decode fill bound's rounding (one graph per bucket)
 NEG = -1e9          # a finished beam's log-probability of any token but EOS
@@ -181,7 +199,11 @@ def save_prefix_snapshot(path: str, snap: PrefixSnapshot) -> None:
     cache kind, layer count, field names and each layer's host-int
     counters) and <path>/tensors.pt, `torch.save` of the token ids and
     each layer's tensors on the CPU.  The JAX package writes an orbax
-    tree instead (ROADMAP Queue 3)."""
+    tree instead (ROADMAP Queue 3).  A snapshot with ring layers is not
+    written (one cache kind a snapshot)."""
+    if any(isinstance(c, RC.RingLayerCache) for c in snap.caches):
+        raise NotImplementedError("saving a snapshot of the sliding-ring "
+                                  "layers of an ExaoneMoEConfig")
     layers, counters = [], []
     for c in snap.caches:
         t, n = {}, {}
@@ -325,6 +347,9 @@ class Engine:
                  max_seq_len: int, batch_size: int, device=None,
                  cache_dtype=torch.bfloat16, debug: bool = False,
                  mesh=None):
+        if mesh is not None:
+            modeling.reject_rings(cfg, "Engine(mesh=) (tensor parallel)")
+        hybrid = isinstance(cfg, ExaoneMoEConfig)
         n_data, _, n_model, _ = M.mesh_coords(mesh)
         self.mesh = mesh
         self.cfg, self.qcfg, self.params = (M.local_config(cfg, n_model),
@@ -336,8 +361,16 @@ class Engine:
         self.device = modeling.resolve_device(device)
         self.cache_dtype = cache_dtype
         self.debug = debug
+        # the tokens on each held expert, per expert-layer call
+        self.experts = (ExpertLog(len(cfg.experts_here), self.device)
+                        if hybrid else None)
+        # the counters' module: rings beside KIVI caches, KIVI, or fp
+        self._cm = RC if hybrid else KC if qcfg.quantize_kv else FC
         # the model, with this rank's tensor-parallel group
         self._model = functools.partial(modeling.forward, tp=self.tp)
+        if hybrid:
+            self._model = functools.partial(self._model,
+                                            expert_log=self.experts)
         self._forward = (checked_call(self._model) if debug
                          else self._model)
         self._flush = (checked_call(modeling.flush_caches) if debug
@@ -353,6 +386,23 @@ class Engine:
                                     batch or self.batch_size,
                                     self.max_seq_len, self.cache_dtype,
                                     self.device)
+
+    def _experts_since(self):
+        """The expert log's count as a span opens (the tracer on; None
+        otherwise, and for a block without experts)."""
+        if self.experts is None or not TRACER.on:
+            return None
+        return self.experts.n.clone()
+
+    def _experts_close(self, sp, since) -> None:
+        """A span's expert counts, from the calls logged since it opened
+        (module docstring): device scalars, read when the tracer drains."""
+        if since is None:
+            return
+        sp.attrs["ring_layers"] = self.cfg.ring_layers
+        t = self.experts.totals(since)
+        for i, k in enumerate(("routed", "expert_max", "experts_idle")):
+            sp.attrs[k] = t[i]
 
     def own_caches(self):
         """The engine's own caches, those every prompt prologue writes:
@@ -496,6 +546,7 @@ class Engine:
         sequence-parallel over that mesh axis (`prefill_seqpar`: the
         exact-attention class, unlike chunking)."""
         with span("engine.prefill_prefix", device=self.device) as sp:
+            since = self._experts_since()
             tokens = torch.as_tensor(tokens, device=self.device)
             tokens = tokens.reshape(1, -1).to(torch.int64)
             sp.attrs["tokens"] = tokens.shape[1]
@@ -507,6 +558,7 @@ class Engine:
                 self._prefill(tokens, caches)
             else:
                 self.prefill_chunked(tokens, chunk_size, caches)
+            self._experts_close(sp, since)
             return PrefixSnapshot(caches=caches, tokens=tokens)
 
     def extend(self, snapshot: PrefixSnapshot, tokens) -> PrefixSnapshot:
@@ -573,7 +625,8 @@ class Engine:
         use_pen = repetition_penalty != 1.0 and seen is not None
         fb = fill_bound(prompt_len, steps)
         with span("engine.decode", device=self.device, steps=steps, fb=fb,
-                  flushes=len(events), shared=shared):
+                  flushes=len(events), shared=shared) as sp:
+            since = self._experts_since()
             teach = forced is not None
             st = self._decode_begin(first, pos, caches, pad_lens,
                                     seen if use_pen else None, forced,
@@ -601,7 +654,9 @@ class Engine:
                     self.graphs.run(key, body, gens)
                 else:
                     body()
-            return self._decode_end(st, steps), caches
+            out = self._decode_end(st, steps)
+            self._experts_close(sp, since)
+            return out, caches
 
     def _decode_begin(self, first, pos, caches, pad_lens, seen,
                       forced=None, n_forced=None) -> _DecodeState:
@@ -624,8 +679,7 @@ class Engine:
                 out=z(B, self.max_seq_len, dt=torch.int32), step=z(1),
                 logits=z(B, self.cfg.vocab_size, dt=torch.float32))
         st.caches = caches
-        cm = KC if self.qcfg.quantize_kv else FC
-        st.counters = cm.counters_to_device(caches, st.counters)
+        st.counters = self._cm.counters_to_device(caches, st.counters)
         st.token.copy_(first.reshape(B, 1))
         st.pos.copy_(torch.as_tensor(pos).reshape(B, 1))
         if pad_lens is not None:
@@ -682,9 +736,8 @@ class Engine:
 
     def _decode_end(self, st: _DecodeState, steps: int) -> torch.Tensor:
         """The counters back to host ints (one read); the tokens."""
-        cm = KC if self.qcfg.quantize_kv else FC
         with span("engine.decode.read"):
-            cm.counters_to_host(st.caches, st.counters)
+            self._cm.counters_to_host(st.caches, st.counters)
         return st.out[:, :steps].clone()
 
     def _ingest_prompt(self, tokens, max_new_tokens: int, *, pad_lens=None,
@@ -708,7 +761,8 @@ class Engine:
         than one row and no mesh, it records `shared` (module
         docstring); every other prologue records 0."""
         with span("engine.ingest", device=self.device,
-                  prefix=0 if prefix is None else prefix.length):
+                  prefix=0 if prefix is None else prefix.length) as sp:
+            since = self._experts_since()
             tokens = torch.as_tensor(tokens, device=self.device)
             B, T = tokens.shape
             n_real = B
@@ -790,9 +844,11 @@ class Engine:
             shared = 0
             if (prefix is not None and self.qcfg.quantize_kv and B > 1
                     and self.mesh is None):
-                c = prefix.caches[0]
+                c = next(c for c in prefix.caches
+                         if isinstance(c, KC.KiviLayerCache))
                 shared = shared_positions(c.n_k_quant, c.n_v_quant,
                                           self.qcfg.group_size)
+            self._experts_close(sp, since)
             return _Prompt(first=first, caches=caches, pos=pos, pad=pad,
                            seen=seen, Tp=Tp, n_real=n_real, logits=logits,
                            ragged=ragged, shared=shared)
@@ -1021,6 +1077,7 @@ class Engine:
         length ** penalty.  prefix: as in generate(), every beam sharing
         the fanned-out snapshot.  tokens may be LEFT-padded (pad_lens
         (B,)) without a prefix."""
+        modeling.reject_rings(self.cfg, "beam search")
         tokens = torch.as_tensor(tokens, device=self.device)
         B, T = tokens.shape
         nb = num_beams

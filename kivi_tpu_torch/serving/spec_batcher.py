@@ -112,6 +112,7 @@ class SpeculativeBatcher(ContinuousBatcher):
                  device=None,
                  prompt_buckets=(128, 256, 512, 1024, 2048, 4096),
                  cache_dtype=torch.bfloat16, debug: bool = False):
+        modeling.reject_rings(dcfg, "SpeculativeBatcher's draft")
         super().__init__(cfg, qcfg, params, num_slots, max_seq_len,
                          device=device, prompt_buckets=prompt_buckets,
                          cache_dtype=cache_dtype, debug=debug)

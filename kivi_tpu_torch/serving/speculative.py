@@ -68,6 +68,7 @@ import torch
 from kivi_tpu_torch.cache import fp_cache as FC
 from kivi_tpu_torch.cache import kivi_cache as KC
 from kivi_tpu_torch.cache.kivi_cache import nvq_canonical
+from kivi_tpu_torch.models import modeling
 from kivi_tpu_torch.serving import sampling
 from kivi_tpu_torch.serving.engine import Engine, fill_bound, nkq_prefill
 from kivi_tpu_torch.utils.graphs import StepGraphs
@@ -175,6 +176,8 @@ class SpeculativeEngine:
     eagerly as a checked call (module docstring)."""
 
     def __init__(self, target: Engine, draft: Engine, k: int = 8):
+        for eng, role in ((target, "target"), (draft, "draft")):
+            modeling.reject_rings(eng.cfg, f"SpeculativeEngine's {role}")
         if target.batch_size != 1 or draft.batch_size != 1:
             raise ValueError("speculative decoding is batch_size=1 only")
         if target.cfg.vocab_size != draft.cfg.vocab_size:

@@ -157,7 +157,10 @@ class Tracer:
 
     def drain(self) -> list:
         """The spans recorded so far, which the tracer forgets; each
-        device span's `device_ms` read (after a sync of its device)."""
+        device span's `device_ms` read (after a sync of its device), and
+        each attribute set to a device tensor read to a number or list
+        (counts kept on the device, read here and not where they were
+        set)."""
         for dev in self._pending:
             torch.cuda.synchronize(dev)
         self._pending = set()
@@ -166,6 +169,9 @@ class Tracer:
             if s._events is not None:
                 s.device_ms = s._events[0].elapsed_time(s._events[1])
                 s._events = None
+            for k, v in s.attrs.items():
+                if isinstance(v, torch.Tensor):
+                    s.attrs[k] = v.tolist()
         return out
 
 

@@ -31,12 +31,19 @@ Tolerances (chip_smoke.py's):
     scale and V^ = code * scale + mn to bf16 once, p to bf16, f32
     accumulation) where the plain version computes in f32, and behind a
     long document the prefix holds nearly all of each row's softmax
-    mass; row 6's own part is f32 and adds nothing near that limit.
+    mass; row 6's own part is f32 and adds nothing near that limit;
+  * the grouped expert GEMM (row 13, kernels/moe_grouped.py): each
+    launch row by row against its plain version, h within
+    profile_moe.GATE_RTOL (one bf16 rounding of the row's largest value)
+    and the f32 output, given the same h, within DOWN_RTOL (f32 sums in
+    another order), beside a control that moves one pair to the next
+    expert and must fail (`profile_moe.hold`).
 """
 
 import pytest
 import torch
 
+from kivi_tpu_torch import profile_moe as PM
 from kivi_tpu_torch import profile_qk_pv as PQ
 from kivi_tpu_torch import profile_quant as PQ8
 from kivi_tpu_torch import profile_wide_32k as PW
@@ -50,6 +57,7 @@ from kivi_tpu_torch.kernels import flash_extend as FE
 from kivi_tpu_torch.kernels import fp_decode as FD
 from kivi_tpu_torch.kernels import fused_decode as FR
 from kivi_tpu_torch.kernels import fused_decode_wide as FW
+from kivi_tpu_torch.kernels import moe_grouped as MG
 from kivi_tpu_torch.kernels import qk_pv as QP
 from kivi_tpu_torch.kernels import quant_pack as QW
 from kivi_tpu_torch.utils import tolerance as TOL
@@ -927,3 +935,73 @@ def test_shared_route_kernel_names(cuda):
     assert any("prefix_kernel" in n for n in names), names
     assert any("decode_kernel" in n for n in names), names
     assert all("Ablation<0>, true>" in n for n in names), names
+
+
+# tokens, skewed routing, first held expert: the K-EXAONE cell's decode
+# step (row tiles of 32) and a prompt call (row tiles of 128), a count no
+# tile divides, a shard other than the first
+MOE_CASES = [(256, False, 0), (256, True, 0), (37, True, 0),
+             (4000, False, 0), (4000, True, 0), (256, True, 48)]
+
+
+@pytest.mark.parametrize("n,skew,first", MOE_CASES)
+def test_moe_grouped_matches_plain(cuda, n, skew, first):
+    """Row 13's two launches against their plain versions at the cell's
+    widths (hidden 6144, experts of 2048, 16 held, top-8), the skewed
+    routings putting every token on two held experts and none on two
+    others (`profile_moe.hold`)."""
+    res = PM.hold(*PM.inputs(n, seed=n + first, skew=skew, first=first),
+                  first=first, what=f"N={n} skew={skew} first={first}")
+    if skew:
+        assert res["counts_min_max"] == [0, n]
+    for name in ("gate_up", "down"):
+        assert res[name]["worst_share"] <= 1 < res[name]["control_share"]
+
+
+def test_moe_grouped_graph_replay(cuda):
+    """`moe_grouped.experts` captured in a CUDA graph over fixed input
+    tensors and replayed for three routings (each copied into them): each
+    replay within one bf16 rounding of the eager call on its own inputs
+    (the down launch adds a token's pairs in no fixed order)."""
+    calls = [PM.inputs(256, seed=s, skew=s == 2) for s in range(3)]
+    wg, wu, wd = calls[0][3:]
+    x, idx, w = (t.clone() for t in calls[0][:3])
+    out = {}
+
+    def body():
+        out["o"] = MG.experts(x, idx, w, wg, wu, wd, 0)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        body()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        body()
+    for j in (1, 2, 0):
+        for dst, src in zip((x, idx, w), calls[j][:3]):
+            dst.copy_(src)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = MG.experts(*calls[j][:3], wg, wu, wd, 0)
+        TOL.check_rows(out["o"], want, PM.GATE_RTOL, f"graph routing {j}")
+
+
+def test_moe_grouped_kernel_names(cuda):
+    """Both launches carry the name fragment `moe_grouped` that
+    kvbench's expert_roofline.gen reads, and a call launches no other
+    kernel of this library."""
+    from torch.autograd import DeviceType
+    x, idx, w, wg, wu, wd = PM.inputs(256)
+    tok, ws, off, _, P = MG.plan(idx, w, 0, wg.shape[0])
+    out = torch.zeros(256, wd.shape[-1], dtype=torch.float32, device="cuda")
+    MG.down(MG.gate_up(x, tok, off, wg, wu, P), tok, ws, off, wd, out)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        MG.down(MG.gate_up(x, tok, off, wg, wu, P), tok, ws, off, wd, out)
+        torch.cuda.synchronize()
+    names = [e.name() for e in prof.profiler.kineto_results.events()
+             if e.device_type() == DeviceType.CUDA]
+    assert sum("moe_grouped" in n for n in names) == 2, names
